@@ -1,0 +1,276 @@
+"""Uplink transport: chunked wire format for client updates.
+
+A client update is serialised as a sequence of fixed-size chunks of the flat
+``(P,)`` ``ParamPacker`` vector, and the server decodes each chunk straight
+into its ``(K, P)`` buffer slot (``IngestSession``) — no host staging, no
+(P,)-sized reassembly buffer on the server.  With many uploads in flight,
+sessions route their chunk writes through a shared :class:`IngestBatcher`
+(one indexed write per flush instead of one write per chunk); committed
+slots are bit-identical to the eager path.
+
+Chunk encode/decode lives in :mod:`repro_torch.runtime.codecs` (raw f32 in
+this port).  This module keeps what is uplink-shaped: the payload object,
+the client-side encoder, and the server-side streaming ingest.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+
+from repro_torch.runtime.codecs import (
+    Chunk, WireFormat, decode_chunk, decode_concat, encode_flat,
+)
+from repro_torch.runtime.telemetry import Telemetry, of as _tel_of
+
+__all__ = [
+    "UploadPayload",
+    "encode_update",
+    "IngestBatcher",
+    "IngestSession",
+]
+
+
+# --------------------------------------------------------------- client side
+
+@dataclass
+class UploadPayload:
+    """One client upload as it travels on the wire."""
+    cid: int
+    version: int                 # t_k: round the client trained from
+    n_epochs: int
+    scheme: str
+    param_size: int
+    chunks: list[Chunk] = field(default_factory=list)
+    nbytes: int = 0              # total wire bytes (headers included)
+
+
+def encode_update(cid: int, version: int, n_epochs: int,
+                  flat_params: torch.Tensor,
+                  fmt: WireFormat) -> UploadPayload:
+    """Client-side encoder: flat params -> wire payload (raw schemes ship
+    the params themselves)."""
+    if fmt.delta_coded:
+        raise NotImplementedError(
+            f"delta-coded wire scheme {fmt.scheme!r} is not ported yet")
+    chunks = encode_flat(flat_params, fmt)
+    return UploadPayload(
+        cid=cid, version=version, n_epochs=n_epochs, scheme=fmt.scheme,
+        param_size=int(flat_params.shape[0]), chunks=chunks,
+        nbytes=sum(c.nbytes for c in chunks))
+
+
+# --------------------------------------------------------------- server side
+
+# Auto-bypass probe: coalescing can lose on *large* chunks, where one indexed
+# write of many full-width rows costs more than the independent per-chunk
+# copies it replaces.  Tiny chunks always win by batching, so the probe only
+# runs at or above this element count.
+_BYPASS_MIN_ELEMS = 4096
+
+# (chunk_elems, dtype, flush_chunks, device) -> bypass?  One timing probe per
+# distinct shape per process; every batcher after that reads the cache.
+_bypass_probe_cache: dict[tuple, bool] = {}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _coalescing_loses(length: int, dtype, flush_chunks: int,
+                      device: torch.device) -> bool:
+    """Cheap startup probe: time one flush-sized run of eager per-chunk
+    writes against one batched write of the same writes on a scratch
+    buffer, and report whether the batch is slower.  Both paths are warmed
+    first, and on CUDA each timing is closed by a synchronise, so the probe
+    times the device work and not the enqueue."""
+    from repro_torch.core.buffer import UpdateBuffer
+
+    key = (int(length), str(dtype), int(flush_chunks), str(device))
+    hit = _bypass_probe_cache.get(key)
+    if hit is not None:
+        return hit
+    rows = max(2, min(int(flush_chunks), 8))
+    scratch = UpdateBuffer(rows, param_size=int(length) * 2, dtype=dtype,
+                           device=device)
+    vals = torch.ones((int(length),), dtype=torch.float32, device=device)
+    items = [(i % rows, (i % 2) * int(length), vals)
+             for i in range(int(flush_chunks))]
+    scratch.write_range(0, 0, vals)                      # warm eager path
+    scratch.write_batch(list(items))                     # warm batched path
+    _sync(device)
+
+    def eager():
+        for slot, start, v in items:
+            scratch.write_range(slot, start, v)
+        _sync(device)
+
+    def batched():
+        scratch.write_batch(list(items))
+        _sync(device)
+
+    def once(fn) -> float:
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    t_eager = min(once(eager) for _ in range(3))
+    t_batch = min(once(batched) for _ in range(3))
+    loses = t_batch > t_eager
+    _bypass_probe_cache[key] = loses
+    return loses
+
+
+class IngestBatcher:
+    """Batch queue for the multi-client streaming path.
+
+    Sessions enqueue their decoded chunk writes here instead of writing
+    each one; a *flush* swaps the fill queue out and lands the whole batch
+    with one indexed write per chunk-length group
+    (``UpdateBuffer.write_batch``).  In steady state there are at most two
+    lengths: full chunks and tails.
+
+    Correctness contract: committed slots are bit-identical to the eager
+    per-chunk path (same decode, same destination windows — rows are
+    disjoint across sessions and in-order within one).  The server flushes
+    before any ``commit`` so readers only see flushed rows, and
+    ``cancel_slot`` drops a dead upload's queued writes so a recycled row
+    can never be corrupted by a stale write.
+    """
+
+    def __init__(self, buffer, flush_chunks: int = 16,
+                 auto_bypass: bool = False,
+                 telemetry: Optional[Telemetry] = None):
+        self.tel = _tel_of(telemetry)
+        self.buffer = buffer
+        self.flush_chunks = max(1, int(flush_chunks))
+        self.auto_bypass = bool(auto_bypass)
+        self._bypass: Optional[bool] = None   # verdict, decided once
+        self._fill: list[tuple[int, int, torch.Tensor]] = []
+        self.flushes = 0
+        self.chunks_batched = 0
+        self.chunks_bypassed = 0     # eager pass-through writes (auto-bypass)
+        self.batch_writes = 0        # indexed writes actually made
+
+    @property
+    def pending(self) -> int:
+        return len(self._fill)
+
+    def enqueue(self, slot: int, start: int, vals: torch.Tensor) -> None:
+        if self.auto_bypass and int(vals.shape[0]) >= _BYPASS_MIN_ELEMS:
+            if self._bypass is None:
+                self._bypass = _coalescing_loses(
+                    int(vals.shape[0]), self.buffer.dtype, self.flush_chunks,
+                    self.buffer.device)
+                self.tel.gauge("ingest.bypass_verdict",
+                               1.0 if self._bypass else 0.0)
+            if self._bypass:
+                # eager pass-through: every (slot, window) on the wire is
+                # disjoint, so order against queued writes does not matter
+                self.buffer.write_range(slot, start, vals)
+                self.chunks_bypassed += 1
+                self.tel.counter("ingest.chunks_bypassed")
+                return
+        self._fill.append((slot, start, vals))
+        if len(self._fill) >= self.flush_chunks:
+            self.flush()
+
+    def cancel_slot(self, slot: int) -> None:
+        """Drop queued writes for a dead upload before its row is recycled."""
+        self._fill = [w for w in self._fill if w[0] != slot]
+
+    def flush(self) -> None:
+        if not self._fill:
+            return
+        batch, self._fill = self._fill, []
+        groups: dict[int, list] = {}
+        for slot, start, vals in batch:
+            groups.setdefault(int(vals.shape[0]), []).append(
+                (slot, start, vals))
+        for length in sorted(groups):
+            self.buffer.write_batch(groups[length])
+            self.batch_writes += 1
+        self.flushes += 1
+        self.chunks_batched += len(batch)
+        self.tel.counter("ingest.flushes")
+        self.tel.histogram("ingest.flush_chunks", len(batch))
+
+
+class IngestSession:
+    """Server-side decoder for one in-flight upload.
+
+    Each wire chunk is decoded and written straight into the reserved
+    ``(K, P)`` buffer slot — in place in eager mode, or enqueued on the
+    shared :class:`IngestBatcher` in batched mode.  Chunks must arrive in
+    order (start == elements ingested so far), which the sequential wire
+    framing guarantees.
+    """
+
+    def __init__(self, buffer, slot: int, fmt: WireFormat,
+                 param_size: Optional[int] = None,
+                 batcher: Optional[IngestBatcher] = None):
+        if fmt.delta_coded:
+            raise NotImplementedError(
+                f"delta-coded wire scheme {fmt.scheme!r} is not ported yet")
+        self.buffer = buffer
+        self.slot = int(slot)
+        self.fmt = fmt
+        self.param_size = int(param_size if param_size is not None
+                              else buffer.param_size)
+        self.batcher = batcher
+        self.covered = 0             # elements ingested so far (in order)
+        self.nbytes = 0              # wire bytes seen
+
+    def _check(self, chunk: Chunk, expected: int) -> None:
+        if chunk.start != expected:
+            raise ValueError(
+                f"out-of-order chunk: start={chunk.start}, "
+                f"expected {expected}")
+        if chunk.start + chunk.length > self.param_size:
+            raise ValueError("chunk overruns the parameter vector")
+
+    def write(self, chunk: Chunk) -> None:
+        self._check(chunk, self.covered)
+        vals = decode_chunk(chunk, self.fmt)
+        if chunk.length:
+            if self.batcher is not None:
+                self.batcher.enqueue(self.slot, chunk.start, vals)
+            else:
+                self.buffer.write_range(self.slot, chunk.start, vals)
+        self.covered += chunk.length
+        self.nbytes += chunk.nbytes
+
+    def write_all(self, chunks: list[Chunk]) -> None:
+        """Coalesced write of one drained batch of in-order chunks: the
+        sequential framing makes them one contiguous window, decoded once
+        and written with a single in-place write.  Values are bit-identical
+        to chunk-by-chunk ``write``.  The whole batch is validated before
+        any state changes, so a bad batch raises with the session
+        untouched."""
+        start = end = self.covered
+        nbytes = 0
+        for chunk in chunks:
+            self._check(chunk, end)
+            end += chunk.length
+            nbytes += chunk.nbytes
+        if end > start:
+            self.buffer.write_range(self.slot, start,
+                                    decode_concat(chunks, self.fmt))
+        self.covered = end
+        self.nbytes += nbytes
+
+    @property
+    def complete(self) -> bool:
+        return self.covered == self.param_size
+
+    def finish(self) -> int:
+        """Validate full coverage; returns total wire bytes ingested."""
+        if not self.complete:
+            raise ValueError(
+                f"incomplete upload: {self.covered}/{self.param_size} "
+                "elements ingested")
+        return self.nbytes

@@ -27,6 +27,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running integration/dryrun test; skipped unless --runslow")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

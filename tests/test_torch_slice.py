@@ -1,0 +1,157 @@
+"""The slice as a whole: the port's simulation replays the JAX package's on
+the integration workload (``test_integration_fl.exp_cfg``: tiny task, mlp,
+16 clients) from the same initial params.
+
+Held equal: event times, contributors, staleness and dispatch lists of every
+aggregation.  Held close: aggregation weights (<= 1e-5) and accuracy (within
+0.02); training runs in another framework, so params differ in the last
+f32 bits and the weights' cosine terms with them.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_integration_fl import exp_cfg  # noqa: E402
+
+from repro.data.partition import dirichlet_partition as jax_partition  # noqa: E402
+from repro.data.synthetic import make_image_dataset as jax_dataset  # noqa: E402
+from repro.experiment import build_experiment as jax_build  # noqa: E402
+from repro.runtime.scheduler import make_scheduler as jax_scheduler  # noqa: E402
+from repro_torch.core.server import FLConfig, SeaflServer  # noqa: E402
+from repro_torch.data.partition import dirichlet_partition  # noqa: E402
+from repro_torch.data.synthetic import make_image_dataset  # noqa: E402
+from repro_torch.experiment import ExperimentConfig, build_experiment  # noqa: E402
+from repro_torch.runtime.scheduler import make_scheduler  # noqa: E402
+from repro_torch.runtime.simulator import SimConfig  # noqa: E402
+
+ROUNDS = 4
+
+
+def _record_events(sim):
+    events = []
+    agg = sim.server._aggregate
+
+    def wrapped(now):
+        ev = agg(now)
+        events.append(ev)
+        return ev
+
+    sim.server._aggregate = wrapped
+    return events
+
+
+def _port_cfg(jc):
+    return ExperimentConfig(
+        dataset=jc.dataset, model=jc.model, n_train=jc.n_train,
+        n_test=jc.n_test, dirichlet_alpha=jc.dirichlet_alpha,
+        fl=FLConfig(**dataclasses.asdict(jc.fl)),
+        sim=SimConfig(**dataclasses.asdict(jc.sim)), eval_every=jc.eval_every,
+        seed=jc.seed, device="cpu")
+
+
+CHURN = dict(fail_prob=0.2, recover_after=5.0, availability="longtail",
+             avail_mean_on=20.0, avail_mean_off=5.0, bandwidth_model="pareto")
+
+
+@pytest.mark.parametrize("algorithm,fl_kw,sim_kw", [
+    ("seafl", {}, {}), ("fedasync", {}, {}), ("seafl2", {}, {}),
+    ("fedbuff", {}, {}), ("fedavg", {}, {}),
+    ("seafl", {"buffer_dtype": "bfloat16", "telemetry": True}, {}),
+    ("seafl", {"scheduler": "rate_staleness"}, CHURN),
+    ("seafl2", {}, dict(CHURN, speed_model="zipf")),
+], ids=["seafl", "fedasync", "seafl2", "fedbuff", "fedavg",
+        "seafl-bf16-telemetry", "seafl-churn-ranked", "seafl2-churn-zipf"])
+def test_simulation_replays_jax(algorithm, fl_kw, sim_kw):
+    """Crashes, churn, the bandwidth model and the ranked scheduler run in
+    the last two cases: their RNG streams and events must replay too.  With
+    telemetry on, the same metrics are recorded (values of wall-clock
+    metrics differ)."""
+    jc = exp_cfg(algorithm, **fl_kw)
+    jc.sim = dataclasses.replace(jc.sim, **sim_kw)
+    jsim, jmodel, _ = jax_build(jc)
+    params0 = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(jc.seed)))
+    j_events = _record_events(jsim)
+    j_hist = jsim.run(max_rounds=ROUNDS)
+
+    tsim, _, _ = build_experiment(_port_cfg(jc), params=params0)
+    t_events = _record_events(tsim)
+    t_hist = tsim.run(max_rounds=ROUNDS)
+
+    assert len(t_hist) == len(j_hist) == ROUNDS
+    for j, t in zip(j_hist, t_hist):
+        assert t["time"] == j["time"] and t["round"] == j["round"]
+        assert t["bytes"] == j["bytes"] and t["bytes_down"] == j["bytes_down"]
+        assert abs(t["acc"] - j["acc"]) <= 0.02
+        assert t.keys() == j.keys()
+        if "telemetry" in j:
+            for kind in ("counters", "gauges", "histograms"):
+                assert t["telemetry"][kind].keys() == \
+                    j["telemetry"][kind].keys(), kind
+            assert t["telemetry"]["counters"]["ingest.commits"] == \
+                j["telemetry"]["counters"]["ingest.commits"]
+    for j, t in zip(j_events, t_events):
+        assert t.contributors == j.contributors
+        assert t.dispatch == j.dispatch and t.notify == j.notify
+        np.testing.assert_array_equal(t.staleness, j.staleness)
+        if j.weights is None:
+            assert t.weights is None
+        else:
+            np.testing.assert_allclose(t.weights, j.weights, atol=1e-5)
+    np.testing.assert_allclose(tsim.server.global_flat.numpy(),
+                               np.asarray(jsim.server.global_flat),
+                               atol=1e-4)
+
+
+def test_data_is_array_equal():
+    for name in ("tiny", "cifar-like"):
+        jt, jv, jm = jax_dataset(name, 300, 50, seed=4)
+        tt, tv, tm = make_image_dataset(name, 300, 50, seed=4)
+        assert jm == tm
+        for a, b in ((jt, tt), (jv, tv)):
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+        for alpha in (0.3, 5.0):
+            for a, b in zip(jax_partition(jt["y"], 7, alpha, seed=4),
+                            dirichlet_partition(tt["y"], 7, alpha, seed=4)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("policy", ["random", "stragglers_last",
+                                    "rate_staleness"])
+def test_scheduler_draws_like_jax(policy):
+    js, ts = jax_scheduler(policy), make_scheduler(policy)
+    jr, tr = np.random.default_rng(2), np.random.default_rng(2)
+    pool = list(range(30))
+    for step in range(20):
+        for s in (js, ts):
+            s.observe_round(step % 30, 1.0 + (step * 7) % 5)
+            s.observe_aggregation(step, 10.0 * step)
+        assert ts.select(pool, 4, tr, step) == js.select(pool, 4, jr, step)
+    assert tr.bit_generator.state == jr.bit_generator.state
+
+
+def test_unported_options_raise():
+    params = {"w": torch.zeros(4)}
+    for kw in ({"compression": "topk:0.1"}, {"compression": "bf16"},
+               {"dispatch_compression": "f32"}, {"cohorts": "on"},
+               {"monitor": "on"}, {"autotune": "cache"},
+               {"telemetry_kernels": True}):
+        with pytest.raises(NotImplementedError):
+            SeaflServer(FLConfig(**kw), params, {0: 1}, device="cpu")
+    with pytest.raises(ValueError):
+        SeaflServer(FLConfig(compression="zstd"), params, {0: 1},
+                    device="cpu")
+    SeaflServer(FLConfig(compression="f32", buffer_dtype="bfloat16"), params,
+                {0: 1}, device="cpu")
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        SeaflServer(FLConfig(), {"w": torch.zeros(4)}, {0: 1})
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build_experiment(ExperimentConfig())
