@@ -1,27 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of SEAFL (src/repro_torch) on one CUDA card.
+"""Drive the PyTorch port of SEAFL (src/repro_torch) on one CUDA card: the
+federated simulation and the LM serving path.
 
     python3 chip_smoke.py
 
 Phases, each printing its lines; no phase's failure is caught:
 
   1. device   the card, its power limit (nvidia-smi), torch and CUDA versions
-  2. build    nvcc builds the seafl_agg kernels from the sources in src/
-              (time and -Xptxas -v output)
+  2. build    nvcc builds every kernel from the sources in src/ (seafl_agg,
+              flash_attention, rglru, ssd; one nvcc per source, all started
+              together), with the time and -Xptxas -v output
   3. parity   each kernel against its plain PyTorch version on the same
-              inputs, at the main path's shape (K=10 rows of ResNet-18's
-              P=11,176,970) with f32 and bf16 rows, and at ragged shapes
-  4. timing   each kernel, its plain version and (for weighted_agg) the one
+              inputs, each launched twice and required bit-identical:
+              seafl_agg at the FL path's shape (K=10 rows of ResNet-18's
+              P=11,176,970) with f32 and bf16 rows; flash attention, the
+              RG-LRU scan and the SSD forward at the serving path's shapes
+              (recurrentgemma-2b / mamba2-1.3b prefill of 4 x 4096 tokens)
+              and at ragged ones
+  4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
               beside the least time the card could take (bound_ms)
   5. e2e      the SEAFL simulation (ExperimentConfig -> build_experiment ->
               FLSimulation.run) on ResNet-18 at full width for 3
-              aggregations; the kernels' launch counts are zeroed just before
+              aggregations; the seafl_agg launch counts are zeroed just before
               and must equal the rounds run.  Then each algorithm runs on the
               small task on the card and on the CPU (plain versions), and
               the two runs must agree.
-  6. result   one JSON line of per-kernel numbers, the nvidia-smi line, and
-              last the contract line {"ok": true, "device": {...}}
+  6. serve    repro_torch.launch.serve.serve at full width for
+              recurrentgemma-2b, then mamba2-1.3b (4 prompts of 4096 tokens,
+              32 generated); the LM kernels' counts are zeroed just before
+              each and must equal one prefill's layers (B4 8, B5 18, B6 48:
+              decode launches none); one decode step is profiled for the
+              device's busy share.  Then both models' f32 smoke configs run
+              on the card and on the CPU from one set of weights: identical
+              greedy tokens, prefill logits within 1e-3.
+  7. result   one JSON line of per-kernel numbers (all six kernels), the
+              nvidia-smi line, and last the contract line
+              {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's src/ beside this file.
@@ -31,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -39,10 +55,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet (dense, 700 W): HBM3 bandwidth and f32 rate outside
-# the tensor cores.  Spec-sheet numbers, used only to compute bound_ms.
+# H100 SXM data sheet (dense, 700 W): HBM3 bandwidth, the f32 rate outside
+# the tensor cores and the bf16 tensor-core rate.  Spec-sheet numbers, used
+# only to compute bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 MAIN_K = 10
 RESNET18_P = 11_176_970
@@ -70,6 +88,23 @@ def phase_device(torch):
     return name, smi
 
 
+def _ptxas_summary(text):
+    """One line per kernel from nvcc's -Xptxas -v output: its (mangled,
+    shortened) name, registers, stack and spills."""
+    out, kern, frame = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kern = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                          m.group(1))[:64]
+        elif "spill" in line:
+            frame = line.strip()
+        elif "Used" in line and kern is not None:
+            out.append(f"{kern}: {line.split(':', 1)[1].strip()}; {frame}")
+            kern = None
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import NVCC_FLAGS, build_all, build_info
     t0 = time.perf_counter()
@@ -77,7 +112,7 @@ def phase_build():
     log(f"[build] {time.perf_counter() - t0:.2f} s  nvcc {' '.join(NVCC_FLAGS)}")
     for name, info in build_info.items():
         log(f"[build] {name}: {info['path']} cached={info['cached']}")
-        for line in info["log"].splitlines():
+        for line in _ptxas_summary(info["log"]):
             log(f"[build]   {line}")
 
 
@@ -141,8 +176,8 @@ def phase_parity(torch):
     return errs
 
 
-def _time_ms(torch, fn, iters=TIMING_ITERS):
-    for _ in range(3):
+def _time_ms(torch, fn, iters=TIMING_ITERS, warmup=3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -155,9 +190,9 @@ def _time_ms(torch, fn, iters=TIMING_ITERS):
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes, flops):
+def _bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -334,6 +369,410 @@ def phase_e2e(torch):
     return launches, walls, peak
 
 
+# ------------------------------------------------- LM serving path (B4-B6)
+
+# The slice's shapes: recurrentgemma-2b and mamba2-1.3b prefill of 4 prompts
+# of 4096 tokens (the shape serve() runs below).
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
+RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
+MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
+# per prefill: 8 local-attention and 18 recurrent layers (26 = (rec, rec,
+# attn) x 8 + (rec, rec)); 48 SSD layers
+PER_PREFILL = {"flash_attention": 8, "rglru_scan": 18, "ssd_forward": 48}
+
+
+def _lm_kernels():
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.ssd import kernel as SK
+    return {"flash_attention": FK.flash_attention_call,
+            "rglru_scan": RK.rglru_scan_call,
+            "ssd_forward": SK.ssd_forward_call}
+
+
+def _reset_lm_counts():
+    for fn in _lm_kernels().values():
+        fn.launches = 0
+
+
+def _randn(torch, *shape, seed, dtype=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    return x if dtype is None else x.to(dtype)
+
+
+def _flash_inputs(torch, B, S, Skv, H, KVH, D, dtype, seed):
+    """q, and k, v as strided views of one (B, Skv, 2 KVH, D) tensor, so
+    the kernel's stride handling is exercised."""
+    q = _randn(torch, B, S, H, D, seed=seed, dtype=dtype)
+    kv = _randn(torch, B, Skv, 2 * KVH, D, seed=seed + 1, dtype=dtype)
+    return q, kv[:, :, :KVH], kv[:, :, KVH:]
+
+
+def _rglru_inputs(torch, B, S, C, dtype, seed):
+    """The model's route: log decays in (log 0.7, 0), inputs ~ 0.1 N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    log_a = torch.log(torch.rand(B, S, C, generator=gen, device="cuda")
+                      * 0.3 + 0.7).to(dtype)
+    b = (torch.randn(B, S, C, generator=gen, device="cuda") * 0.1).to(dtype)
+    return log_a, b
+
+
+def _ssd_inputs(torch, B, NH, S, hd, ds, seed):
+    """The model's layouts: x and dt as (B, NH, S, ...) views of (B, S, NH,
+    ...) tensors, B and C as slices of one (B, S, 2 ds + 8) tensor; the
+    model's decays a = -linspace(1, 16) and dt = softplus(N(0, 1))."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, S, NH, hd, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, NH, generator=gen, device="cuda"))
+    a = -torch.linspace(1.0, 16.0, NH, device="cuda")
+    bc = torch.randn(B, S, 2 * ds + 8, generator=gen, device="cuda")
+    return (x.transpose(1, 2), dt.transpose(1, 2), a, bc[..., :ds],
+            bc[..., ds:2 * ds])
+
+
+def phase_parity_lm(torch):
+    """B4-B6 against their plain versions, at the slice's shapes and at
+    ragged ones, each launched twice and required bit-identical.
+    Tolerances: flash attention 1e-4 in f32 (f32 softmax in another order)
+    and 2e-2 in bf16 (the output is rounded to bf16 once, |o| < ~4); the
+    RG-LRU scan 1e-5 (one FMA a step against a multiply and an add); SSD
+    1e-4 relative to the output's largest value (sums of Q*ds terms in
+    another order than the sequential SSM)."""
+    from repro_torch.kernels.flash_attention import kernel as FK, ref as FR
+    from repro_torch.kernels.rglru import kernel as RK, ref as RR
+    from repro_torch.kernels.ssd import kernel as SK, ref as SR
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+
+    def twice(fn):
+        a, b = fn(), fn()
+        a0 = a[0] if isinstance(a, tuple) else a
+        b0 = b[0] if isinstance(b, tuple) else b
+        if not torch.equal(a0, b0):
+            raise AssertionError("kernel is not run-to-run bit-identical")
+        return a
+
+    S = SERVE_PROMPT
+    flash_cases = [  # B, Sq, Skv, H, KVH, D, causal, window, dtype
+        (SERVE_BATCH, S, S, RG["H"], RG["KVH"], RG["D"], True, RG["window"],
+         bf16),                                          # the slice's shape
+        (1, 1000, 1000, 10, 1, 256, True, 2048, bf16),   # S < window
+        (2, 777, 777, 8, 2, 128, True, 300, f32),        # window < S, G = 4
+        (1, 333, 333, 4, 4, 64, True, None, f32),        # full causal
+        (1, 100, 161, 6, 3, 64, False, None, bf16),      # Skv != Sq
+    ]
+    for i, (B, Sq, Skv, H, KVH, D, causal, window, dt) in enumerate(
+            flash_cases):
+        q, k, v = _flash_inputs(torch, B, Sq, Skv, H, KVH, D, dt, 10 + i)
+        o = twice(lambda: FK.flash_attention_call(q, k, v, causal=causal,
+                                                  window=window))
+        want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window).transpose(1, 2)
+        tol = dict(rtol=2e-2, atol=2e-2) if dt == bf16 else \
+            dict(rtol=1e-4, atol=1e-4)
+        e = _max_err(torch, o, want, **tol)
+        errs.setdefault("flash_attention", e)
+        torch.cuda.synchronize()
+        log(f"[parity] flash_attention B={B} Sq={Sq} Skv={Skv} H={H} "
+            f"KVH={KVH} D={D} causal={causal} window={window} "
+            f"{str(dt)[6:]}: max|d| {e:.3e}")
+        del q, k, v, o, want
+
+    rg_cases = [  # B, S, C, dtype, h0
+        (SERVE_BATCH, S, RG["C"], f32, False),           # the slice's shape
+        (3, 1001, 333, f32, True),
+        (2, 17, 2560, bf16, False),
+    ]
+    for i, (B, Sl, C, dt, with_h0) in enumerate(rg_cases):
+        log_a, b = _rglru_inputs(torch, B, Sl, C, dt, 20 + i)
+        h0 = _randn(torch, B, C, seed=30 + i) if with_h0 else None
+        h, hl = twice(lambda: RK.rglru_scan_call(log_a, b, h0))
+        hr, hlr = RR.rglru_scan_ref(torch.exp(log_a.float()), b,
+                                    torch.zeros(B, C, device="cuda")
+                                    if h0 is None else h0)
+        e = max(_max_err(torch, h, hr, 1e-5, 1e-5),
+                _max_err(torch, hl, hlr, 1e-5, 1e-5))
+        errs.setdefault("rglru_scan", e)
+        torch.cuda.synchronize()
+        log(f"[parity] rglru_scan B={B} S={Sl} C={C} {str(dt)[6:]} "
+            f"h0={with_h0}: max|d| {e:.3e}")
+        del log_a, b, h, hr
+
+    ssd_cases = [  # B, NH, S, hd, ds, chunk, h0
+        (SERVE_BATCH, MB["NH"], S, MB["hd"], MB["ds"], MB["chunk"], False),
+        (2, 8, 1000, 64, 128, 128, True),
+        (1, 4, 77, 32, 64, 64, False),
+        (1, 2, 300, 128, 32, 100, True),
+    ]
+    for i, (B, NH, Sl, hd, ds, chunk, with_h0) in enumerate(ssd_cases):
+        x, dt, a, Bm, Cm = _ssd_inputs(torch, B, NH, Sl, hd, ds, 40 + i)
+        h0 = _randn(torch, B, NH, hd, ds, seed=50 + i) if with_h0 else None
+        y, st = twice(lambda: SK.ssd_forward_call(x, dt, a, Bm, Cm,
+                                                  chunk=chunk, h0=h0))
+        yr, sr = SR.ssd_ref(x, dt, a, Bm, Cm, h0)
+        e = 0.0
+        for got, want in ((y, yr), (st, sr)):
+            scale = max(1.0, float(want.abs().max()))
+            e = max(e, _max_err(torch, got, want, 1e-4, 1e-4 * scale))
+        errs.setdefault("ssd_forward", e)
+        torch.cuda.synchronize()
+        log(f"[parity] ssd_forward B={B} NH={NH} S={Sl} hd={hd} ds={ds} "
+            f"chunk={chunk} h0={with_h0}: max|d| {e:.3e} (|y| <= "
+            f"{float(yr.abs().max()):.2f})")
+        del x, dt, Bm, Cm, y, yr
+    return errs
+
+
+def _band_mask(torch, S, window):
+    q = torch.arange(S, device="cuda")[:, None]
+    k = torch.arange(S, device="cuda")[None, :]
+    return (k <= q) & (k > q - window)
+
+
+def phase_timing_lm(torch):
+    """B4-B6 at the slice's shapes: kernel, plain version, bound, and (B4)
+    one PyTorch call computing the same function -- SDPA with a boolean
+    causal+window band mask and enable_gqa, a yardstick the port never
+    calls.  Bounds count each input read once and each output written
+    once; operations are those the unmasked band needs (B4: 4 D flops per
+    (query, key) pair in the band, at the bf16 tensor-core rate, as the
+    inputs are bf16) or the chunk products (B6: 2 Q^2 ds + 2 Q^2 hd +
+    4 Q hd ds per (b, head, chunk), at the f32 rate)."""
+    from repro_torch.kernels.flash_attention import kernel as FK, ref as FR
+    from repro_torch.kernels.rglru import kernel as RK, ref as RR
+    from repro_torch.kernels.ssd import kernel as SK, ref as SR
+    F = torch.nn.functional
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    rows = {}
+
+    H, KVH, D, W = RG["H"], RG["KVH"], RG["D"], RG["window"]
+    q, k, v = _flash_inputs(torch, B, S, S, H, KVH, D, torch.bfloat16, 60)
+    band = _band_mask(torch, S, W)
+    pairs = int(band.sum())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    rows["flash_attention"] = dict(
+        ms=_time_ms(torch, lambda: FK.flash_attention_call(
+            q, k, v, causal=True, window=W), iters=5, warmup=1),
+        plain_ms=_time_ms(torch, lambda: FR.attention_ref(
+            qt, kt, vt, causal=True, window=W), iters=3, warmup=1),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True), iters=5,
+            warmup=1),
+        nbytes=nbytes, flops=4 * D * pairs * B * H,
+        peak=BF16_FLOPS_PER_S)
+    del q, k, v, qt, kt, vt, band
+
+    C = RG["C"]
+    log_a, b = _rglru_inputs(torch, B, S, C, torch.float32, 61)
+    h0 = torch.zeros(B, C, device="cuda")
+    rows["rglru_scan"] = dict(
+        ms=_time_ms(torch, lambda: RK.rglru_scan_call(log_a, b, h0)),
+        plain_ms=_time_ms(torch, lambda: RR.rglru_scan_ref(
+            torch.exp(log_a), b, h0), iters=3, warmup=1),
+        library_ms=None,
+        nbytes=(3 * log_a.numel() + 2 * h0.numel()) * 4,
+        flops=3 * log_a.numel(), peak=F32_FLOPS_PER_S)
+    del log_a, b
+
+    NH, hd, ds, Q = MB["NH"], MB["hd"], MB["ds"], MB["chunk"]
+    x, dt, a, Bm, Cm = _ssd_inputs(torch, B, NH, S, hd, ds, 62)
+    n_chunks = -(-S // Q)
+    per_chunk = 2 * Q * Q * ds + 2 * Q * Q * hd + 4 * Q * hd * ds
+    rows["ssd_forward"] = dict(
+        ms=_time_ms(torch, lambda: SK.ssd_forward_call(
+            x, dt, a, Bm, Cm, chunk=Q), iters=5, warmup=1),
+        plain_ms=_time_ms(torch, lambda: SR.ssd_ref(x, dt, a, Bm, Cm),
+                          iters=1, warmup=1),
+        library_ms=None,
+        nbytes=4 * (2 * x.numel() + dt.numel() + a.numel() + Bm.numel()
+                    + Cm.numel() + B * NH * hd * ds),
+        flops=per_chunk * B * NH * n_chunks, peak=F32_FLOPS_PER_S)
+    del x, dt, Bm, Cm
+
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = _bound_ms(r["nbytes"], r["flops"],
+                                                 r.pop("peak"))
+        lib = r["library_ms"]
+        log(f"[timing] {name:<16s} kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}, {r['nbytes'] / 1e6:.1f} MB, "
+            f"{r['flops']:.4g} flop) "
+            f"library_ms={'-' if lib is None else f'{lib:.4f}'} "
+            f"bound/kernel={r['bound_ms'] / r['ms']:.4f}")
+    return rows
+
+
+def _kernel_times(torch, prof):
+    """(sum of CUDA kernel times, [(ms, name)] largest first) of a profile."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.self_device_time_total / 1e3, e.key)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    return sum(t for t, _ in rows), sorted(rows, reverse=True)
+
+
+def _profile_serving(torch, arch):
+    """The full config's prefill and one decode step, each under the
+    profiler (warm: serve() ran just before): the prefill's device time by
+    kernel, and the decode step's wall and device-busy time."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch)
+    model = build_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _profiler(torch) as prof:
+        logits, cache = make_prefill_step(model)(params, {"tokens": prompts},
+                                                 cache)
+        torch.cuda.synchronize()
+    prefill_wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError(f"{arch}: non-finite prefill logits")
+    total, rows = _kernel_times(torch, prof)
+    log(f"[serve] {arch}: profiled prefill {prefill_wall * 1e3:.1f} ms wall,"
+        f" kernels {total:.2f} ms (idle share "
+        f"{1 - total / (prefill_wall * 1e3):.4f})")
+    for ms, key in rows[:8]:
+        log(f"[serve]   {ms:9.3f} ms  {ms / total:7.2%}  {key[:100]}")
+    step = make_serve_step(model)
+    nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    nxt, cache = step(params, cache, nxt)      # warm
+    torch.cuda.synchronize()
+    _reset_lm_counts()
+    t0 = time.perf_counter()
+    with _profiler(torch) as prof:
+        nxt, cache = step(params, cache, nxt)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    if any(launched.values()):
+        raise AssertionError(f"{arch}: decode launched {launched}")
+    busy_ms, rows = _kernel_times(torch, prof)
+    log(f"[serve] {arch}: decode step kernels by time: " + ", ".join(
+        f"{key[:40]} {ms:.3f} ms" for ms, key in rows[:4]))
+    return wall, busy_ms * 1e3
+
+
+def phase_serve(torch):
+    """The serving entry point at full width, recurrentgemma-2b then
+    mamba2-1.3b: 4 prompts of 4096 tokens, 32 generated.  The LM kernels'
+    counts are zeroed just before each serve() and read just after: one
+    prefill must launch B4 8 and B5 18 times (recurrentgemma) and B6 48
+    times (mamba2), and decode none, so each count equals its per-prefill
+    number exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import build_model, tree_leaves
+    counts, summary = {}, {}
+    # start the profiler's tracing once, so the profiled step does not pay
+    # its set-up
+    with _profiler(torch):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    for arch, kernels in (("recurrentgemma-2b", ("flash_attention",
+                                                 "rglru_scan")),
+                          ("mamba2-1.3b", ("ssd_forward",))):
+        cfg = get_config(arch)
+        meta = build_model(cfg, "meta").init()
+        n_params = sum(t.numel() for _, t in tree_leaves(meta))
+        n_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_leaves(meta))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_lm_counts()
+        r = serve(arch, smoke=False, batch=SERVE_BATCH,
+                  prompt_len=SERVE_PROMPT, gen=SERVE_GEN, device="cuda")
+        launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for name, fn in _lm_kernels().items():
+            want = PER_PREFILL[name] if name in kernels else 0
+            if launched[name] != want:
+                raise AssertionError(f"{arch}: {name} launched "
+                                     f"{launched[name]} times in one serve, "
+                                     f"expected {want}")
+        for name in kernels:
+            counts[name] = launched[name]
+        gen = r["generated"]
+        if gen.shape != (SERVE_BATCH, SERVE_GEN) or not (
+                (gen >= 0) & (gen < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch}: generated tokens out of the vocab "
+                                 f"or of shape {gen.shape}")
+        wall, busy_us = _profile_serving(torch, arch)
+        step_s = r["decode_s"] / (SERVE_GEN - 1)      # unprofiled, in serve
+        summary[arch] = dict(params=n_params, param_bytes=n_bytes,
+                             prefill_ms=r["prefill_s"] * 1e3,
+                             tok_per_s=r["tok_per_s"],
+                             cache_mib=r["cache_bytes"] / 2**20,
+                             peak_mib=peak, decode_step_ms=step_s * 1e3,
+                             decode_busy_ms=busy_us / 1e3,
+                             decode_idle_share=1 - busy_us / (step_s * 1e6))
+        log(f"[serve] {arch}: {n_params} params ({n_bytes / 1e9:.3f} GB), "
+            f"prefill "
+            f"{r['prefill_s'] * 1e3:.1f} ms, decode {r['tok_per_s']:.1f} "
+            f"tok/s ({r['decode_s'] * 1e3:.1f} ms for {SERVE_GEN - 1} "
+            f"steps), cache {r['cache_bytes'] / 2**20:.1f} MiB, peak "
+            f"{peak:.1f} MiB, launches {launched}")
+        log(f"[serve] {arch}: one profiled decode step {wall * 1e3:.2f} ms "
+            f"wall, kernels busy {busy_us / 1e3:.3f} ms: idle share "
+            f"{1 - busy_us / (wall * 1e6):.4f} of it, "
+            f"{1 - busy_us / (step_s * 1e6):.4f} of serve's unprofiled "
+            f"{step_s * 1e3:.2f} ms step; first tokens "
+            f"{gen[0, :8].tolist()}")
+    return counts, summary
+
+
+def phase_card_vs_cpu(torch):
+    """recurrentgemma-2b and mamba2-1.3b smoke configs in f32, weights made
+    once from a seed: the card (kernels) and the CPU (plain versions) give
+    identical greedy tokens and prefill logits within 1e-3.  The prompt (40)
+    is longer than the smoke window (16) and the SSD chunk (16)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.specs import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model, tree_map
+    for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
+        cfg = smoke_config(arch).replace(param_dtype="float32",
+                                         dtype="float32")
+        gen = torch.Generator().manual_seed(0)
+        params = build_model(cfg, "cpu").init(gen)
+        prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
+        toks, logits = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, dev)
+            p = tree_map(lambda t: t.to(dev), params)
+            _reset_lm_counts()
+            lg, cache = make_prefill_step(model)(
+                p, {"tokens": prompts.to(dev)}, model.init_cache(3, 52))
+            launched = sum(fn.launches for fn in _lm_kernels().values())
+            if (launched > 0) != (dev == "cuda"):
+                raise AssertionError(f"{arch} on {dev}: {launched} kernel "
+                                     f"launches in prefill")
+            nxt = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            out = [nxt.cpu()]
+            step = make_serve_step(model)
+            for _ in range(11):
+                nxt, cache = step(p, cache, nxt)
+                out.append(nxt.cpu())
+            toks[dev] = torch.cat(out, 1)
+            logits[dev] = lg.cpu()[..., :cfg.vocab_size]
+        d = float((logits["cuda"] - logits["cpu"]).abs().max())
+        if not torch.equal(toks["cuda"], toks["cpu"]) or d > 1e-3:
+            raise AssertionError(f"{arch}: card vs CPU differ: tokens "
+                                 f"{toks['cuda'].tolist()} vs "
+                                 f"{toks['cpu'].tolist()}, logits {d}")
+        log(f"[card-vs-cpu] {arch} smoke f32: 12 greedy tokens identical, "
+            f"prefill logits max|d| {d:.3e}")
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -349,8 +788,12 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     errs = phase_parity(torch)
+    errs.update(phase_parity_lm(torch))
     timing = phase_timing(torch)
+    lm_timing = phase_timing_lm(torch)
     launches, walls, peak = phase_e2e(torch)
+    lm_launches, serving = phase_serve(torch)
+    phase_card_vs_cpu(torch)
 
     src = "src/repro_torch/kernels/seafl_agg/csrc/seafl_agg.cu"
     replaces = {"sim_partials_from_params":
@@ -369,8 +812,26 @@ def main() -> int:
             "on_main_path": kname != "sim_partials",
             "bf16_rows_ms": timing[(kname, "bfloat16")]["ms"],
         })
+    lm = {"flash_attention": ("kernels/flash_attention/csrc/"
+                              "flash_attention.cu",
+                              "src/repro/kernels/flash_attention/kernel.py:27"),
+          "rglru_scan": ("kernels/rglru/csrc/rglru.cu",
+                         "src/repro/kernels/rglru/kernel.py:21"),
+          "ssd_forward": ("kernels/ssd/csrc/ssd.cu",
+                          "src/repro/kernels/ssd/kernel.py:24")}
+    for kname, (source, replaced) in lm.items():
+        t = lm_timing[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/{source}", "replaces": replaced,
+            "launches": lm_launches[kname], "max_abs_err": errs[kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "on_main_path": True,
+        })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
         f"memory MiB: {peak:.1f}")
+    log(f"[serve] summary: {json.dumps(serving)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

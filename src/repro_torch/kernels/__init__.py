@@ -27,6 +27,9 @@ _HERE = Path(__file__).resolve().parent
 
 SOURCES = {
     "seafl_agg": _HERE / "seafl_agg" / "csrc" / "seafl_agg.cu",
+    "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_attention.cu",
+    "rglru": _HERE / "rglru" / "csrc" / "rglru.cu",
+    "ssd": _HERE / "ssd" / "csrc" / "ssd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

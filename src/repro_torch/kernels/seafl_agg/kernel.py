@@ -17,8 +17,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import library
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+from repro_torch.kernels._common import DTYPES as _DTYPES
+from repro_torch.kernels._common import MAX_SMEM as _MAX_SMEM
+from repro_torch.kernels._common import check_cuda as _check_cuda
+from repro_torch.kernels._common import stream as _stream
 
 # each thread of a block walks this many elements of P (grid-stride), so the
 # grid is ceil(P / (256 * 16)) blocks: many waves, a small tail
@@ -26,7 +28,6 @@ _THREADS = 256
 _ELEMS_PER_THREAD = 16
 _MAX_GRID_Y = 65535
 _ROWS_PER_BLOCK = 16          # kRows in the source
-_MAX_SMEM = 227 * 1024        # dynamic shared memory a block may use
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,11 +42,6 @@ def _lib() -> ctypes.CDLL:
         lib.seafl_weighted_agg.restype = i
         lib._seafl_bound = True
     return lib
-
-
-def _check_cuda(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: cudaError_t {err} after launch")
 
 
 def _check_rows(stacked: torch.Tensor, global_flat: torch.Tensor) -> None:
@@ -69,10 +65,6 @@ def _check_rows(stacked: torch.Tensor, global_flat: torch.Tensor) -> None:
 
 def _grid(p: int) -> int:
     return max(1, -(-p // (_THREADS * _ELEMS_PER_THREAD)))
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _sim_partials(stacked: torch.Tensor, global_flat: torch.Tensor,

@@ -1,8 +1,350 @@
-"""Loss shared by the port's models."""
+"""Shared neural building blocks of the port (functional; explicit param dicts).
+
+Torch translation of the JAX package's ``models/layers.py``, same names, same
+param trees and same numerics policy: params/activations in ``cfg.dtype``;
+softmax, norms, loss and recurrence gates in f32.  Linear weights are
+``(d_in, d_out)`` and applied as ``x @ w``.
+
+The JAX package's sharding hints (``constrain``/``axis_size``) are no-ops off
+a mesh and are dropped; ``chunked_attention`` still accepts ``score_shard``
+and ignores it.
+
+Routing of ``chunked_attention``, a static contract: on a CUDA tensor with
+Sq > 1, ``q_offset == 0``, ``kv_len is None`` and ``softcap is None`` --
+prefill and training -- it calls the hand-written flash-attention kernel
+(``kernels/flash_attention``), which raises on what it does not take (head
+dims above 256 or not a multiple of 4).  Everywhere else (decode's single
+query, a partly filled cache, soft-capping, and every CPU tensor) it runs
+the torch translation below, as the JAX package has no kernel there either.
+"""
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen, shape, scale, dtype, device):
+    """N(0, 1) * scale drawn in f32, cast to ``dtype``.  On the ``meta``
+    device only the shape is made (no generator, no storage)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+def linear_init(gen, d_in, d_out, dtype, device, scale=None, lead=()):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return {"w": _normal(gen, (*lead, d_in, d_out), scale, dtype, device)}
+
+
+def linear(p, x):
+    return x @ p["w"].to(x.dtype)
+
+
+def norm_init(d, device, dtype=torch.float32, bias=False, lead=()):
+    p = {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d), dtype=dtype, device=device)
+    return p
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def layernorm(p, x, eps=1e-6):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    if "b" in p:
+        out = out + p["b"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name):
+    return {
+        "silu": F.silu,
+        "gelu": gelu,
+        "gelu_tanh": gelu,
+        "relu": F.relu,
+    }[name]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                    # (Dh/2,)
+    ang = positions[..., None].to(torch.float32) * freqs       # (..., S, Dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention core — query-chunked, memory O(q_chunk * kv_window), exact.
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _softcap(scores, cap):
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
+def attention_scores_ctx(q, k, v, mask, softcap=None):
+    """q:(B,Sq,KVH,G,Dh) k:(B,Skv,KVH,Dh) v same; mask:(B,1,1,Sq,Skv) or None."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    s = _softcap(s, softcap)
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+
+
+def _uses_flash_kernel(q, q_offset, kv_len, softcap):
+    return (q.device.type == "cuda" and q.shape[1] > 1 and q_offset == 0
+            and kv_len is None and softcap is None)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                      kv_len=None, q_chunk=512, softcap=None,
+                      score_shard="qrows"):
+    """Exact attention.  q: (B, Sq, H, Dh); k, v: (B, Skv, KVH, Dh); GQA by
+    reshape.  ``q_offset`` is the absolute position of q[:, 0] relative to
+    k[:, 0]; ``kv_len`` masks a partly filled cache; ``window`` keeps the
+    last ``window`` positions.  ``score_shard`` is accepted and ignored
+    (there is no mesh).  See the module docstring for the kernel route."""
+    del score_shard
+    if _uses_flash_kernel(q, q_offset, kv_len, softcap):
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    B, Sq, H, Dh = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KVH
+    qg = q.reshape(B, Sq, KVH, G, Dh)
+    dev = q.device
+
+    def block_mask(q_pos, k_pos):
+        m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                       device=dev)
+        if causal:
+            m &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            m &= k_pos[None, :] > q_pos[:, None] - window
+        return m
+
+    if Sq == 1:
+        # decode: single query, full (or ring) cache
+        q_pos = torch.tensor([q_offset], device=dev)
+        k_pos = torch.arange(Skv, device=dev)
+        m = block_mask(q_pos, k_pos)
+        if kv_len is not None:
+            m &= (k_pos < kv_len)[None, :]
+        o = attention_scores_ctx(qg, k, v, m[None, None, None], softcap)
+        return o.reshape(B, Sq, H, Dv)
+
+    n_chunks = max(1, math.ceil(Sq / q_chunk))
+    qc = min(q_chunk, Sq)
+    use_window_slice = window is not None and Skv > (window + qc)
+    kv_span = min(Skv, window + qc) if use_window_slice else Skv
+    outs = []
+    for idx in range(n_chunks):
+        qi = qg[:, idx * qc:(idx + 1) * qc]
+        q_pos = q_offset + idx * qc + torch.arange(qi.shape[1], device=dev)
+        if use_window_slice:
+            start = min(max(q_offset + idx * qc - window + 1, 0),
+                        Skv - kv_span)
+            ki = k[:, start:start + kv_span]
+            vi = v[:, start:start + kv_span]
+            k_pos = start + torch.arange(kv_span, device=dev)
+        else:
+            ki, vi = k, v
+            k_pos = torch.arange(kv_span, device=dev)
+        m = block_mask(q_pos, k_pos)
+        if kv_len is not None:
+            m &= (k_pos < kv_len)[None, :]
+        outs.append(attention_scores_ctx(qi, ki, vi, m[None, None, None],
+                                         softcap))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer (init + apply in train/prefill/decode modes)
+# ---------------------------------------------------------------------------
+
+def attn_init(gen, cfg, dtype, device, lead=()):
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {
+        "wq": linear_init(gen, d, qd, dtype, device, lead=lead),
+        "wk": linear_init(gen, d, kvd, dtype, device, lead=lead),
+        "wv": linear_init(gen, d, kvd, dtype, device, lead=lead),
+        "wo": linear_init(gen, qd, d, dtype, device, lead=lead),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(cfg.head_dim, device, lead=lead)
+        p["k_norm"] = norm_init(cfg.head_dim, device, lead=lead)
+    return p
+
+
+def attn_cache_init(cfg, batch, max_len, dtype, device, lead=()):
+    span = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (*lead, batch, span, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "vs": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _kv_quant(x):
+    """Per-(batch, pos, head) symmetric int8 quantisation of K/V."""
+    xf = x.to(torch.float32)
+    s = torch.clamp(torch.amax(torch.abs(xf), dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _cache_write(cfg, cache, k, v, start):
+    """Write k/v (B, S, KVH, Dh) into the cache at position ``start``.
+
+    Unlike the JAX package's functional update this writes the cache's
+    buffers in place (they are views into the model's stacked cache), so a
+    decode step moves one position, not the whole cache."""
+    def upd(buf, val):
+        buf[:, start:start + val.shape[1]] = val.to(buf.dtype)
+
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        for name, val in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
+            upd(cache[name], val)
+    else:
+        upd(cache["k"], k)
+        upd(cache["v"], v)
+    return cache
+
+
+def _cache_read(cfg, cache, dtype):
+    if cfg.kv_cache_dtype == "int8":
+        k = cache["k"].to(dtype) * cache["ks"][..., None].to(dtype)
+        v = cache["v"].to(dtype) * cache["vs"][..., None].to(dtype)
+        return k, v
+    return cache["k"], cache["v"]
+
+
+def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
+    """mode: train | prefill | decode.  pos: int absolute position (decode).
+    The cache is written in place (see ``_cache_write``) and returned."""
+    B, S, _ = x.shape
+    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    q = linear(p["wq"], x).reshape(B, S, H, Dh)
+    k = linear(p["wk"], x).reshape(B, S, KVH, Dh)
+    v = linear(p["wv"], x).reshape(B, S, KVH, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    positions = (torch.arange(S, device=x.device)[None, :] if mode != "decode"
+                 else torch.full((B, 1), pos, device=x.device))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = cache
+    if mode in ("train", "prefill"):
+        o = chunked_attention(q, k, v, causal=True, window=cfg.window,
+                              softcap=cfg.attn_softcap)
+        if mode == "prefill":
+            span = cache["k"].shape[1]
+            if cfg.window and S > span:              # keep only the last window
+                # ring-align so that slot (pos % span) is consistent with decode
+                shift = S % span
+                k_keep = torch.roll(k[:, -span:], shift, dims=1)
+                v_keep = torch.roll(v[:, -span:], shift, dims=1)
+                new_cache = _cache_write(cfg, cache, k_keep, v_keep, 0)
+            else:
+                new_cache = _cache_write(cfg, cache, k, v, 0)
+    else:  # decode
+        span = cache["k"].shape[1]
+        slot = pos % span if cfg.window else pos
+        new_cache = _cache_write(cfg, cache, k, v, slot)
+        ck, cv = _cache_read(cfg, new_cache, x.dtype)
+        if cfg.window:
+            # ring buffer: the absolute position of slot i is recoverable;
+            # mask unwritten and out-of-window slots
+            k_pos_abs = pos - ((slot - torch.arange(span, device=x.device))
+                               % span)
+            m = (k_pos_abs >= 0) & (k_pos_abs >= pos - (cfg.window - 1))
+            qg = q.reshape(B, 1, KVH, H // KVH, Dh)
+            o = attention_scores_ctx(qg, ck, cv, m[None, None, None, None, :],
+                                     cfg.attn_softcap).reshape(B, 1, H, Dh)
+        else:
+            o = chunked_attention(q, ck, cv, causal=True, q_offset=pos,
+                                  kv_len=pos + 1, softcap=cfg.attn_softcap)
+
+    o = o.reshape(B, S, H * Dh)
+    return linear(p["wo"], o), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg, dtype, device, d_ff=None, gated=True, lead=()):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"w1": linear_init(gen, d, f, dtype, device, lead=lead)}
+    if gated:
+        p["w3"] = linear_init(gen, d, f, dtype, device, lead=lead)
+    p["w2"] = linear_init(gen, f, d, dtype, device, lead=lead)
+    return p
+
+
+def mlp_apply(p, x, cfg):
+    act = act_fn(cfg.act)
+    h = act(linear(p["w1"], x))
+    if "w3" in p:
+        h = h * linear(p["w3"], x)
+    return linear(p["w2"], h)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
 
 def cross_entropy(logits, labels, mask=None):
     """logits: (..., V); labels: (...) int.  Mean negative log-likelihood

@@ -1,0 +1,188 @@
+"""LM assembly: embeddings + block groups + prefill/decode.
+
+Torch translation of the JAX package's ``models/model.py`` for the families
+whose blocks are ported (dense, hybrid, ssm).  The params keep the JAX
+tree, ``groups/g{gi}/b{bi}/...`` with a leading repeats axis per group, so
+a JAX params tree carries over leaf for leaf (:func:`from_jax_lm_params`).
+``lax.scan`` over a group becomes a plain loop over its repeats (no remat:
+this port serves, it does not train the LM yet).
+
+The decode cache is written in place: each block's new cache is copied into
+the stacked buffers of ``init_cache``, and ``pos`` is a Python int, so a
+decode step reads no device value on the host.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import BLOCKS
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nested dict, as a new nested dict."""
+    return {k: (tree_map(fn, v) if isinstance(v, Mapping) else fn(v))
+            for k, v in tree.items()}
+
+
+def tree_leaves(tree, prefix=""):
+    """("a/b/c", tensor) for every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from tree_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _copy_into(dst, src):
+    """Copy the leaves of ``src`` into the matching leaves of ``dst`` in
+    place, skipping a leaf that already is the destination's storage."""
+    for k, v in src.items():
+        if isinstance(v, Mapping):
+            _copy_into(dst[k], v)
+        elif v.data_ptr() != dst[k].data_ptr():
+            dst[k].copy_(v)
+
+
+class LM:
+    def __init__(self, cfg, device=None):
+        if cfg.family not in PORTED_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+                f"(its blocks are in ROADMAP.md, Queue A)")
+        self.cfg = cfg
+        self.device = (torch.device("meta") if str(device) == "meta"
+                       else resolve_device(device))
+        self.pdtype = _DTYPES[cfg.param_dtype]
+        self.adtype = _DTYPES[cfg.dtype]
+
+    # ------------------------------------------------------------------ init
+    def init(self, gen: torch.Generator | None = None) -> dict:
+        """Random params from ``gen`` (a generator on this model's device),
+        with the JAX init's shapes, dtypes and scales."""
+        cfg, dev, pd = self.cfg, self.device, self.pdtype
+        params: dict = {
+            "embed": {"w": L._normal(gen, (cfg.padded_vocab, cfg.d_model),
+                                     cfg.d_model ** -0.5, pd, dev)},
+        }
+        if not cfg.tie_embeddings:
+            params["unembed"] = L.linear_init(gen, cfg.d_model,
+                                              cfg.padded_vocab, pd, dev)
+        params["final_norm"] = L.norm_init(cfg.d_model, dev)
+        params["groups"] = {
+            f"g{gi}": {f"b{bi}": BLOCKS[b][0](gen, cfg, pd, dev, lead=(reps,))
+                       for bi, b in enumerate(pattern)}
+            for gi, (pattern, reps) in enumerate(cfg.scan_groups())}
+        return params
+
+    # ----------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+        cfg = self.cfg
+        dtype = dtype or self.adtype
+        groups = {
+            f"g{gi}": {f"b{bi}": BLOCKS[b][1](cfg, batch, max_len, dtype,
+                                              self.device, lead=(reps,))
+                       for bi, b in enumerate(pattern)}
+            for gi, (pattern, reps) in enumerate(cfg.scan_groups())}
+        return {"groups": groups, "pos": 0}
+
+    # ------------------------------------------------------------ block loop
+    def _run_groups(self, params, x, *, mode, cache, pos):
+        cfg = self.cfg
+        for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
+            gp = params["groups"][f"g{gi}"]
+            gc = None if cache is None else cache["groups"][f"g{gi}"]
+            for r in range(reps):
+                for bi, bname in enumerate(pattern):
+                    bp = tree_map(lambda t: t[r], gp[f"b{bi}"])
+                    bc = (None if gc is None
+                          else tree_map(lambda t: t[r], gc[f"b{bi}"]))
+                    x, c_new = BLOCKS[bname][2](bp, x, cfg, mode=mode,
+                                                cache=bc, pos=pos)
+                    if bc is not None:
+                        _copy_into(bc, c_new)
+        return x
+
+    # ----------------------------------------------------------------- embed
+    def _embed(self, params, tokens):
+        w = params["embed"]["w"]
+        return w[tokens].to(self.adtype) * self.cfg.scale_emb
+
+    def _unembed(self, params, x):
+        cfg = self.cfg
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = x @ params["embed"]["w"].to(x.dtype).T
+        else:
+            logits = L.linear(params["unembed"], x)
+        logits = logits * cfg.logit_scale
+        if cfg.padded_vocab != cfg.vocab_size:   # mask padding entries
+            valid = torch.arange(cfg.padded_vocab,
+                                 device=x.device) < cfg.vocab_size
+            logits = logits.masked_fill(~valid, L.NEG_INF)
+        return logits
+
+    # ----------------------------------------------------------- public API
+    @torch.no_grad()
+    def apply(self, params, batch):
+        """batch: {tokens (B, S)} -> logits (B, S, V), causal, no cache."""
+        x = self._embed(params, batch["tokens"])
+        x = self._run_groups(params, x, mode="train", cache=None, pos=None)
+        return self._unembed(params, x)
+
+    @torch.no_grad()
+    def prefill(self, params, batch, cache):
+        """Run the prompt, fill ``cache`` in place.  Returns (logits of the
+        last position (B, 1, V), cache with ``pos`` = prompt length)."""
+        x = self._embed(params, batch["tokens"])
+        seq = x.shape[1]
+        x = self._run_groups(params, x, mode="prefill", cache=cache, pos=None)
+        logits = self._unembed(params, x[:, -1:])
+        return logits, {"groups": cache["groups"], "pos": seq}
+
+    @torch.no_grad()
+    def decode_step(self, params, tokens, cache):
+        """tokens: (B, 1). Returns (logits (B, 1, V), cache one step on)."""
+        pos = cache["pos"]
+        x = self._embed(params, tokens)
+        x = self._run_groups(params, x, mode="decode", cache=cache, pos=pos)
+        logits = self._unembed(params, x)
+        return logits, {"groups": cache["groups"], "pos": pos + 1}
+
+
+def build_model(cfg, device=None) -> LM:
+    """The port's LM for ``cfg`` on ``device`` (``cuda`` by default; raises
+    without a card).  Raises NotImplementedError for the moe, encdec and vlm
+    families, whose blocks are not ported yet."""
+    return LM(cfg, device)
+
+
+def _to_tensor(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":       # ml_dtypes.bfloat16: lossless via f32
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def from_jax_lm_params(np_tree: Mapping, cfg, device=None) -> dict:
+    """A JAX LM params tree (nested dicts of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) -> the port's tree, value for
+    value: same keys, shapes (the stacked group axis is kept) and dtypes.
+    bf16 leaves go through f32, which holds every bf16 value exactly."""
+    groups = {f"g{gi}" for gi in range(len(cfg.scan_groups()))}
+    if set(np_tree.get("groups", {})) != groups:
+        raise ValueError(f"params tree has groups "
+                         f"{sorted(np_tree.get('groups', {}))}, {cfg.name} "
+                         f"has {sorted(groups)}")
+    dev = resolve_device(device)
+    return tree_map(lambda x: _to_tensor(x, dev), np_tree)

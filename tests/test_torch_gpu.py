@@ -119,3 +119,119 @@ def test_server_aggregation_goes_through_the_kernels(cuda):
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(outs["cuda"][1], outs["cpu"][1], atol=1e-6)
+
+
+# ------------------------------------------------- LM kernels B4-B6 (serving)
+
+def _randn(cuda, *shape, seed=0, dtype=torch.float32):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+
+FLASH_CASES = [  # B, Sq, Skv, H, KVH, D, causal, window
+    (1, 1, 64, 4, 2, 64, True, None),
+    (2, 100, 100, 4, 1, 64, True, None),
+    (1, 300, 300, 10, 1, 256, True, 128),
+    (1, 77, 77, 6, 3, 128, True, 200),      # window > S
+    (1, 33, 65, 6, 3, 16, False, None),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_matches_plain(cuda, case, dt):
+    """f32: 1e-4 (f32 softmax in another order); bf16: 3e-2 (the output
+    is rounded to bf16 once)."""
+    from repro_torch.kernels.flash_attention import kernel as K, ref as R
+    B, Sq, Skv, H, KVH, D, causal, window = case
+    q = _randn(cuda, B, Sq, H, D, seed=1, dtype=DT[dt])
+    kv = _randn(cuda, B, Skv, 2 * KVH, D, seed=2, dtype=DT[dt])
+    k, v = kv[:, :, :KVH], kv[:, :, KVH:]              # strided views
+    o = K.flash_attention_call(q, k, v, causal=causal, window=window)
+    want = R.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal,
+                           window=window).transpose(1, 2)
+    tol = dict(rtol=3e-2, atol=3e-2) if dt == "bf16" else \
+        dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(o.float(), want.float(), **tol)
+    assert torch.equal(o, K.flash_attention_call(q, k, v, causal=causal,
+                                                 window=window))
+
+
+@pytest.mark.parametrize("B,S,C,h0", [(1, 1, 1, False), (2, 37, 70, True),
+                                      (4, 1000, 2560, True),
+                                      (3, 129, 333, False)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rglru_matches_plain(cuda, B, S, C, h0, dt):
+    from repro_torch.kernels.rglru import kernel as K, ref as R
+    log_a = torch.log(torch.rand(B, S, C, device=cuda) * 0.3 + 0.7).to(DT[dt])
+    b = _randn(cuda, B, S, C, seed=3, dtype=DT[dt])
+    hz = _randn(cuda, B, C, seed=4) if h0 else None
+    h, hl = K.rglru_scan_call(log_a, b, hz)
+    hr, hlr = R.rglru_scan_ref(torch.exp(log_a.float()), b,
+                               torch.zeros(B, C, device=cuda)
+                               if hz is None else hz)
+    torch.testing.assert_close(h, hr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hl, hlr, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h, K.rglru_scan_call(log_a, b, hz)[0])
+
+
+@pytest.mark.parametrize("B,NH,S,hd,ds,chunk,h0", [
+    (1, 2, 37, 8, 16, 16, False), (2, 3, 300, 64, 128, 128, True),
+    (1, 4, 100, 32, 16, 128, True), (2, 2, 130, 128, 64, 64, False)])
+def test_ssd_matches_plain(cuda, B, NH, S, hd, ds, chunk, h0):
+    """1e-4 relative to the output's scale: f32 sums of up to Q*ds terms in
+    another order than the sequential plain version."""
+    from repro_torch.kernels.ssd import kernel as K, ref as R
+    x = _randn(cuda, B, S, NH, hd, seed=5).transpose(1, 2)
+    dt = (torch.rand(B, S, NH, device=cuda) * 0.19 + 0.01).transpose(1, 2)
+    a = -(torch.rand(NH, device=cuda) * 1.5 + 0.5)
+    bc = _randn(cuda, B, S, 2 * ds + 8, seed=6)
+    Bm, Cm = bc[..., :ds], bc[..., ds:2 * ds]
+    hz = _randn(cuda, B, NH, hd, ds, seed=7) if h0 else None
+    y, st = K.ssd_forward_call(x, dt, a, Bm, Cm, chunk=chunk, h0=hz)
+    yr, sr = R.ssd_ref(x, dt, a, Bm, Cm, hz)
+    for got, want in ((y, yr), (st, sr)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(y, K.ssd_forward_call(x, dt, a, Bm, Cm, chunk=chunk,
+                                             h0=hz)[0])
+
+
+def test_lm_smoke_card_matches_cpu(cuda):
+    """recurrentgemma and mamba2 f32 smoke: the card (kernels) and the CPU
+    (plain versions) from one set of weights generate the same tokens."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.launch.specs import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model, tree_map
+    for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
+        cfg = smoke_config(arch).replace(param_dtype="float32",
+                                         dtype="float32")
+        params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                                generator=torch.Generator().manual_seed(1))
+        toks, logits = {}, {}
+        for dev in ("cuda", "cpu"):
+            m = build_model(cfg, dev)
+            p = tree_map(lambda t: t.to(dev), params)
+            before = (FK.flash_attention_call.launches
+                      + RK.rglru_scan_call.launches
+                      + SK.ssd_forward_call.launches)
+            lg, cache = make_prefill_step(m)(p, {"tokens": prompts.to(dev)},
+                                             m.init_cache(2, 48))
+            after = (FK.flash_attention_call.launches
+                     + RK.rglru_scan_call.launches
+                     + SK.ssd_forward_call.launches)
+            assert (after > before) == (dev == "cuda")
+            nxt = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            out = [nxt.cpu()]
+            for _ in range(7):
+                nxt, cache = make_serve_step(m)(p, cache, nxt)
+                out.append(nxt.cpu())
+            toks[dev], logits[dev] = torch.cat(out, 1), lg.cpu()
+        assert torch.equal(toks["cuda"], toks["cpu"])
+        torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-3,
+                                   atol=1e-3)

@@ -41,7 +41,7 @@ def test_every_port_module_imports_without_jax_or_repro():
         capture_output=True, text=True, timeout=120,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20        # every module was walked
+    assert int(out.stdout.strip()) >= 57        # every module was walked
 
 
 def _imported_roots(path: Path) -> set[str]:
