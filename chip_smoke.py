@@ -436,7 +436,9 @@ def phase_parity_lm(torch):
     """B4-B6 against their plain versions, at the slice's shapes and at
     ragged ones, each launched twice and required bit-identical.
     Tolerances: flash attention 1e-4 in f32 (f32 softmax in another order)
-    and 2e-2 in bf16 (the output is rounded to bf16 once, |o| < ~4); the
+    and, in bf16, one bf16 step: rtol 2^-7, atol 1e-5 (kernel and plain
+    version both compute in f32 and round the output to bf16 once); the
+    slice's shape also runs in f32 at 1e-4, the strict check of D=256; the
     RG-LRU scan 1e-5 (one FMA a step against a multiply and an add); SSD
     1e-4 relative to the output's largest value (sums of Q*ds terms in
     another order than the sequential SSM)."""
@@ -458,6 +460,8 @@ def phase_parity_lm(torch):
     flash_cases = [  # B, Sq, Skv, H, KVH, D, causal, window, dtype
         (SERVE_BATCH, S, S, RG["H"], RG["KVH"], RG["D"], True, RG["window"],
          bf16),                                          # the slice's shape
+        (SERVE_BATCH, S, S, RG["H"], RG["KVH"], RG["D"], True, RG["window"],
+         f32),                                           # ... in f32
         (1, 1000, 1000, 10, 1, 256, True, 2048, bf16),   # S < window
         (2, 777, 777, 8, 2, 128, True, 300, f32),        # window < S, G = 4
         (1, 333, 333, 4, 4, 64, True, None, f32),        # full causal
@@ -471,7 +475,7 @@ def phase_parity_lm(torch):
         want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
                                 window=window).transpose(1, 2)
-        tol = dict(rtol=2e-2, atol=2e-2) if dt == bf16 else \
+        tol = dict(rtol=2 ** -7, atol=1e-5) if dt == bf16 else \
             dict(rtol=1e-4, atol=1e-4)
         e = _max_err(torch, o, want, **tol)
         errs.setdefault("flash_attention", e)
@@ -539,8 +543,11 @@ def phase_timing_lm(torch):
     calls.  Bounds count each input read once and each output written
     once; operations are those the unmasked band needs (B4: 4 D flops per
     (query, key) pair in the band, at the bf16 tensor-core rate, as the
-    inputs are bf16) or the chunk products (B6: 2 Q^2 ds + 2 Q^2 hd +
-    4 Q hd ds per (b, head, chunk), at the f32 rate)."""
+    inputs are bf16) or the chunk products (B6, at the f32 rate: 2 Q^2 hd
+    + 4 Q hd ds per (b, head, chunk) for W X, C S_prev^T and the state
+    update, and 2 Q^2 ds per (b, chunk) for C B^T, which all heads share;
+    the kernel recomputes C B^T per head, and that is part of its gap to
+    the bound)."""
     from repro_torch.kernels.flash_attention import kernel as FK, ref as FR
     from repro_torch.kernels.rglru import kernel as RK, ref as RR
     from repro_torch.kernels.ssd import kernel as SK, ref as SR
@@ -581,7 +588,8 @@ def phase_timing_lm(torch):
     NH, hd, ds, Q = MB["NH"], MB["hd"], MB["ds"], MB["chunk"]
     x, dt, a, Bm, Cm = _ssd_inputs(torch, B, NH, S, hd, ds, 62)
     n_chunks = -(-S // Q)
-    per_chunk = 2 * Q * Q * ds + 2 * Q * Q * hd + 4 * Q * hd * ds
+    per_head_chunk = 2 * Q * Q * hd + 4 * Q * hd * ds
+    per_chunk = 2 * Q * Q * ds                    # C B^T, shared by the heads
     rows["ssd_forward"] = dict(
         ms=_time_ms(torch, lambda: SK.ssd_forward_call(
             x, dt, a, Bm, Cm, chunk=Q), iters=5, warmup=1),
@@ -590,7 +598,8 @@ def phase_timing_lm(torch):
         library_ms=None,
         nbytes=4 * (2 * x.numel() + dt.numel() + a.numel() + Bm.numel()
                     + Cm.numel() + B * NH * hd * ds),
-        flops=per_chunk * B * NH * n_chunks, peak=F32_FLOPS_PER_S)
+        flops=(per_head_chunk * NH + per_chunk) * B * n_chunks,
+        peak=F32_FLOPS_PER_S)
     del x, dt, Bm, Cm
 
     for name, r in rows.items():

@@ -6,6 +6,11 @@ Each kernel package mirrors the JAX package's three files:
   ops.py    — public entry points: CUDA tensors go to the kernel, CPU tensors
               to the plain PyTorch version in ref.py
 
+The FL server calls seafl_agg's ops.py.  The LM model functions
+(``chunked_attention``, ``rg_lru_scan``, ``ssd_chunked``) pick their route
+themselves and call ``kernel.py`` on the card, because their CPU route is
+the model's own translation of the JAX function, not ref.py.
+
 Build: every source in ``SOURCES`` is compiled by ``nvcc`` (one process per
 source, all started together) into a shared library under ``build/repro_torch/``
 at the repository root, named by a hash of the source and the flags, so an

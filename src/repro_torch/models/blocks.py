@@ -11,9 +11,11 @@ families runs.  Every block type exposes
 ``BLOCKS`` lists only ported block types; the MoE, MLA and encoder-decoder
 blocks are still to port (ROADMAP.md, Queue A).
 
-Kernel routes: on CUDA tensors ``rg_lru_scan`` runs the RG-LRU kernel
+Kernel routes: on CUDA tensors ``rg_lru_scan`` launches the RG-LRU kernel
 (``kernels/rglru``) and ``ssd_chunked`` the SSD kernel (``kernels/ssd``);
-on CPU tensors both run the torch translation of the JAX model function.
+on CPU tensors ``rg_lru_scan`` runs the sequential recurrence and
+``ssd_chunked`` the torch translation of the JAX model function.  These
+functions are the only place the model picks a route.
 """
 from __future__ import annotations
 
@@ -131,12 +133,20 @@ def rg_lru_gates(p, xb):
 
 
 def rg_lru_scan(log_a, b, h0=None):
-    """Linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t in f32, from h0.
+    """Linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t in f32, from h0
+    (zeros when None).  Returns (h (B, S, C), h_last (B, C)); the JAX
+    function returns h alone, and its prefill cache takes h[:, -1].
 
     CUDA: the RG-LRU kernel, which exponentiates ``log_a`` in registers.
-    CPU: the sequential plain version of the same function."""
-    from repro_torch.kernels.rglru.ops import rglru_scan
-    return rglru_scan(log_a, b, h0)[0]
+    CPU: the sequential recurrence."""
+    if log_a.device.type == "cuda":
+        from repro_torch.kernels.rglru.kernel import rglru_scan_call
+        return rglru_scan_call(log_a, b, h0)
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    if h0 is None:
+        h0 = torch.zeros((log_a.shape[0], log_a.shape[2]),
+                         dtype=torch.float32, device=log_a.device)
+    return rglru_scan_ref(torch.exp(log_a.to(torch.float32)), b, h0)
 
 
 def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
@@ -155,9 +165,9 @@ def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
         xb = causal_conv1d(p["conv"], xb)
         log_a, b = rg_lru_gates(p, xb)
         h0 = cache["h"] if cache is not None else None
-        h = rg_lru_scan(log_a, b, h0)
+        h, h_last = rg_lru_scan(log_a, b, h0)
         if mode == "prefill":
-            new_cache = {"h": h[:, -1],
+            new_cache = {"h": h_last,
                          "conv": xz[:, -(cfg.conv_width - 1):, :cfg.rnn_width]
                          .to(cache["conv"].dtype)}
 
@@ -271,9 +281,9 @@ def ssd_chunked(x, dt, a, B_mat, C_mat, chunk, h0=None):
     CUDA: the SSD kernel, which reads this layout through strides and
     writes y in it.  CPU: the torch translation of the JAX model function."""
     if x.device.type == "cuda":
-        from repro_torch.kernels.ssd.ops import ssd_forward
-        y, state = ssd_forward(x.transpose(1, 2), dt.transpose(1, 2), a,
-                               B_mat, C_mat, chunk=chunk, h0=h0)
+        from repro_torch.kernels.ssd.kernel import ssd_forward_call
+        y, state = ssd_forward_call(x.transpose(1, 2), dt.transpose(1, 2), a,
+                                    B_mat, C_mat, chunk=chunk, h0=h0)
         return y.transpose(1, 2), state
     return _ssd_chunked_plain(x, dt, a, B_mat, C_mat, chunk, h0)
 

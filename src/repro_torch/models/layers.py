@@ -146,8 +146,9 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     (there is no mesh).  See the module docstring for the kernel route."""
     del score_shard
     if _uses_flash_kernel(q, q_offset, kv_len, softcap):
-        from repro_torch.kernels.flash_attention.ops import flash_attention
-        return flash_attention(q, k, v, causal=causal, window=window)
+        from repro_torch.kernels.flash_attention.kernel import \
+            flash_attention_call
+        return flash_attention_call(q, k, v, causal=causal, window=window)
 
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]

@@ -131,7 +131,9 @@ def test_rglru_matches_jax_model_scan(with_h0):
     h, hl = rglru_scan(lat, bt, h0t)
     _close(h, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(hl, h[:, -1], rtol=0, atol=0)
-    _close(TB.rg_lru_scan(lat, bt, h0t), want, rtol=1e-5, atol=1e-5)
+    h2, hl2 = TB.rg_lru_scan(lat, bt, h0t)
+    _close(h2, want, rtol=1e-5, atol=1e-5)
+    _close(hl2, want[:, -1], rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------- B6 SSD
