@@ -3,6 +3,7 @@
 federated simulation and the LM serving path.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ssd-precision   # only the SSD precision probe
 
 Phases, each printing its lines; no phase's failure is caught:
 
@@ -13,8 +14,9 @@ Phases, each printing its lines; no phase's failure is caught:
   3. parity   each kernel against its plain PyTorch version on the same
               inputs, each launched twice and required bit-identical:
               seafl_agg at the FL path's shape (K=10 rows of ResNet-18's
-              P=11,176,970) with f32 and bf16 rows; flash attention, the
-              RG-LRU scan and the SSD forward at the serving path's shapes
+              P=11,176,970) with f32 and bf16 rows; flash attention (its
+              bf16 tensor-core and f32 SIMT instances), the RG-LRU scan and
+              the SSD forward at the serving path's shapes
               (recurrentgemma-2b / mamba2-1.3b prefill of 4 x 4096 tokens)
               and at ragged ones
   4. timing   each kernel, its plain version and, where one exists, the one
@@ -29,14 +31,19 @@ Phases, each printing its lines; no phase's failure is caught:
   6. serve    repro_torch.launch.serve.serve at full width for
               recurrentgemma-2b, then mamba2-1.3b (4 prompts of 4096 tokens,
               32 generated); the LM kernels' counts are zeroed just before
-              each and must equal one prefill's layers (B4 8, B5 18, B6 48:
-              decode launches none); one decode step is profiled for the
-              device's busy share.  Then both models' f32 smoke configs run
+              each and must equal one prefill's layers (B4 8, all on the
+              tensor-core instance, B5 18, B6 48: decode launches none);
+              the prefill and one decode step are profiled.  Then both models' f32 smoke configs run
               on the card and on the CPU from one set of weights: identical
               greedy tokens, prefill logits within 1e-3.
-  7. result   one JSON line of per-kernel numbers (all six kernels), the
+  7. result   one JSON line of per-kernel numbers (B4 as two rows, one
+              per instance), the
               nvidia-smi line, and last the contract line
               {"ok": true, "device": {...}}
+
+With --ssd-precision it runs phases 1 and 2 and then only the probe of
+why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
+one JSON line per SSD parity case.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's src/ beside this file.
@@ -56,11 +63,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM data sheet (dense, 700 W): HBM3 bandwidth, the f32 rate outside
-# the tensor cores and the bf16 tensor-core rate.  Spec-sheet numbers, used
-# only to compute bound_ms.
+# the tensor cores, the bf16 tensor-core rate, and the rate of f32-accurate
+# products on the tensor cores (3xTF32: three TF32 products each, 495 / 3).
+# Spec-sheet numbers, used only to compute bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+F32_TC_FLOPS_PER_S = 495e12 / 3
 
 MAIN_K = 10
 RESNET18_P = 11_176_970
@@ -379,6 +388,13 @@ MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 # per prefill: 8 local-attention and 18 recurrent layers (26 = (rec, rec,
 # attn) x 8 + (rec, rec)); 48 SSD layers
 PER_PREFILL = {"flash_attention": 8, "rglru_scan": 18, "ssd_forward": 48}
+SSD_CASES = [  # B, NH, S, hd, ds, chunk, h0
+    (SERVE_BATCH, MB["NH"], SERVE_PROMPT, MB["hd"], MB["ds"], MB["chunk"],
+     False),                                             # the slice's shape
+    (2, 8, 1000, 64, 128, 128, True),
+    (1, 4, 77, 32, 64, 64, False),
+    (1, 2, 300, 128, 32, 100, True),
+]
 
 
 def _lm_kernels():
@@ -391,8 +407,10 @@ def _lm_kernels():
 
 
 def _reset_lm_counts():
+    from repro_torch.kernels.flash_attention import kernel as FK
     for fn in _lm_kernels().values():
         fn.launches = 0
+    FK.reset_launch_counts()
 
 
 def _randn(torch, *shape, seed, dtype=None):
@@ -464,25 +482,32 @@ def phase_parity_lm(torch):
          f32),                                           # ... in f32
         (1, 1000, 1000, 10, 1, 256, True, 2048, bf16),   # S < window
         (2, 777, 777, 8, 2, 128, True, 300, f32),        # window < S, G = 4
+        (2, 777, 777, 8, 2, 128, True, 300, bf16),
         (1, 333, 333, 4, 4, 64, True, None, f32),        # full causal
         (1, 100, 161, 6, 3, 64, False, None, bf16),      # Skv != Sq
+        (1, 100, 161, 6, 3, 32, False, None, bf16),      # bf16 on SIMT
     ]
     for i, (B, Sq, Skv, H, KVH, D, causal, window, dt) in enumerate(
             flash_cases):
         q, k, v = _flash_inputs(torch, B, Sq, Skv, H, KVH, D, dt, 10 + i)
+        FK.reset_launch_counts()
         o = twice(lambda: FK.flash_attention_call(q, k, v, causal=causal,
                                                   window=window))
+        inst = "tc" if FK.uses_tensor_cores(dt, D) else "simt"
+        if getattr(FK.flash_attention_call, f"launches_{inst}") != 2:
+            raise AssertionError(f"flash_attention {dt} D={D} did not run "
+                                 f"on its {inst} instance")
         want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
                                 window=window).transpose(1, 2)
         tol = dict(rtol=2 ** -7, atol=1e-5) if dt == bf16 else \
             dict(rtol=1e-4, atol=1e-4)
         e = _max_err(torch, o, want, **tol)
-        errs.setdefault("flash_attention", e)
+        errs.setdefault(f"flash_attention_{str(dt)[6:]}_{inst}", e)
         torch.cuda.synchronize()
         log(f"[parity] flash_attention B={B} Sq={Sq} Skv={Skv} H={H} "
             f"KVH={KVH} D={D} causal={causal} window={window} "
-            f"{str(dt)[6:]}: max|d| {e:.3e}")
+            f"{str(dt)[6:]} ({inst}): max|d| {e:.3e}")
         del q, k, v, o, want
 
     rg_cases = [  # B, S, C, dtype, h0
@@ -505,13 +530,7 @@ def phase_parity_lm(torch):
             f"h0={with_h0}: max|d| {e:.3e}")
         del log_a, b, h, hr
 
-    ssd_cases = [  # B, NH, S, hd, ds, chunk, h0
-        (SERVE_BATCH, MB["NH"], S, MB["hd"], MB["ds"], MB["chunk"], False),
-        (2, 8, 1000, 64, 128, 128, True),
-        (1, 4, 77, 32, 64, 64, False),
-        (1, 2, 300, 128, 32, 100, True),
-    ]
-    for i, (B, NH, Sl, hd, ds, chunk, with_h0) in enumerate(ssd_cases):
+    for i, (B, NH, Sl, hd, ds, chunk, with_h0) in enumerate(SSD_CASES):
         x, dt, a, Bm, Cm = _ssd_inputs(torch, B, NH, Sl, hd, ds, 40 + i)
         h0 = _randn(torch, B, NH, hd, ds, seed=50 + i) if with_h0 else None
         y, st = twice(lambda: SK.ssd_forward_call(x, dt, a, Bm, Cm,
@@ -530,6 +549,58 @@ def phase_parity_lm(torch):
     return errs
 
 
+def phase_ssd_precision(torch):
+    """Why B6 multiplies in 3xTF32: the same four kernels with every product
+    cut to one TF32 mma (a_hi b_hi; a variant of ssd.cu written under
+    build/, which the port never loads) and the shipped 3xTF32 kernels, each
+    against ssd_ref on SSD_CASES' inputs.  Per case and variant: max |d| and
+    the share of the SSD parity limit (1e-4 |want| + 1e-4 max |want|) it
+    uses, > 1 failing; at the slice's shape also the time."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.ssd import kernel as SK, ref as SR
+    src = K.SOURCES["ssd"].read_text()
+    lo_terms = ("      mma_tf32(acc[j], al, bh0, bh1);  // small terms first\n"
+                "      mma_tf32(acc[j], ah, bl0, bl1);\n")
+    if src.count(lo_terms) != 1:
+        raise AssertionError("ssd.cu's 3xTF32 product is not where the "
+                             "probe expects it")
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    variant = K.BUILD_DIR / "ssd_tf32x1.cu"
+    variant.write_text(src.replace(lo_terms, ""))
+    K.SOURCES["ssd_tf32x1"] = variant
+    K.build_all(["ssd", "ssd_tf32x1"])
+    libs = {"3xtf32": "ssd", "tf32x1": "ssd_tf32x1"}
+    shipped = SK.library
+    try:
+        for i, (B, NH, Sl, hd, ds, chunk, with_h0) in enumerate(SSD_CASES):
+            x, dt, a, Bm, Cm = _ssd_inputs(torch, B, NH, Sl, hd, ds, 40 + i)
+            h0 = (_randn(torch, B, NH, hd, ds, seed=50 + i) if with_h0
+                  else None)
+            yr, sr = SR.ssd_ref(x, dt, a, Bm, Cm, h0)
+            row = {"case": [B, NH, Sl, hd, ds, chunk, with_h0],
+                   "max_abs_y": float(yr.abs().max())}
+            for name, lib in libs.items():
+                SK.library = lambda _, lib=lib: K.library(lib)
+                got = SK.ssd_forward_call(x, dt, a, Bm, Cm, chunk=chunk,
+                                          h0=h0)
+                d, share = 0.0, 0.0
+                for g, w in zip(got, (yr, sr)):
+                    err = (g - w).abs()
+                    lim = 1e-4 * max(1.0, float(w.abs().max())) \
+                        + 1e-4 * w.abs()
+                    d = max(d, float(err.max()))
+                    share = max(share, float((err / lim).max()))
+                row[name] = {"max_abs_err": d, "share_of_limit": share}
+                if i == 0:
+                    row[name]["ms"] = _time_ms(torch, lambda: (
+                        SK.ssd_forward_call(x, dt, a, Bm, Cm, chunk=chunk)),
+                        iters=20, warmup=2)
+            log(f"[ssd-precision] {json.dumps(row)}")
+            del x, dt, Bm, Cm, yr, sr, got
+    finally:
+        SK.library = shipped
+
+
 def _band_mask(torch, S, window):
     q = torch.arange(S, device="cuda")[:, None]
     k = torch.arange(S, device="cuda")[None, :]
@@ -540,14 +611,17 @@ def phase_timing_lm(torch):
     """B4-B6 at the slice's shapes: kernel, plain version, bound, and (B4)
     one PyTorch call computing the same function -- SDPA with a boolean
     causal+window band mask and enable_gqa, a yardstick the port never
-    calls.  Bounds count each input read once and each output written
+    calls.  B4 is timed per instance: bf16 on the tensor cores, f32 on the
+    SIMT cores.  Bounds count each input read once and each output written
     once; operations are those the unmasked band needs (B4: 4 D flops per
-    (query, key) pair in the band, at the bf16 tensor-core rate, as the
-    inputs are bf16) or the chunk products (B6, at the f32 rate: 2 Q^2 hd
-    + 4 Q hd ds per (b, head, chunk) for W X, C S_prev^T and the state
-    update, and 2 Q^2 ds per (b, chunk) for C B^T, which all heads share;
-    the kernel recomputes C B^T per head, and that is part of its gap to
-    the bound)."""
+    (query, key) pair in the band; at the bf16 tensor-core rate for bf16
+    inputs, at the rate of f32-accurate (3xTF32) tensor-core products for
+    f32) or the chunk products (B6, at the 3xTF32 rate, for a chunk of L
+    steps: hd L (L + 1) + 4 L hd ds per (b, head, chunk) for the causal W X,
+    C S_prev^T and the state update, and ds L (L + 1) per (b, chunk) for the
+    lower triangle of C B^T, which all heads share).  B6's chunk states,
+    which it writes, passes and reads back through device memory, are not in
+    its bound: that traffic is part of its gap."""
     from repro_torch.kernels.flash_attention import kernel as FK, ref as FR
     from repro_torch.kernels.rglru import kernel as RK, ref as RR
     from repro_torch.kernels.ssd import kernel as SK, ref as SR
@@ -556,22 +630,26 @@ def phase_timing_lm(torch):
     rows = {}
 
     H, KVH, D, W = RG["H"], RG["KVH"], RG["D"], RG["window"]
-    q, k, v = _flash_inputs(torch, B, S, S, H, KVH, D, torch.bfloat16, 60)
     band = _band_mask(torch, S, W)
     pairs = int(band.sum())
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    rows["flash_attention"] = dict(
-        ms=_time_ms(torch, lambda: FK.flash_attention_call(
-            q, k, v, causal=True, window=W), iters=5, warmup=1),
-        plain_ms=_time_ms(torch, lambda: FR.attention_ref(
-            qt, kt, vt, causal=True, window=W), iters=3, warmup=1),
-        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=band, enable_gqa=True), iters=5,
-            warmup=1),
-        nbytes=nbytes, flops=4 * D * pairs * B * H,
-        peak=BF16_FLOPS_PER_S)
-    del q, k, v, qt, kt, vt, band
+    for name, dtype, peak, iters in (
+            ("flash_attention_bf16_tc", torch.bfloat16, BF16_FLOPS_PER_S, 20),
+            ("flash_attention_f32_simt", torch.float32, F32_TC_FLOPS_PER_S,
+             3)):
+        q, k, v = _flash_inputs(torch, B, S, S, H, KVH, D, dtype, 60)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        rows[name] = dict(
+            ms=_time_ms(torch, lambda: FK.flash_attention_call(
+                q, k, v, causal=True, window=W), iters=iters, warmup=1),
+            plain_ms=_time_ms(torch, lambda: FR.attention_ref(
+                qt, kt, vt, causal=True, window=W), iters=3, warmup=1),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True), iters=5,
+                warmup=1),
+            nbytes=nbytes, flops=4 * D * pairs * B * H, peak=peak)
+        del q, k, v, qt, kt, vt
+    del band
 
     C = RG["C"]
     log_a, b = _rglru_inputs(torch, B, S, C, torch.float32, 61)
@@ -587,26 +665,34 @@ def phase_timing_lm(torch):
 
     NH, hd, ds, Q = MB["NH"], MB["hd"], MB["ds"], MB["chunk"]
     x, dt, a, Bm, Cm = _ssd_inputs(torch, B, NH, S, hd, ds, 62)
-    n_chunks = -(-S // Q)
-    per_head_chunk = 2 * Q * Q * hd + 4 * Q * hd * ds
-    per_chunk = 2 * Q * Q * ds                    # C B^T, shared by the heads
+    lens = [min(Q, S - c) for c in range(0, S, Q)]    # the last may be short
+    # k <= q only: the causal pairs of W X and of C B^T (shared by the heads)
+    ssd_flops = sum(hd * L * (L + 1) * NH + 4 * L * hd * ds * NH
+                    + ds * L * (L + 1) for L in lens) * B
+    with _profiler(torch) as prof:          # the four kernels' shares
+        SK.ssd_forward_call(x, dt, a, Bm, Cm, chunk=Q)
+        torch.cuda.synchronize()
+    _, stages = _kernel_times(torch, prof)
+    log("[timing] ssd_forward stages (profiled call): " + ", ".join(
+        f"{key.split('(')[0].split(' ')[-1][:24]} {ms:.4f} ms"
+        for ms, key in stages))
     rows["ssd_forward"] = dict(
         ms=_time_ms(torch, lambda: SK.ssd_forward_call(
-            x, dt, a, Bm, Cm, chunk=Q), iters=5, warmup=1),
+            x, dt, a, Bm, Cm, chunk=Q), iters=20, warmup=2),
         plain_ms=_time_ms(torch, lambda: SR.ssd_ref(x, dt, a, Bm, Cm),
                           iters=1, warmup=1),
         library_ms=None,
         nbytes=4 * (2 * x.numel() + dt.numel() + a.numel() + Bm.numel()
                     + Cm.numel() + B * NH * hd * ds),
-        flops=(per_head_chunk * NH + per_chunk) * B * n_chunks,
-        peak=F32_FLOPS_PER_S)
+        flops=ssd_flops,
+        peak=F32_TC_FLOPS_PER_S)
     del x, dt, Bm, Cm
 
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = _bound_ms(r["nbytes"], r["flops"],
                                                  r.pop("peak"))
         lib = r["library_ms"]
-        log(f"[timing] {name:<16s} kernel_ms={r['ms']:.4f} "
+        log(f"[timing] {name:<24s} kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}, {r['nbytes'] / 1e6:.1f} MB, "
             f"{r['flops']:.4g} flop) "
@@ -676,10 +762,11 @@ def phase_serve(torch):
     """The serving entry point at full width, recurrentgemma-2b then
     mamba2-1.3b: 4 prompts of 4096 tokens, 32 generated.  The LM kernels'
     counts are zeroed just before each serve() and read just after: one
-    prefill must launch B4 8 and B5 18 times (recurrentgemma) and B6 48
-    times (mamba2), and decode none, so each count equals its per-prefill
-    number exactly."""
+    prefill must launch B4 8 times, all on its bf16 tensor-core instance,
+    and B5 18 times (recurrentgemma), B6 48 times (mamba2), and decode
+    none, so each count equals its per-prefill number exactly."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import build_model, tree_leaves
     counts, summary = {}, {}
@@ -702,7 +789,13 @@ def phase_serve(torch):
         r = serve(arch, smoke=False, batch=SERVE_BATCH,
                   prompt_len=SERVE_PROMPT, gen=SERVE_GEN, device="cuda")
         launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+        fa = FK.flash_attention_call
+        launched["flash_attention_tc"] = fa.launches_tc
+        launched["flash_attention_simt"] = fa.launches_simt
         peak = torch.cuda.max_memory_allocated() / 2**20
+        if (fa.launches_tc, fa.launches_simt) != (fa.launches, 0):
+            raise AssertionError(f"{arch}: flash attention ran on the SIMT "
+                                 f"instance: {launched}")
         for name, fn in _lm_kernels().items():
             want = PER_PREFILL[name] if name in kernels else 0
             if launched[name] != want:
@@ -711,6 +804,9 @@ def phase_serve(torch):
                                      f"expected {want}")
         for name in kernels:
             counts[name] = launched[name]
+        if "flash_attention" in kernels:
+            counts["flash_attention_bf16_tc"] = fa.launches_tc
+            counts["flash_attention_f32_simt"] = fa.launches_simt
         gen = r["generated"]
         if gen.shape != (SERVE_BATCH, SERVE_GEN) or not (
                 (gen >= 0) & (gen < cfg.vocab_size)).all():
@@ -785,6 +881,9 @@ def phase_card_vs_cpu(torch):
 # ------------------------------------------------------------------ main
 
 def main() -> int:
+    if sys.argv[1:] not in ([], ["--ssd-precision"]):
+        print("usage: chip_smoke.py [--ssd-precision]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -796,6 +895,9 @@ def main() -> int:
 
     name, smi = phase_device(torch)
     phase_build()
+    if sys.argv[1:] == ["--ssd-precision"]:
+        phase_ssd_precision(torch)
+        return 0
     errs = phase_parity(torch)
     errs.update(phase_parity_lm(torch))
     timing = phase_timing(torch)
@@ -821,22 +923,29 @@ def main() -> int:
             "on_main_path": kname != "sim_partials",
             "bf16_rows_ms": timing[(kname, "bfloat16")]["ms"],
         })
-    lm = {"flash_attention": ("kernels/flash_attention/csrc/"
-                              "flash_attention.cu",
-                              "src/repro/kernels/flash_attention/kernel.py:27"),
+    flash = "src/repro/kernels/flash_attention/kernel.py:27"
+    lm = {"flash_attention_bf16_tc": ("kernels/flash_attention/csrc/"
+                                      "flash_attention_tc.cu", flash,
+                                      "flash_attention_bfloat16_tc"),
+          "flash_attention_f32_simt": ("kernels/flash_attention/csrc/"
+                                       "flash_attention.cu", flash,
+                                       "flash_attention_float32_simt"),
           "rglru_scan": ("kernels/rglru/csrc/rglru.cu",
-                         "src/repro/kernels/rglru/kernel.py:21"),
+                         "src/repro/kernels/rglru/kernel.py:21",
+                         "rglru_scan"),
           "ssd_forward": ("kernels/ssd/csrc/ssd.cu",
-                          "src/repro/kernels/ssd/kernel.py:24")}
-    for kname, (source, replaced) in lm.items():
+                          "src/repro/kernels/ssd/kernel.py:24",
+                          "ssd_forward")}
+    for kname, (source, replaced, err_key) in lm.items():
         t = lm_timing[kname]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaced,
-            "launches": lm_launches[kname], "max_abs_err": errs[kname],
+            "launches": lm_launches[kname], "max_abs_err": errs[err_key],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "on_main_path": True,
+            "library_ms": t["library_ms"],
+            "on_main_path": kname != "flash_attention_f32_simt",
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
         f"memory MiB: {peak:.1f}")

@@ -33,6 +33,8 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = {
     "seafl_agg": _HERE / "seafl_agg" / "csrc" / "seafl_agg.cu",
     "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_tc": _HERE / "flash_attention" / "csrc"
+    / "flash_attention_tc.cu",
     "rglru": _HERE / "rglru" / "csrc" / "rglru.cu",
     "ssd": _HERE / "ssd" / "csrc" / "ssd.cu",
 }

@@ -1,8 +1,10 @@
-"""ctypes binding of the SSD chunked-forward CUDA kernel (csrc/ssd.cu).
+"""ctypes binding of the SSD chunked-forward CUDA kernels (csrc/ssd.cu).
 
-``ssd_forward_call`` checks its tensors, allocates the outputs with
-``torch.empty``, launches on PyTorch's current stream, raises if the C entry
-reports a CUDA error, and counts its launches in the plain integer
+``ssd_forward_call`` checks its tensors, allocates the outputs and the
+scratch of the four chunk-parallel kernels with ``torch.empty`` (C B^T per
+chunk, the chunk states, the chunk decays), launches them in order on
+PyTorch's current stream, raises if the C entry reports a CUDA error, and
+counts one launch of the SSD forward in the plain integer
 ``ssd_forward_call.launches``.  Nothing here synchronises.
 
 Replaces the JAX package's src/repro/kernels/ssd/kernel.py _ssd_kernel (via
@@ -28,11 +30,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_bound", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         st = ctypes.POINTER(ctypes.c_longlong)
-        lib.ssd_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
-                                i, i, st, st, st, st, st, vp]
+        lib.ssd_fwd.argtypes = [vp] * 11 + [i] * 6 + [st] * 5 + [vp]
         lib.ssd_fwd.restype = i
-        lib.ssd_smem_bytes.argtypes = [i, i, i]
-        lib.ssd_smem_bytes.restype = ctypes.c_longlong
         lib._bound = True
     return lib
 
@@ -66,26 +65,25 @@ def ssd_forward_call(x, dt, a, Bm, Cm, *, chunk: int, h0=None):
         raise ValueError("ssd_forward needs the last dims contiguous and a, "
                          "h0 contiguous")
     Q = min(chunk, S)
-    if not (1 <= Q <= MAX_CHUNK and ds <= MAX_STATE and ds % 4 == 0
-            and hd <= MAX_HEAD_DIM and B <= _MAX_GRID_Y):
+    if not (1 <= Q <= MAX_CHUNK and 1 <= ds <= MAX_STATE
+            and 1 <= hd <= MAX_HEAD_DIM and NH <= _MAX_GRID_Y
+            and B <= _MAX_GRID_Y):
         raise ValueError(f"ssd_forward takes chunk <= {MAX_CHUNK}, ds <= "
-                         f"{MAX_STATE} with ds % 4 == 0, hd <= "
-                         f"{MAX_HEAD_DIM}; got chunk {chunk}, ds {ds}, "
-                         f"hd {hd}")
-    lib = _lib()
-    smem = lib.ssd_smem_bytes(Q, hd, ds)
-    if smem > C.MAX_SMEM:
-        raise ValueError(f"ssd_forward: chunk {Q}, hd {hd}, ds {ds} need "
-                         f"{smem} bytes of shared memory, above "
-                         f"{C.MAX_SMEM}")
-    y = torch.empty((B, S, NH, hd), dtype=torch.float32,
-                    device=dev).transpose(1, 2)
-    state = torch.empty((B, NH, hd, ds), dtype=torch.float32, device=dev)
+                         f"{MAX_STATE}, hd <= {MAX_HEAD_DIM}; got chunk "
+                         f"{chunk}, ds {ds}, hd {hd}")
+    nc = -(-S // Q)
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.empty((B, S, NH, hd), **f32).transpose(1, 2)
+    state = torch.empty((B, NH, hd, ds), **f32)
+    cb = torch.empty((B, nc, MAX_CHUNK, MAX_CHUNK), **f32)
+    states = torch.empty((B, nc, NH, hd, ds), **f32)
+    decay = torch.empty((B, nc, NH), **f32)
     d3 = (0, 1, 2)
-    err = lib.ssd_fwd(
+    err = _lib().ssd_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        state.data_ptr(), B, NH, S, hd, ds, Q, C.strides(x, d3),
+        state.data_ptr(), cb.data_ptr(), states.data_ptr(), decay.data_ptr(),
+        B, NH, S, hd, ds, Q, C.strides(x, d3),
         C.strides(dt, d3), C.strides(Bm, (0, 1)), C.strides(Cm, (0, 1)),
         C.strides(y, d3), C.stream(dev))
     C.check_cuda("ssd_fwd", err)

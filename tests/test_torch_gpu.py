@@ -134,6 +134,9 @@ FLASH_CASES = [  # B, Sq, Skv, H, KVH, D, causal, window
     (1, 300, 300, 10, 1, 256, True, 128),
     (1, 77, 77, 6, 3, 128, True, 200),      # window > S
     (1, 33, 65, 6, 3, 16, False, None),
+    (2, 1024, 1024, 10, 1, 256, True, 2048),   # the slice's head, S = 1024
+    (1, 513, 513, 8, 2, 64, True, 200),
+    (2, 300, 300, 8, 8, 128, True, None),
 ]
 
 
@@ -154,8 +157,23 @@ def test_flash_attention_matches_plain(cuda, case, dt):
     tol = dict(rtol=2 ** -7, atol=1e-5) if dt == "bf16" else \
         dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(o.float(), want.float(), **tol)
+    before = (K.flash_attention_call.launches_tc,
+              K.flash_attention_call.launches_simt)
     assert torch.equal(o, K.flash_attention_call(q, k, v, causal=causal,
                                                  window=window))
+    tc = dt == "bf16" and D in (64, 128, 256)
+    assert (K.flash_attention_call.launches_tc - before[0],
+            K.flash_attention_call.launches_simt - before[1]) == \
+        ((1, 0) if tc else (0, 1))
+
+
+def test_flash_attention_tensor_cores_refuse_layouts_tma_cannot_read(cuda):
+    """bf16 at D = 64 goes to the tensor-core instance, which raises (no
+    fallback) on rows that are not a multiple of 16 bytes apart."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    x = _randn(cuda, 1, 64, 3, 68, seed=8, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="TMA"):
+        K.flash_attention_call(x, x[:, :, :1], x[:, :, 1:2])
 
 
 @pytest.mark.parametrize("B,S,C,h0", [(1, 1, 1, False), (2, 37, 70, True),
@@ -178,7 +196,9 @@ def test_rglru_matches_plain(cuda, B, S, C, h0, dt):
 
 @pytest.mark.parametrize("B,NH,S,hd,ds,chunk,h0", [
     (1, 2, 37, 8, 16, 16, False), (2, 3, 300, 64, 128, 128, True),
-    (1, 4, 100, 32, 16, 128, True), (2, 2, 130, 128, 64, 64, False)])
+    (1, 4, 100, 32, 16, 128, True), (2, 2, 130, 128, 64, 64, False),
+    (2, 4, 1000, 64, 128, 128, True),      # 8 chunks, the last ragged
+    (1, 2, 50, 24, 18, 32, True)])         # rows not 16-byte multiples
 def test_ssd_matches_plain(cuda, B, NH, S, hd, ds, chunk, h0):
     """1e-4 relative to the output's scale: f32 sums of up to Q*ds terms in
     another order than the sequential plain version."""
