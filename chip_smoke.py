@@ -4,21 +4,24 @@ federated simulation and the LM serving path.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ssd-precision   # only the SSD precision probe
+    python3 chip_smoke.py --probe           # only B4 f32's and B5's probe
 
 Phases, each printing its lines; no phase's failure is caught:
 
   1. device   the card, its power limit (nvidia-smi), torch and CUDA versions
   2. build    nvcc builds every kernel from the sources in src/ (seafl_agg,
-              flash_attention, rglru, ssd; one nvcc per source, all started
+              flash_attention_mma, flash_attention_tc, rglru, ssd, with the
+              shared headers of kernels/csrc; one nvcc per source, all started
               together), with the time and -Xptxas -v output
   3. parity   each kernel against its plain PyTorch version on the same
               inputs, each launched twice and required bit-identical:
               seafl_agg at the FL path's shape (K=10 rows of ResNet-18's
               P=11,176,970) with f32 and bf16 rows; flash attention (its
-              bf16 tensor-core and f32 SIMT instances), the RG-LRU scan and
-              the SSD forward at the serving path's shapes
-              (recurrentgemma-2b / mamba2-1.3b prefill of 4 x 4096 tokens)
-              and at ragged ones
+              wgmma instance, bf16 with D in {64, 128, 256}, and its
+              mma.sync 3xTF32 instance, every other case), the RG-LRU scan
+              (on both routes that fill its ring: TMA and cp.async) and the
+              SSD forward at the serving path's shapes (recurrentgemma-2b /
+              mamba2-1.3b prefill of 4 x 4096 tokens) and at ragged ones
   4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
               beside the least time the card could take (bound_ms)
@@ -35,7 +38,8 @@ Phases, each printing its lines; no phase's failure is caught:
               tensor-core instance, B5 18, B6 48: decode launches none);
               the prefill and one decode step are profiled.  Then both models' f32 smoke configs run
               on the card and on the CPU from one set of weights: identical
-              greedy tokens, prefill logits within 1e-3.
+              greedy tokens, prefill logits within 1e-3; recurrentgemma's
+              f32 prefill must run flash attention's mma.sync instance.
   7. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance), the
               nvidia-smi line, and last the contract line
@@ -43,7 +47,9 @@ Phases, each printing its lines; no phase's failure is caught:
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
 why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
-one JSON line per SSD parity case.
+one JSON line per SSD parity case.  With --probe it runs phases 1 and 2 and
+then only phase_probe: the card's mma.sync TF32 rate and variants of B4's
+f32 instance and of B5's ring, one JSON line each.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's src/ beside this file.
@@ -485,7 +491,8 @@ def phase_parity_lm(torch):
         (2, 777, 777, 8, 2, 128, True, 300, bf16),
         (1, 333, 333, 4, 4, 64, True, None, f32),        # full causal
         (1, 100, 161, 6, 3, 64, False, None, bf16),      # Skv != Sq
-        (1, 100, 161, 6, 3, 32, False, None, bf16),      # bf16 on SIMT
+        (1, 100, 161, 6, 3, 32, False, None, bf16),      # bf16 on mma
+        (2, 45, 45, 4, 2, 20, True, 16, f32),            # D padded to 24
     ]
     for i, (B, Sq, Skv, H, KVH, D, causal, window, dt) in enumerate(
             flash_cases):
@@ -493,7 +500,7 @@ def phase_parity_lm(torch):
         FK.reset_launch_counts()
         o = twice(lambda: FK.flash_attention_call(q, k, v, causal=causal,
                                                   window=window))
-        inst = "tc" if FK.uses_tensor_cores(dt, D) else "simt"
+        inst = FK.instance(dt, D)
         if getattr(FK.flash_attention_call, f"launches_{inst}") != 2:
             raise AssertionError(f"flash_attention {dt} D={D} did not run "
                                  f"on its {inst} instance")
@@ -510,14 +517,18 @@ def phase_parity_lm(torch):
             f"{str(dt)[6:]} ({inst}): max|d| {e:.3e}")
         del q, k, v, o, want
 
-    rg_cases = [  # B, S, C, dtype, h0
+    rg_cases = [  # B, S, C, dtype, h0; the ring's tiles are 64 steps
         (SERVE_BATCH, S, RG["C"], f32, False),           # the slice's shape
-        (3, 1001, 333, f32, True),
-        (2, 17, 2560, bf16, False),
+        (3, 1001, 333, f32, True),                       # cp.async, C % 4
+        (2, 17, 2560, bf16, False),                      # S < one tile
+        (2, 300, 36, f32, True),                         # TMA, ragged C
+        (1, 777, 70, bf16, True),                        # cp.async, bf16
     ]
     for i, (B, Sl, C, dt, with_h0) in enumerate(rg_cases):
         log_a, b = _rglru_inputs(torch, B, Sl, C, dt, 20 + i)
         h0 = _randn(torch, B, C, seed=30 + i) if with_h0 else None
+        route = RK.route(log_a.element_size(), Sl, C, log_a.data_ptr(),
+                         b.data_ptr())
         h, hl = twice(lambda: RK.rglru_scan_call(log_a, b, h0))
         hr, hlr = RR.rglru_scan_ref(torch.exp(log_a.float()), b,
                                     torch.zeros(B, C, device="cuda")
@@ -527,7 +538,7 @@ def phase_parity_lm(torch):
         errs.setdefault("rglru_scan", e)
         torch.cuda.synchronize()
         log(f"[parity] rglru_scan B={B} S={Sl} C={C} {str(dt)[6:]} "
-            f"h0={with_h0}: max|d| {e:.3e}")
+            f"h0={with_h0} ({route}): max|d| {e:.3e}")
         del log_a, b, h, hr
 
     for i, (B, NH, Sl, hd, ds, chunk, with_h0) in enumerate(SSD_CASES):
@@ -601,6 +612,149 @@ def phase_ssd_precision(torch):
         SK.library = shipped
 
 
+# mma.sync m16n8k8 TF32 issue rate: 8 warps a block, one block an SM's
+# quarter, each warp issuing `acc` independent chains of products.
+MMA_RATE_CU = r"""
+#include <cuda_runtime.h>
+#include "tf32_mma.cuh"
+namespace {
+template <int kAcc>
+__global__ void __launch_bounds__(256) mma_rate(float* out, int iters) {
+  float acc[kAcc][4] = {};
+  const uint32_t a[4] = {0x3f800000u, 0x3f800001u, 0x3f800002u, 0x3f800003u};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) mma_tf32(acc[j], a, 0x3f800000u, 0u);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) s += acc[j][0] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+}  // namespace
+extern "C" int probe_mma_rate(float* out, int blocks, int iters) {
+  mma_rate<8><<<blocks, 256>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def phase_probe(torch):
+    """Why B4's f32 instance and B5 have the designs they have (--probe):
+    variants of the shipped sources, written under build/ and never loaded
+    by the port, timed at the slice's shapes beside the shipped kernels.
+      * the card's mma.sync m16n8k8 TF32 rate, which bounds B4's f32
+        instance below the data sheet's 495 TFLOP/s;
+      * B4 f32 with one TF32 product instead of three (tf32x1, wrong: it
+        shows the products' share), with no products at all (no_mma: the
+        fragment loads, splits, softmax, loads and barriers alone), with 4
+        warps (64 query rows) a block instead of 8, with operands split by
+        rounding (split_tf32, cvt.rna, as B6 does) instead of truncation,
+        and with the tile loader's runtime division for every copy;
+      * B5's ring: (stages, steps a tile) other than the shipped (4, 64).
+    One JSON line per kernel variant."""
+    import ctypes
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention import kernel as FK, ref as FR
+    from repro_torch.kernels.rglru import kernel as RK, ref as RR
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def variant(name, src, subs):
+        for old, new in subs:
+            if src.count(old) != 1:
+                raise AssertionError(f"{name}: the source does not have the "
+                                     f"text the probe replaces: {old[:60]!r}")
+            src = src.replace(old, new)
+        path = K.BUILD_DIR / f"{name}.cu"
+        path.write_text(src)
+        K.SOURCES[name] = path
+        return name
+
+    fa = K.SOURCES["flash_attention_mma"].read_text()
+    s_mma = ("          if constexpr (kF32In) {\n"
+             "            mma_tf32(sc[j], al, bh0, bh1);  // small terms first\n"
+             "            mma_tf32(sc[j], ah, bl0, bl1);\n"
+             "          }\n"
+             "          mma_tf32(sc[j], ah, bh0, bh1);\n")
+    pv_mma = ("          mma_tf32(acc[n], pl, bh0, bh1);  // small terms first\n"
+              "          if constexpr (kF32In) mma_tf32(acc[n], ph, bl0, bl1);\n"
+              "          mma_tf32(acc[n], ph, bh0, bh1);\n")
+    cheap = "          {}[0] += __uint_as_float(bh0 ^ bl0 ^ bh1 ^ bl1 ^ {}[0] ^ {}[1]) * 1e-30f;\n"
+    flash = {
+        "shipped": "flash_attention_mma",
+        "tf32x1": variant("probe_fa_tf32x1", fa, [
+            (s_mma, "          mma_tf32(sc[j], ah, bh0, bh1);\n"),
+            (pv_mma, "          mma_tf32(acc[n], ph, bh0, bh1);\n")]),
+        "no_mma": variant("probe_fa_no_mma", fa, [
+            (s_mma, cheap.format("sc[j]", "ah", "al")),
+            (pv_mma, cheap.format("acc[n]", "ph", "pl"))]),
+        "warps4": variant("probe_fa_warps4", fa, [
+            ("constexpr int kWarps = 8; ", "constexpr int kWarps = 4; ")]),
+        "rna_split": variant("probe_fa_rna_split", fa, [
+            ("    split_tf32_trunc(x, hi, lo);\n", "    split_tf32(x, hi, lo);\n")]
+            + [(f"        split_tf32_trunc(sc[j][{e}], ph[{r}], pl[{r}]);",
+                f"        split_tf32(sc[j][{e}], ph[{r}], pl[{r}]);")
+               for e, r in ((0, 0), (2, 1), (1, 2), (3, 3))]),
+        "runtime_div_loader": variant("probe_fa_runtime_div", fa, [
+            ("  if (bytes == 16 && D == kW) {", "  if (false) {")]),
+    }
+    rg = K.SOURCES["rglru"].read_text()
+    rings = {(4, 64): "rglru"}
+    for st, sp in ((2, 64), (8, 32), (6, 64), (4, 128)):
+        rings[(st, sp)] = variant(f"probe_rglru_s{st}_t{sp}", rg, [
+            ("constexpr int kSteps = 64;", f"constexpr int kSteps = {sp};"),
+            ("constexpr int kStages = 4;", f"constexpr int kStages = {st};")])
+    (K.BUILD_DIR / "probe_mma_rate.cu").write_text(MMA_RATE_CU)
+    K.SOURCES["probe_mma_rate"] = K.BUILD_DIR / "probe_mma_rate.cu"
+    libs = K.build_all([*flash.values(), *rings.values(), "probe_mma_rate"])
+    for name in flash.values():
+        for line in _ptxas_summary(K.build_info[name]["log"]):
+            if "IfLi32" in line:
+                log(f"[probe] {name}: {line}")
+
+    rate = libs["probe_mma_rate"].probe_mma_rate
+    rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    blocks, iters = 4 * 132, 4096
+    out = torch.empty(blocks * 256, device="cuda")
+    ms = _time_ms(torch, lambda: rate(out.data_ptr(), blocks, iters),
+                  iters=3, warmup=1)
+    hmma = blocks * 8 * iters * 8
+    log("[probe] " + json.dumps({
+        "mma_sync_m16n8k8_tf32": {"ms": ms, "tflops": hmma * 2048 / ms / 1e9,
+                                  "per_sm_scheduler_per_ns":
+                                  hmma / (132 * 4) / (ms * 1e6)}}))
+
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    H, KVH, D, W = RG["H"], RG["KVH"], RG["D"], RG["window"]
+    q, k, v = _flash_inputs(torch, B, S, S, H, KVH, D, torch.float32, 60)
+    want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True,
+                            window=W).transpose(1, 2)
+    shipped_fa, shipped_rg = FK.library, RK.library
+    try:
+        for label, lib in flash.items():
+            FK.library = lambda _, lib=lib: K.library(lib)
+            run = lambda: FK.flash_attention_call(q, k, v, causal=True,  # noqa: E731
+                                                  window=W)
+            ms = _time_ms(torch, run, iters=10, warmup=1)
+            err = float((run() - want).abs().max())
+            log("[probe] " + json.dumps({"flash_attention_f32_mma": {
+                "variant": label, "ms": ms, "max_abs_err": err}}))
+        del q, k, v, want
+        la, b = _rglru_inputs(torch, B, S, RG["C"], torch.float32, 61)
+        h0 = torch.zeros(B, RG["C"], device="cuda")
+        hr, _ = RR.rglru_scan_ref(torch.exp(la), b, h0)
+        for (st, sp), lib in rings.items():
+            RK.library = lambda _, lib=lib: K.library(lib)
+            ms = _time_ms(torch, lambda: RK.rglru_scan_call(la, b, h0))
+            err = float((RK.rglru_scan_call(la, b, h0)[0] - hr).abs().max())
+            log("[probe] " + json.dumps({"rglru_scan": {
+                "stages": st, "steps": sp, "shipped": lib == "rglru",
+                "ring_kb_f32": st * sp * 32 * 8 / 1024, "ms": ms,
+                "max_abs_err": err}}))
+    finally:
+        FK.library, RK.library = shipped_fa, shipped_rg
+
+
 def _band_mask(torch, S, window):
     q = torch.arange(S, device="cuda")[:, None]
     k = torch.arange(S, device="cuda")[None, :]
@@ -611,9 +765,9 @@ def phase_timing_lm(torch):
     """B4-B6 at the slice's shapes: kernel, plain version, bound, and (B4)
     one PyTorch call computing the same function -- SDPA with a boolean
     causal+window band mask and enable_gqa, a yardstick the port never
-    calls.  B4 is timed per instance: bf16 on the tensor cores, f32 on the
-    SIMT cores.  Bounds count each input read once and each output written
-    once; operations are those the unmasked band needs (B4: 4 D flops per
+    calls.  B4 is timed per instance: bf16 on its wgmma instance, f32 on
+    its mma.sync (3xTF32) instance.  Bounds count each input read once and
+    each output written once; operations are those the unmasked band needs (B4: 4 D flops per
     (query, key) pair in the band; at the bf16 tensor-core rate for bf16
     inputs, at the rate of f32-accurate (3xTF32) tensor-core products for
     f32) or the chunk products (B6, at the 3xTF32 rate, for a chunk of L
@@ -634,8 +788,8 @@ def phase_timing_lm(torch):
     pairs = int(band.sum())
     for name, dtype, peak, iters in (
             ("flash_attention_bf16_tc", torch.bfloat16, BF16_FLOPS_PER_S, 20),
-            ("flash_attention_f32_simt", torch.float32, F32_TC_FLOPS_PER_S,
-             3)):
+            ("flash_attention_f32_mma", torch.float32, F32_TC_FLOPS_PER_S,
+             10)):
         q, k, v = _flash_inputs(torch, B, S, S, H, KVH, D, dtype, 60)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -791,11 +945,11 @@ def phase_serve(torch):
         launched = {n: fn.launches for n, fn in _lm_kernels().items()}
         fa = FK.flash_attention_call
         launched["flash_attention_tc"] = fa.launches_tc
-        launched["flash_attention_simt"] = fa.launches_simt
+        launched["flash_attention_mma"] = fa.launches_mma
         peak = torch.cuda.max_memory_allocated() / 2**20
-        if (fa.launches_tc, fa.launches_simt) != (fa.launches, 0):
-            raise AssertionError(f"{arch}: flash attention ran on the SIMT "
-                                 f"instance: {launched}")
+        if (fa.launches_tc, fa.launches_mma) != (fa.launches, 0):
+            raise AssertionError(f"{arch}: flash attention ran on the "
+                                 f"mma.sync instance: {launched}")
         for name, fn in _lm_kernels().items():
             want = PER_PREFILL[name] if name in kernels else 0
             if launched[name] != want:
@@ -806,7 +960,7 @@ def phase_serve(torch):
             counts[name] = launched[name]
         if "flash_attention" in kernels:
             counts["flash_attention_bf16_tc"] = fa.launches_tc
-            counts["flash_attention_f32_simt"] = fa.launches_simt
+            counts["flash_attention_f32_mma"] = fa.launches_mma
         gen = r["generated"]
         if gen.shape != (SERVE_BATCH, SERVE_GEN) or not (
                 (gen >= 0) & (gen < cfg.vocab_size)).all():
@@ -840,8 +994,12 @@ def phase_card_vs_cpu(torch):
     """recurrentgemma-2b and mamba2-1.3b smoke configs in f32, weights made
     once from a seed: the card (kernels) and the CPU (plain versions) give
     identical greedy tokens and prefill logits within 1e-3.  The prompt (40)
-    is longer than the smoke window (16) and the SSD chunk (16)."""
+    is longer than the smoke window (16) and the SSD chunk (16).  This is
+    the path where flash attention's mma.sync instance runs (f32, head dim
+    16): recurrentgemma's prefill must launch it on the card, and no kernel
+    on the CPU."""
     from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.specs import make_prefill_step, make_serve_step
     from repro_torch.models.model import build_model, tree_map
     for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
@@ -850,7 +1008,7 @@ def phase_card_vs_cpu(torch):
         gen = torch.Generator().manual_seed(0)
         params = build_model(cfg, "cpu").init(gen)
         prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
-        toks, logits = {}, {}
+        toks, logits, mma_launches = {}, {}, {}
         for dev in ("cuda", "cpu"):
             model = build_model(cfg, dev)
             p = tree_map(lambda t: t.to(dev), params)
@@ -858,9 +1016,14 @@ def phase_card_vs_cpu(torch):
             lg, cache = make_prefill_step(model)(
                 p, {"tokens": prompts.to(dev)}, model.init_cache(3, 52))
             launched = sum(fn.launches for fn in _lm_kernels().values())
+            mma = FK.flash_attention_call.launches_mma
             if (launched > 0) != (dev == "cuda"):
                 raise AssertionError(f"{arch} on {dev}: {launched} kernel "
                                      f"launches in prefill")
+            if arch == "recurrentgemma-2b" and (mma > 0) != (dev == "cuda"):
+                raise AssertionError(f"{arch} on {dev}: {mma} launches of "
+                                     f"flash attention's mma.sync instance")
+            mma_launches[dev] = mma
             nxt = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
             out = [nxt.cpu()]
             step = make_serve_step(model)
@@ -875,14 +1038,16 @@ def phase_card_vs_cpu(torch):
                                  f"{toks['cuda'].tolist()} vs "
                                  f"{toks['cpu'].tolist()}, logits {d}")
         log(f"[card-vs-cpu] {arch} smoke f32: 12 greedy tokens identical, "
-            f"prefill logits max|d| {d:.3e}")
+            f"prefill logits max|d| {d:.3e}, flash attention mma.sync "
+            f"launches in prefill {mma_launches}")
 
 
 # ------------------------------------------------------------------ main
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ["--ssd-precision"]):
-        print("usage: chip_smoke.py [--ssd-precision]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--ssd-precision"], ["--probe"]):
+        print("usage: chip_smoke.py [--ssd-precision | --probe]",
+              file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -897,6 +1062,9 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["--ssd-precision"]:
         phase_ssd_precision(torch)
+        return 0
+    if sys.argv[1:] == ["--probe"]:
+        phase_probe(torch)
         return 0
     errs = phase_parity(torch)
     errs.update(phase_parity_lm(torch))
@@ -927,9 +1095,9 @@ def main() -> int:
     lm = {"flash_attention_bf16_tc": ("kernels/flash_attention/csrc/"
                                       "flash_attention_tc.cu", flash,
                                       "flash_attention_bfloat16_tc"),
-          "flash_attention_f32_simt": ("kernels/flash_attention/csrc/"
-                                       "flash_attention.cu", flash,
-                                       "flash_attention_float32_simt"),
+          "flash_attention_f32_mma": ("kernels/flash_attention/csrc/"
+                                      "flash_attention_mma.cu", flash,
+                                      "flash_attention_float32_mma"),
           "rglru_scan": ("kernels/rglru/csrc/rglru.cu",
                          "src/repro/kernels/rglru/kernel.py:21",
                          "rglru_scan"),
@@ -945,7 +1113,7 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "on_main_path": kname != "flash_attention_f32_simt",
+            "on_main_path": kname != "flash_attention_f32_mma",
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
         f"memory MiB: {peak:.1f}")

@@ -11,17 +11,22 @@ The FL server calls seafl_agg's ops.py.  The LM model functions
 themselves and call ``kernel.py`` on the card, because their CPU route is
 the model's own translation of the JAX function, not ref.py.
 
+Headers that several kernels share (the 3xTF32 product, cp.async, mbarriers
+and TMA) live in ``csrc/`` here, on nvcc's include path.
+
 Build: every source in ``SOURCES`` is compiled by ``nvcc`` (one process per
 source, all started together) into a shared library under ``build/repro_torch/``
-at the repository root, named by a hash of the source and the flags, so an
-unchanged source is compiled once per checkout.  Nothing is built at import:
-the first kernel launch calls :func:`library`.
+at the repository root, named by a hash of the source, every header it
+includes and the flags, so an unchanged source is compiled once per checkout
+and an edited header rebuilds each source that includes it.  Nothing is
+built at import: the first kernel launch calls :func:`library`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,7 +37,8 @@ _HERE = Path(__file__).resolve().parent
 
 SOURCES = {
     "seafl_agg": _HERE / "seafl_agg" / "csrc" / "seafl_agg.cu",
-    "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_mma": _HERE / "flash_attention" / "csrc"
+    / "flash_attention_mma.cu",
     "flash_attention_tc": _HERE / "flash_attention" / "csrc"
     / "flash_attention_tc.cu",
     "rglru": _HERE / "rglru" / "csrc" / "rglru.cu",
@@ -42,7 +48,9 @@ SOURCES = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+INCLUDE_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch"
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -63,8 +71,30 @@ def _nvcc() -> str:
     return found
 
 
+def included(path: Path, found: list[Path] | None = None) -> list[Path]:
+    """``path`` and every file it includes with quotes, recursively, each
+    once, found as nvcc finds them: beside the including file, then in
+    INCLUDE_DIR."""
+    found = [] if found is None else found
+    if path in found:
+        return found
+    found.append(path)
+    for name in _INCLUDE.findall(path.read_bytes()):
+        name = name.decode()
+        for where in (path.parent, INCLUDE_DIR):
+            if (where / name).is_file():
+                included((where / name).resolve(), found)
+                break
+        else:
+            raise FileNotFoundError(f"{path} includes {name!r}, which is "
+                                    f"neither beside it nor in {INCLUDE_DIR}")
+    return found
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
+    h = hashlib.sha256()
+    for path in included(SOURCES[name].resolve()):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -87,7 +117,8 @@ def build_all(names=None) -> dict[str, ctypes.CDLL]:
                                  "cached": True}
                 continue
             tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o",
+                   str(tmp), str(SOURCES[n])]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
                         tmp, out)

@@ -6,9 +6,9 @@
 // over the keys k with k <= q (causal, top-left aligned), k > q - window
 // (sliding window), k < Skv; a row with no such key gives 0.  GQA: query
 // head h reads kv head h / (H / KVH).  The same function as
-// flash_attention.cu (the f32 SIMT instance, which keeps every other dtype
-// and D); replaces src/repro/kernels/flash_attention/kernel.py _flash_kernel
-// for bf16.
+// flash_attention_mma.cu (the mma.sync instance, which keeps every other
+// dtype and D); replaces src/repro/kernels/flash_attention/kernel.py
+// _flash_kernel for bf16 with these D.
 //
 // Bound: at the main path's shape (recurrentgemma-2b prefill, q (4, 4096,
 // 10, 256), window 2048) the band needs 2.6e11 flop against 185 MB moved, so
@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kBQ = 128;       // query rows of a block
@@ -71,57 +73,6 @@ struct Layout {  // byte offsets in shared memory, 1024-aligned tiles
 struct Strides {  // element strides of (batch, seq, head); dim D is contiguous
   long long b, s, h;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ------------------------------------------------------------ mbarriers
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// Returns once the phase of parity `parity` has completed.  A wait that
-// never ends (a pipeline bug) traps, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  uint32_t tries = 0;
-  do {
-    if (++tries == (1u << 30)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// ------------------------------------------------------------------ TMA
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // ---------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
@@ -436,32 +387,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ------------------------------------------------------------------ host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, without linking libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A (B, S, heads, D) bf16 tensor as a 4-D map with dims (D, heads, S, B),
 // boxes of 64 columns x `rows` positions of one head, 128-byte swizzle,
 // zeros out of bounds.

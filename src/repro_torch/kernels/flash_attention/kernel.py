@@ -1,18 +1,18 @@
-"""ctypes binding of the flash-attention CUDA kernels: the tensor-core
-instance (csrc/flash_attention_tc.cu) and the SIMT instance
-(csrc/flash_attention.cu).
+"""ctypes binding of the flash-attention CUDA kernels: two instances of one
+function on the tensor cores, csrc/flash_attention_tc.cu (``wgmma`` + TMA)
+and csrc/flash_attention_mma.cu (``mma.sync`` in 3xTF32).
 
-Instance rule (:func:`uses_tensor_cores`, decided on the host before any
-launch): bf16 q, k, v with head dim D in {64, 128, 256} go to the
-tensor-core instance (wgmma + TMA), which also needs layouts TMA can read
-(:func:`tma_compatible`) and raises on any other; everything else (f32, other
-D) goes to the SIMT instance.  There is no fallback from one to the other.
+Instance rule (:func:`instance`, decided on the host before any launch):
+bf16 q, k, v with head dim D in {64, 128, 256} go to "tc", which also needs
+layouts TMA can read (:func:`tma_compatible`) and raises on any other; every
+other D <= 256 with D % 4 == 0, f32 or bf16, goes to "mma"; any other D is
+refused.  There is no fallback from one instance to the other.
 
 ``flash_attention_call`` checks its tensors, allocates the output with
 ``torch.empty``, launches on PyTorch's current stream, raises if the C entry
 reports a CUDA error, and counts its launches in plain integers:
 ``flash_attention_call.launches`` (all), ``.launches_tc`` and
-``.launches_simt`` (each instance).  Nothing here synchronises.
+``.launches_mma`` (each instance).  Nothing here synchronises.
 
 Replaces the JAX package's src/repro/kernels/flash_attention/kernel.py
 _flash_kernel (via flash_attention_call).
@@ -31,10 +31,16 @@ MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128, 256)
 
 
-def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """The instance rule: bf16 with D in {64, 128, 256} runs on the
-    tensor-core instance, every other dtype and D on the SIMT instance."""
-    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+def instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The instance rule: "tc" for bf16 with D in {64, 128, 256}; "mma" for
+    every other D <= 256 with D % 4 == 0 (f32 or bf16); ValueError for a D
+    that neither takes."""
+    if not 4 <= head_dim <= MAX_HEAD_DIM or head_dim % 4:
+        raise ValueError(f"flash_attention takes head dims 4 <= D <= "
+                         f"{MAX_HEAD_DIM} with D % 4 == 0, got {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "mma"
 
 
 def tma_compatible(strides, data_ptr: int) -> bool:
@@ -53,7 +59,7 @@ def _bind(name: str, with_dtype: bool) -> ctypes.CDLL:
     if not getattr(lib, "_bound", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         st = ctypes.POINTER(ctypes.c_longlong)
-        f = lib.flash_attention_fwd if with_dtype else \
+        f = lib.flash_attention_fwd_mma if with_dtype else \
             lib.flash_attention_fwd_tc
         f.argtypes = ([vp] * 4 + [i] * (7 if with_dtype else 6) + [st] * 4
                       + [i, i, ctypes.c_float, vp])
@@ -80,9 +86,7 @@ def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D or KVH < 1 or H % KVH:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"match (batch, head dim, H % KVH == 0)")
-    if D > MAX_HEAD_DIM or D % 4:
-        raise ValueError(f"flash_attention takes head dims D <= "
-                         f"{MAX_HEAD_DIM} with D % 4 == 0, got {D}")
+    inst = instance(q.dtype, D)
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("flash_attention needs the head dim contiguous")
     if window is not None and window < 1:
@@ -94,7 +98,7 @@ def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             -1 if window is None else int(window), 1.0 / math.sqrt(D),
             C.stream(dev))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    if uses_tensor_cores(q.dtype, D):
+    if inst == "tc":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not tma_compatible(t.stride(), t.data_ptr()):
                 raise ValueError(
@@ -107,11 +111,11 @@ def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         C.check_cuda("flash_attention_fwd_tc", err)
         flash_attention_call.launches_tc += 1
     else:
-        lib = _bind("flash_attention", with_dtype=True)
-        err = lib.flash_attention_fwd(*ptrs, C.DTYPES[q.dtype], B, H, KVH,
-                                      Sq, Skv, D, *tail)
-        C.check_cuda("flash_attention_fwd", err)
-        flash_attention_call.launches_simt += 1
+        lib = _bind("flash_attention_mma", with_dtype=True)
+        err = lib.flash_attention_fwd_mma(*ptrs, C.DTYPES[q.dtype], B, H,
+                                          KVH, Sq, Skv, D, *tail)
+        C.check_cuda("flash_attention_fwd_mma", err)
+        flash_attention_call.launches_mma += 1
     flash_attention_call.launches += 1
     return o
 
@@ -119,7 +123,7 @@ def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def reset_launch_counts() -> None:
     flash_attention_call.launches = 0
     flash_attention_call.launches_tc = 0
-    flash_attention_call.launches_simt = 0
+    flash_attention_call.launches_mma = 0
 
 
 reset_launch_counts()

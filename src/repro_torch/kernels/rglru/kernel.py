@@ -1,9 +1,12 @@
 """ctypes binding of the RG-LRU scan CUDA kernel (csrc/rglru.cu).
 
 ``rglru_scan_call`` checks its tensors, allocates the outputs with
-``torch.empty``, launches on PyTorch's current stream, raises if the C entry
-reports a CUDA error, and counts its launches in the plain integer
-``rglru_scan_call.launches``.  Nothing here synchronises.
+``torch.empty``, picks the route that fills the kernel's ring of time tiles
+(:func:`route`, decided on the host before the launch: TMA where it can read
+the rows, else cp.async; neither falls back to the other), launches on
+PyTorch's current stream, raises if the C entry reports a CUDA error, and
+counts its launches in the plain integer ``rglru_scan_call.launches``.
+Nothing here synchronises.
 
 Replaces the JAX package's src/repro/kernels/rglru/kernel.py _rglru_kernel
 (via rglru_scan_call).
@@ -18,13 +21,25 @@ from repro_torch.kernels import _common as C
 from repro_torch.kernels import library
 
 _MAX_GRID_Y = 65535
+ROUTES = {"tma": 0, "cp.async": 1}     # the C entry's route codes
+
+
+def route(elem_size: int, S: int, C: int, *data_ptrs: int) -> str:
+    """How the kernel's ring is filled for (B, S, C) contiguous inputs of
+    ``elem_size`` bytes at ``data_ptrs``: "tma" where TMA can read the rows
+    (S >= 1, C * elem_size a multiple of 16 bytes, every base 16-byte
+    aligned), else "cp.async"."""
+    if S >= 1 and (C * elem_size) % 16 == 0 \
+            and all(p % 16 == 0 for p in data_ptrs):
+        return "tma"
+    return "cp.async"
 
 
 def _lib() -> ctypes.CDLL:
     lib = library("rglru")
     if not getattr(lib, "_bound", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.rglru_scan.argtypes = [vp, vp, i, vp, vp, vp, i, i, i, vp]
+        lib.rglru_scan.argtypes = [vp, vp, i, vp, vp, vp, i, i, i, i, vp]
         lib.rglru_scan.restype = i
         lib._bound = True
     return lib
@@ -58,7 +73,9 @@ def rglru_scan_call(log_a: torch.Tensor, b: torch.Tensor,
     err = _lib().rglru_scan(
         log_a.data_ptr(), b.data_ptr(), C.DTYPES[log_a.dtype],
         None if h0 is None else h0.data_ptr(), h.data_ptr(),
-        h_last.data_ptr(), B, S, Cn, C.stream(dev))
+        h_last.data_ptr(), B, S, Cn,
+        ROUTES[route(log_a.element_size(), S, Cn, log_a.data_ptr(),
+                     b.data_ptr())], C.stream(dev))
     C.check_cuda("rglru_scan", err)
     rglru_scan_call.launches += 1
     return h, h_last

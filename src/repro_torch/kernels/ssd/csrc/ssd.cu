@@ -37,9 +37,9 @@
 // step has dt = 0: decay 1, no contribution), so nothing is padded in
 // memory.  The mask is applied before exp, as in the JAX model.
 //
-// Products: mma.sync m16n8k8 on the TF32 tensor cores in 3xTF32, a = a_hi +
-// a_lo with both parts rounded to TF32, d += a_lo b_hi + a_hi b_lo + a_hi
-// b_hi, which keeps the error near f32's (plain TF32, ~2^-11 relative,
+// Products: mma.sync m16n8k8 on the TF32 tensor cores in 3xTF32
+// (../../csrc/tf32_mma.cuh), a = a_hi + a_lo with both parts rounded to
+// TF32, d += a_lo b_hi + a_hi b_lo + a_hi b_hi, which keeps the error near f32's (plain TF32, ~2^-11 relative,
 // breaks the 1e-4 tolerance in every SSD parity case of chip_smoke.py, as
 // `chip_smoke.py --ssd-precision` shows on the card).  Each warp owns a
 // 16-row strip of its block's output and reads its fragments from shared
@@ -63,6 +63,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
@@ -77,22 +80,6 @@ struct Strides3 {  // element strides of (batch, head, seq); last dim contiguous
 struct Strides2 {  // element strides of (batch, seq); last dim contiguous
   long long b, s;
 };
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(r));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // acc[j] += A[m0:m0+16, 0:K] B[0:K, n0+8j : n0+8j+8] in 3xTF32, A and B in
 // shared memory.  A(m, k) is A[k * lda + m] if kAT else A[m * lda + k];
@@ -141,23 +128,6 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// zeros when !in (src is then not read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Starts loading rows [0, kRows) x cols [0, kCols) of a row-major global
 // matrix into shared memory with pitch ld (a multiple of 4), zeros where
 // row >= rows or col >= cols: every 16-byte copy of the tile in flight at
@@ -175,7 +145,8 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, int ld,
     for (int i = threadIdx.x; i < kRows * kCols / 4; i += kThreads) {
       const int r = i / (kCols / 4), c = 4 * (i % (kCols / 4));
       const bool in = r < rows && c < cols;
-      cp_async16(dst + r * ld + c, in ? src + r * row_stride + c : src, in);
+      cp_async<16>(dst + r * ld + c, in ? src + r * row_stride + c : src,
+                   in ? 16 : 0);
     }
     return;
   }

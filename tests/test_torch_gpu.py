@@ -137,6 +137,7 @@ FLASH_CASES = [  # B, Sq, Skv, H, KVH, D, causal, window
     (2, 1024, 1024, 10, 1, 256, True, 2048),   # the slice's head, S = 1024
     (1, 513, 513, 8, 2, 64, True, 200),
     (2, 300, 300, 8, 8, 128, True, None),
+    (2, 45, 45, 4, 2, 20, True, 16),        # D = 20: padded to 24 (mma)
 ]
 
 
@@ -144,7 +145,9 @@ FLASH_CASES = [  # B, Sq, Skv, H, KVH, D, causal, window
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_attention_matches_plain(cuda, case, dt):
     """f32: 1e-4 (f32 softmax in another order); bf16: one bf16 step,
-    rtol 2^-7 (both compute in f32 and round the output to bf16 once)."""
+    rtol 2^-7 (both compute in f32 and round the output to bf16 once).
+    bf16 with D in {64, 128, 256} runs the wgmma instance ("tc"), every
+    other case the mma.sync one."""
     from repro_torch.kernels.flash_attention import kernel as K, ref as R
     B, Sq, Skv, H, KVH, D, causal, window = case
     q = _randn(cuda, B, Sq, H, D, seed=1, dtype=DT[dt])
@@ -158,12 +161,13 @@ def test_flash_attention_matches_plain(cuda, case, dt):
         dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(o.float(), want.float(), **tol)
     before = (K.flash_attention_call.launches_tc,
-              K.flash_attention_call.launches_simt)
+              K.flash_attention_call.launches_mma)
     assert torch.equal(o, K.flash_attention_call(q, k, v, causal=causal,
                                                  window=window))
     tc = dt == "bf16" and D in (64, 128, 256)
+    assert K.instance(DT[dt], D) == ("tc" if tc else "mma")
     assert (K.flash_attention_call.launches_tc - before[0],
-            K.flash_attention_call.launches_simt - before[1]) == \
+            K.flash_attention_call.launches_mma - before[1]) == \
         ((1, 0) if tc else (0, 1))
 
 
@@ -176,14 +180,25 @@ def test_flash_attention_tensor_cores_refuse_layouts_tma_cannot_read(cuda):
         K.flash_attention_call(x, x[:, :, :1], x[:, :, 1:2])
 
 
-@pytest.mark.parametrize("B,S,C,h0", [(1, 1, 1, False), (2, 37, 70, True),
-                                      (4, 1000, 2560, True),
-                                      (3, 129, 333, False)])
+@pytest.mark.parametrize("B,S,C,h0", [
+    (1, 1, 1, False), (2, 37, 70, True), (4, 1000, 2560, True),
+    (3, 129, 333, False),
+    (2, 17, 2560, True),        # S < one tile of 64 steps (TMA)
+    (2, 300, 2560, False),      # S not a multiple of the tile (TMA)
+    (1, 200, 7, True),          # C % 4 != 0 (cp.async)
+    (2, 261, 40, True),         # ragged C in the last block (TMA)
+    (1, 4 * 64 + 3, 6, False),  # more tiles than ring stages (cp.async)
+])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_rglru_matches_plain(cuda, B, S, C, h0, dt):
+    """Both routes that fill the kernel's ring: TMA where C * elem is a
+    multiple of 16 bytes, cp.async otherwise (kernel.route)."""
     from repro_torch.kernels.rglru import kernel as K, ref as R
     log_a = torch.log(torch.rand(B, S, C, device=cuda) * 0.3 + 0.7).to(DT[dt])
     b = _randn(cuda, B, S, C, seed=3, dtype=DT[dt])
+    assert K.route(log_a.element_size(), S, C, log_a.data_ptr(),
+                   b.data_ptr()) == \
+        ("tma" if C * log_a.element_size() % 16 == 0 else "cp.async")
     hz = _randn(cuda, B, C, seed=4) if h0 else None
     h, hl = K.rglru_scan_call(log_a, b, hz)
     hr, hlr = R.rglru_scan_ref(torch.exp(log_a.float()), b,

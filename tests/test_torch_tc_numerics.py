@@ -14,6 +14,12 @@ CPU against the JAX package (no card needed).
     ``ssd_chunked``; with plain TF32 products it does not.
 (c) B4's instance rule and the layout check of its TMA loads, as pure
     functions of dtype, head dim, strides and address.
+(d) B4's mma.sync instance (f32, and bf16 with D outside {64, 128, 256})
+    computes Q K^T and P V in 3xTF32 over kv-tiles of 32 keys.  A torch
+    emulation of that (operands split into TF32 parts by masking 13 mantissa
+    bits, online softmax in f32) stays within rtol = atol = 1e-4 of JAX's
+    ``flash_attention`` in f32 (Pallas in interpret mode), with GQA and a
+    window; with one TF32 product each it does not.
 """
 import math
 
@@ -139,13 +145,22 @@ def test_ssd_in_3xtf32_meets_the_tolerance(monkeypatch, S, chunk, with_h0):
 
 # ------------------------------------- (c) B4's instance rule, TMA layouts
 
-@pytest.mark.parametrize("dtype,D,tc", [
-    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 256, True), (torch.bfloat16, 16, False),
-    (torch.bfloat16, 96, False), (torch.bfloat16, 192, False),
-    (torch.float32, 64, False), (torch.float32, 256, False)])
-def test_instance_rule(dtype, D, tc):
-    assert FK.uses_tensor_cores(dtype, D) is tc
+@pytest.mark.parametrize("dtype,D,inst", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 96, "mma"), (torch.bfloat16, 192, "mma"),
+    (torch.float32, 64, "mma"), (torch.float32, 256, "mma"),
+    (torch.float32, 16, "mma"), (torch.bfloat16, 32, "mma")])
+def test_instance_rule(dtype, D, inst):
+    assert FK.instance(dtype, D) == inst
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 258),
+                                     (torch.bfloat16, 18),
+                                     (torch.float32, 0)])
+def test_instance_rule_refuses_head_dims_neither_instance_takes(dtype, D):
+    with pytest.raises(ValueError, match="head dims"):
+        FK.instance(dtype, D)
 
 
 def test_tma_layout_check():
@@ -158,3 +173,62 @@ def test_tma_layout_check():
     assert not FK.tma_compatible(q.transpose(2, 3).stride(), base)
     odd = torch.empty((1, 8, 3, 68), dtype=torch.bfloat16)[..., :64]
     assert not FK.tma_compatible(odd.stride(), base)    # 136-byte rows
+
+
+# ------------------------------------ (d) 3xTF32 for B4's mma.sync instance
+
+def _mm_tf32(a, b, terms):
+    """a @ b with TF32 operands: 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi,
+    the small terms first) or, with terms == 1, one TF32 product."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if terms == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _attention_mma_emulated(q, k, v, *, window, terms, block_k=32):
+    """The mma.sync instance's arithmetic in torch: q (B, S, H, D), k, v
+    (B, S, KVH, D) f32, causal; scores, softmax statistics and O in f32,
+    Q K^T and P V through ``_mm_tf32``."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qf = q.transpose(1, 2)                                       # (B,H,S,D)
+    kf = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    rows = torch.arange(S)[:, None]
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    for k0 in range(0, S, block_k):
+        keys = torch.arange(k0, min(S, k0 + block_k))[None, :]
+        ok = (keys <= rows) & (keys > rows - window)
+        s = _mm_tf32(qf, kf[:, :, k0:k0 + block_k].transpose(-1, -2),
+                     terms) / math.sqrt(D)
+        s = s.masked_fill(~ok, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new).nan_to_num(0.0)
+        p = torch.exp(s - m_new).nan_to_num(0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm_tf32(p, vf[:, :, k0:k0 + block_k], terms)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("S,H,KVH,D,window", [(96, 4, 2, 32, 40),
+                                              (130, 4, 1, 16, 64)])
+def test_mma_instance_in_3xtf32_meets_the_f32_tolerance(S, H, KVH, D,
+                                                        window):
+    """3xTF32 passes rtol = atol = 1e-4 (max |d| ~1e-6); one TF32 product
+    each fails it: 8366 of 12288 and 5239 of 8320 elements past the limit,
+    max |d| ~2e-3."""
+    rng = np.random.default_rng(S + D)
+    qj, kj, vj = (jnp.asarray(rng.normal(size=(1, S, n, D)), jnp.float32)
+                  for n in (H, KVH, KVH))
+    want = np.asarray(j_flash(qj, kj, vj, causal=True, window=window,
+                              block_q=64, block_k=64), np.float32)
+    q, k, v = (torch.from_numpy(np.array(t)) for t in (qj, kj, vj))
+    got = _attention_mma_emulated(q, k, v, window=window, terms=3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    one = _attention_mma_emulated(q, k, v, window=window, terms=1)
+    assert _violations(one.numpy(), want, 1e-4, 1e-4) > 0
