@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of SEAFL (src/repro_torch) on one CUDA card: the
-federated simulation and the LM serving path.
+federated simulation, the LM serving path and the LM training path.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ssd-precision   # only the SSD precision probe
@@ -40,8 +40,20 @@ Phases, each printing its lines; no phase's failure is caught:
               on the card and on the CPU from one set of weights: identical
               greedy tokens, prefill logits within 1e-3; recurrentgemma's
               f32 prefill must run flash attention's mma.sync instance.
-  7. result   one JSON line of per-kernel numbers (B4 as two rows, one
-              per instance), the
+  7. train    the LM training path: (a) the input gradients of B4 (both
+              instances), B5 and B6 on the card against autograd through
+              their plain versions; (b) launch/specs.make_train_step at
+              mamba2-1.3b's full width (bf16, batch 8 x 2048, 2
+              microbatches, 3 steps; B6's count must equal 48 x 2 x 2 a
+              step: forward and remat rerun); (c) the SEAFL cohort trainer
+              (launch/train.build_lm_fl) at full width to 2 aggregations of
+              K = 2 models of P = 1.344e9 (B1/B2 once per aggregation, B6 as
+              reckoned from the SGD steps and evaluations), then B1/B2 timed
+              at that P; (d) the f32 smoke configs of mamba2-1.3b,
+              recurrentgemma-2b and phi4-mini-3.8b train 3 rounds on the
+              card and on the CPU from one set of weights and must agree
+  8. result   one JSON line of per-kernel numbers (B4 as two rows, one
+              per instance; each row with its training launches), the
               nvidia-smi line, and last the contract line
               {"ok": true, "device": {...}}
 
@@ -856,12 +868,24 @@ def phase_timing_lm(torch):
 
 
 def _kernel_times(torch, prof):
-    """(sum of CUDA kernel times, [(ms, name)] largest first) of a profile."""
+    """(sum of CUDA kernel times, [(ms, name)] largest first) of a profile;
+    the device spans of named ranges are not kernels and are left out."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = [(e.self_device_time_total / 1e3, e.key)
             for e in prof.key_averages()
-            if e.device_type == cuda and e.self_device_time_total > 0]
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     return sum(t for t, _ in rows), sorted(rows, reverse=True)
+
+
+def _range_device_ms(torch, prof, name):
+    """(times the named record_function range ran, device time of the
+    kernels launched inside it in ms) in a profile."""
+    cpu = torch.autograd.DeviceType.CPU
+    rows = [e for e in prof.key_averages()
+            if e.key == name and e.device_type == cpu]
+    return (sum(e.count for e in rows),
+            sum(e.device_time_total for e in rows) / 1e3)
 
 
 def _profile_serving(torch, arch):
@@ -1042,6 +1066,441 @@ def phase_card_vs_cpu(torch):
             f"launches in prefill {mma_launches}")
 
 
+# ---------------------------------------- LM training path (gradients)
+
+# phase b: make_train_step at mamba2-1.3b's full width
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
+# phase c: the SEAFL cohort trainer at full width
+COHORT = dict(n_clients=4, concurrency=2, buffer_size=2, seq_len=512,
+              batch_size=4, shard_seqs=8, local_epochs=1)
+COHORT_ROUNDS = 2
+
+
+def _grad_err(torch, got, want, rtol):
+    """Max |d| of each gradient pair; raises beyond rtol of the largest
+    |want| (each tensor's own scale)."""
+    e = 0.0
+    for g, w in zip(got, want):
+        d = float((g.float() - w.float()).abs().max())
+        if d > rtol * max(float(w.float().abs().max()), 1e-30):
+            raise AssertionError(f"gradient disagrees with autograd through "
+                                 f"the plain version: max |d| {d:.3e}")
+        e = max(e, d)
+    return e
+
+
+def _train_grad_parity(torch):
+    """a. The three wrapped kernels' input gradients (forward on the card's
+    kernel, backward as the route defines it) against torch.autograd
+    through the plain version, for one fixed upstream gradient.  B4 (both
+    instances) and B6 differentiate the plain version they recompute, so
+    the gradients are expected bit-identical (1e-6 relative allowed); B5's
+    backward is the reverse-time scan on its own kernel, held to B5's
+    forward tolerance (1e-5)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.models import blocks, layers
+    errs = {}
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_(True) for t in ts]
+
+    flash_cases = [  # B, S, H, KVH, D, window, dtype
+        (2, 1024, 8, 2, 128, 256, torch.bfloat16),     # tc instance
+        (1, 333, 4, 2, 64, None, torch.float32),       # mma instance
+        (2, 40, 4, 1, 16, 16, torch.float32),          # the f32 smoke shape
+    ]
+    for i, (B, S, H, KVH, D, window, dt) in enumerate(flash_cases):
+        q = _randn(torch, B, S, H, D, seed=70 + i, dtype=dt)
+        k = _randn(torch, B, S, KVH, D, seed=80 + i, dtype=dt)
+        v = _randn(torch, B, S, KVH, D, seed=90 + i, dtype=dt)
+        do = _randn(torch, B, S, H, D, seed=100 + i, dtype=dt)
+        inst = FK.instance(dt, D)
+        FK.reset_launch_counts()
+        ins = leaves(q, k, v)
+        o = layers.chunked_attention(*ins, causal=True, window=window)
+        got = torch.autograd.grad(o, ins, do)
+        if getattr(FK.flash_attention_call, f"launches_{inst}") != 1:
+            raise AssertionError(f"flash attention {dt} D={D}: the {inst} "
+                                 f"instance did not launch")
+        ref = leaves(q, k, v)
+        want = torch.autograd.grad(layers._attention_plain(
+            *ref, causal=True, window=window), ref, do)
+        e = _grad_err(torch, got, want, 1e-6)
+        key = f"flash_attention_{str(dt)[6:]}_{inst}"
+        errs[key] = max(errs.get(key, 0.0), e)
+        log(f"[train] grad parity flash_attention B={B} S={S} H={H} "
+            f"KVH={KVH} D={D} window={window} {str(dt)[6:]} ({inst}): "
+            f"max|d| dq,dk,dv {e:.3e}")
+
+    for i, (B, S, C, with_h0) in enumerate([(2, 1000, 256, True),
+                                           (4, 2048, 512, False)]):
+        log_a, b = _rglru_inputs(torch, B, S, C, torch.float32, 110 + i)
+        h0 = _randn(torch, B, C, seed=120 + i)
+        dh = _randn(torch, B, S, C, seed=130 + i)
+        dh_last = _randn(torch, B, C, seed=140 + i)
+        RK.rglru_scan_call.launches = 0
+        ins = leaves(log_a, b, h0)
+        h, hl = blocks.rg_lru_scan(ins[0], ins[1], ins[2] if with_h0
+                                   else None)
+        got = torch.autograd.grad([h, hl], ins[:3 if with_h0 else 2],
+                                  [dh, dh_last])
+        if RK.rglru_scan_call.launches != 2:     # forward + reverse scan
+            raise AssertionError(f"rglru_scan launched "
+                                 f"{RK.rglru_scan_call.launches} times for "
+                                 f"a forward and a backward, expected 2")
+        ref = leaves(log_a, b, h0)
+        hr, hlr = rglru_scan_ref(torch.exp(ref[0]), ref[1], ref[2]
+                                 if with_h0 else torch.zeros_like(h0))
+        want = torch.autograd.grad([hr, hlr], ref[:3 if with_h0 else 2],
+                                   [dh, dh_last])
+        e = max(_max_err(torch, g, w, 1e-5, 1e-5) for g, w in zip(got, want))
+        errs["rglru_scan"] = max(errs.get("rglru_scan", 0.0), e)
+        log(f"[train] grad parity rglru_scan B={B} S={S} C={C} "
+            f"h0={with_h0}: max|d| dlog_a,db{',dh0' if with_h0 else ''} "
+            f"{e:.3e}")
+
+    for i, (B, NH, S, hd, ds, chunk, with_h0) in enumerate(
+            [(2, 8, 512, 64, 64, 128, True), (1, 4, 300, 32, 128, 100,
+                                               False)]):
+        x, dt, a, Bm, Cm = _ssd_inputs(torch, B, NH, S, hd, ds, 150 + i)
+        x, dt = x.transpose(1, 2), dt.transpose(1, 2)   # the model's layout
+        h0 = _randn(torch, B, NH, hd, ds, seed=160 + i)
+        dy = _randn(torch, B, S, NH, hd, seed=170 + i)
+        dstate = _randn(torch, B, NH, hd, ds, seed=180 + i)
+        SK.ssd_forward_call.launches = 0
+        ins = leaves(x, dt, a, Bm, Cm, h0)
+        use = ins if with_h0 else ins[:5]
+        y, st = blocks.ssd_chunked(*ins[:5], chunk, ins[5] if with_h0
+                                   else None)
+        got = torch.autograd.grad([y, st], use, [dy, dstate])
+        if SK.ssd_forward_call.launches != 1:
+            raise AssertionError("ssd_forward did not launch once")
+        ref = leaves(x, dt, a, Bm, Cm, h0)
+        yr, sr = blocks._ssd_chunked_plain(*ref[:5], chunk, ref[5]
+                                           if with_h0 else None)
+        want = torch.autograd.grad([yr, sr], ref if with_h0 else ref[:5],
+                                   [dy, dstate])
+        e = _grad_err(torch, got, want, 1e-6)
+        errs["ssd_forward"] = max(errs.get("ssd_forward", 0.0), e)
+        log(f"[train] grad parity ssd_forward B={B} NH={NH} S={S} hd={hd} "
+            f"ds={ds} chunk={chunk} h0={with_h0}: max|d| dx,ddt,da,dB,dC"
+            f"{',dh0' if with_h0 else ''} {e:.3e}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def _ssd_per_forward(cfg):
+    return sum(reps * pattern.count("ssd")
+               for pattern, reps in cfg.scan_groups())
+
+
+def _remat_reruns(cfg):
+    """Forwards of a block that training runs besides the first: the
+    recompute of a checkpointed repeat in the backward pass."""
+    return 0 if cfg.remat == "none" else 1
+
+
+def _train_step_full(torch):
+    """b. make_train_step at mamba2-1.3b's full width in bf16: batch 8 x
+    2048 tokens in cfg.train_microbatches (2) microbatches, 3 steps; the
+    last runs under the profiler.  B6 must launch 48 x M x (1 + remat
+    reruns) times a step, and only there."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import sgd
+    cfg = get_config("mamba2-1.3b")
+    M = cfg.train_microbatches
+    model = build_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = sgd(0.05).init_state(model.init(gen))
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = make_train_step(model, lr=0.05)
+    per_step = _ssd_per_forward(cfg) * M * (1 + _remat_reruns(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counts()
+    walls, losses = [], []
+    for i in range(TRAIN_STEPS):
+        ctx = (_profiler(torch) if i == TRAIN_STEPS - 1
+               else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with ctx as prof:
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        log(f"[train] step {i + 1}: wall {walls[-1] * 1e3:.1f} ms loss "
+            f"{losses[-1]:.4f} ce {float(met['ce']):.4f}"
+            + ("  (profiled)" if prof is not None else ""))
+    launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in losses) or int(state.step) != \
+            TRAIN_STEPS:
+        raise AssertionError(f"train step: losses {losses}, step "
+                             f"{int(state.step)}")
+    want = {"flash_attention": 0, "rglru_scan": 0,
+            "ssd_forward": per_step * TRAIN_STEPS}
+    if launched != want:
+        raise AssertionError(f"train step launched {launched}, expected "
+                             f"{want} (B6: {_ssd_per_forward(cfg)} layers x "
+                             f"M={M} x (1 + {_remat_reruns(cfg)} remat "
+                             f"rerun) per step)")
+    busy, rows = _kernel_times(torch, prof)
+    from repro_torch.models.blocks import SSD_BACKWARD_RANGE
+    n_bwd, bwd_step_ms = _range_device_ms(torch, prof, SSD_BACKWARD_RANGE)
+    if n_bwd != per_step // (1 + _remat_reruns(cfg)) or bwd_step_ms <= 0:
+        raise AssertionError(f"the profiled step ran B6's backward {n_bwd} "
+                             f"times with {bwd_step_ms} ms of kernels")
+    step_ms = walls[-2] * 1e3                 # the last unprofiled step
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / walls[-2]
+    idle = 1 - busy / step_ms
+    kinds = {"B6 (ssd_*)": 0.0, "GEMM": 0.0, "elementwise/reduce": 0.0,
+             "other": 0.0}
+    for ms, key in rows:
+        kinds["B6 (ssd_*)" if "ssd_" in key else "GEMM"
+              if re.search(r"gemm|nvjet|cutlass|sm90_", key) else
+              "elementwise/reduce" if re.search(r"elementwise|reduce", key)
+              else "other"] += ms
+    log(f"[train] mamba2-1.3b full width, bf16, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, M={M}, remat={cfg.remat}: step {step_ms:.1f} ms, "
+        f"{tokens_s:.0f} tokens/s; profiled step {walls[-1] * 1e3:.1f} ms, "
+        f"kernels busy {busy:.1f} ms: idle share {idle:.4f} of the "
+        f"unprofiled step, {1 - busy / (walls[-1] * 1e3):.4f} of the "
+        f"profiled one; peak memory {peak:.2f} GiB; B6 launches "
+        f"{launched['ssd_forward']} ({per_step} a step)")
+    log("[train]   device time by kind: " + ", ".join(
+        f"{k} {ms:.1f} ms ({ms / busy:.2%})" for k, ms in kinds.items()))
+    log(f"[train]   B6 backward (plain recompute + autograd, the "
+        f"{SSD_BACKWARD_RANGE} range of the profiled step): {n_bwd} ranges, "
+        f"{bwd_step_ms:.1f} ms of kernels, {bwd_step_ms / busy:.2%} of the "
+        f"step's device time")
+    for ms, key in rows[:10]:
+        log(f"[train]   {ms:9.3f} ms  {ms / busy:7.2%}  {key[:150]}")
+    del state, batch, model, prof
+
+    # B6's backward alone at one microbatch's shape: the plain chunked SSD
+    # recomputed and differentiated, as _SSDChunked.backward runs it
+    from repro_torch.models import blocks, layers
+    NH, hd, ds = cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, \
+        cfg.ssm_state
+    x, dt, a, Bm, Cm = _ssd_inputs(torch, TRAIN_BATCH // M, NH, TRAIN_SEQ,
+                                   hd, ds, 190)
+    ins = (x.transpose(1, 2), dt.transpose(1, 2), a, Bm, Cm, None)
+    dy = _randn(torch, TRAIN_BATCH // M, TRAIN_SEQ, NH, hd, seed=191)
+    bwd_ms = _time_ms(torch, lambda: layers.plain_vjp(
+        lambda *t: blocks._ssd_chunked_plain(*t[:5], cfg.ssm_chunk, t[5]),
+        ins, (dy, None), (True,) * 5 + (False,)), iters=5, warmup=1)
+    log(f"[train]   B6 backward alone (one layer at {TRAIN_BATCH // M} x "
+        f"{TRAIN_SEQ}, timed outside the step): {bwd_ms:.3f} ms")
+    del x, dt, Bm, Cm, ins, dy
+    return dict(step_ms=step_ms, tokens_per_s=tokens_s, idle_share=idle,
+                peak_gib=peak, losses=losses, walls_ms=[w * 1e3 for w in walls],
+                launches=launched, busy_ms=busy, device_ms_by_kind=kinds,
+                ssd_backward_step_ms=bwd_step_ms,
+                ssd_backward_share=bwd_step_ms / busy,
+                ssd_backward_alone_ms=bwd_ms)
+
+
+def _cuda_profiler(torch):
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+
+
+def _count_batches(clients):
+    """Wrap every client's epoch function to count the SGD steps it runs."""
+    seen = [0]
+    for c in clients.values():
+        def counted(params, data, lr, fn=c.epoch_fn):
+            seen[0] += int(next(iter(data.values())).shape[0])
+            return fn(params, data, lr)
+        c.epoch_fn = counted
+    return seen
+
+
+def _train_cohort_full(torch):
+    """c. The SEAFL cohort trainer (launch/train.py:build_lm_fl) at
+    mamba2-1.3b's full width, run to 2 aggregations of K = 2 cohort models
+    of P = 1.344e9.  Each round runs under a CUDA-only profiler (its wall
+    includes the profiler's cost).  B1/B2 launch once per aggregation; B6
+    once per layer in each forward: (1 + remat reruns) per SGD step and one
+    per held-out evaluation."""
+    from repro_torch.kernels.seafl_agg import kernel as K
+    from repro_torch.launch.train import build_lm_fl
+    from repro_torch.runtime.simulator import FLSimulation, SimConfig
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, server, clients, eval_fn = build_lm_fl(
+        "mamba2-1.3b", smoke=False, device="cuda", **COHORT)
+    P = server.packer.size
+    log(f"[train] cohort trainer: P={P}, K={server.buffer.capacity}, built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    steps = _count_batches(clients)
+    sim = FLSimulation(server, clients, SimConfig(seed=0), eval_fn=eval_fn)
+    K.reset_launch_counts()
+    _reset_lm_counts()
+    rounds = []
+    for r in range(1, COHORT_ROUNDS + 1):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _cuda_profiler(torch) as prof:
+            hist = sim.run(max_rounds=r)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy, rows = _kernel_times(torch, prof)
+        agg_ms = sum(ms for ms, key in rows if "sim_partials" in key
+                     or "weighted_agg" in key)
+        rec = dict(round=hist[-1]["round"], wall_s=wall,
+                   heldout_ce=-hist[-1]["acc"], sim_time=hist[-1]["time"],
+                   staleness_max=hist[-1]["staleness_max"],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   busy_ms=busy, seafl_agg_ms=agg_ms,
+                   seafl_agg_share=agg_ms / busy)
+        rounds.append(rec)
+        log(f"[train] cohort round {rec['round']}: wall {wall:.3f} s "
+            f"(profiled), held-out CE {rec['heldout_ce']:.4f}, sim time "
+            f"{rec['sim_time']:.3f}, peak {rec['peak_gib']:.2f} GiB, "
+            f"kernels busy {busy:.1f} ms, seafl_agg {agg_ms:.3f} ms "
+            f"({rec['seafl_agg_share']:.4%} of device time)")
+        for ms, key in rows[:5]:
+            log(f"[train]   {ms:9.3f} ms  {ms / busy:7.2%}  {key[:100]}")
+    seafl = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
+    launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    evals = sum("acc" in h for h in sim.history)
+    cfg = model.cfg
+    want_b6 = _ssd_per_forward(cfg) * (steps[0] * (1 + _remat_reruns(cfg))
+                                       + evals)
+    if server.total_aggregations != COHORT_ROUNDS or server.round != \
+            COHORT_ROUNDS or server.buffer.capacity != 2:
+        raise AssertionError(f"ran {server.total_aggregations} aggregations")
+    for name in ("sim_partials_from_params", "weighted_agg"):
+        if seafl[name] != COHORT_ROUNDS:
+            raise AssertionError(f"{name} launched {seafl[name]} times in "
+                                 f"{COHORT_ROUNDS} aggregations")
+    if launched != {"flash_attention": 0, "rglru_scan": 0,
+                    "ssd_forward": want_b6}:
+        raise AssertionError(f"cohort trainer launched {launched}; B6 "
+                             f"expected {want_b6} = 48 x ({steps[0]} SGD "
+                             f"steps x 2 + {evals} evaluations)")
+    g = server.global_flat
+    if not (all(math.isfinite(r["heldout_ce"]) for r in rounds)
+            and bool(torch.isfinite(g).all())):
+        raise AssertionError("non-finite held-out CE or global model")
+    log(f"[train] cohort trainer: {COHORT_ROUNDS} aggregations, seafl_agg "
+        f"launches {seafl}, LM launches {launched} ({steps[0]} SGD steps, "
+        f"{evals} evaluations)")
+    del model, server, clients, eval_fn, sim, g
+    torch.cuda.empty_cache()
+
+    # B1 and B2 alone at this P and K (timing launches, not counted)
+    w, g, wts = _inputs(torch, 2, P, torch.float32, torch.float32, seed=200)
+    timing = {}
+    for name, fn, nbytes, flops in (
+            ("sim_partials_from_params",
+             lambda: K.sim_partials_from_params_call(w, g),
+             2 * P * 4 + P * 4 + 2 * 4 * 4, 5 * 2 * P + 2 * P),
+            ("weighted_agg", lambda: K.weighted_agg_call(wts, w, g, THETA),
+             2 * 4 + 2 * P * 4 + 2 * P * 4, 2 * 2 * P + 3 * P)):
+        ms = _time_ms(torch, fn, iters=10, warmup=2)
+        bound, by = _bound_ms(nbytes, flops)
+        timing[name] = dict(ms=ms, bound_ms=bound, bound_by=by)
+        log(f"[train] {name} at K=2 P={P}: {ms:.4f} ms, bound {bound:.4f} "
+            f"ms ({by}), bound/kernel {bound / ms:.4f}")
+    del w, g, wts
+    torch.cuda.empty_cache()
+    return dict(P=P, rounds=rounds, seafl_launches=seafl, launches=launched,
+                sgd_steps=steps[0], evals=evals, agg_timing=timing)
+
+
+def _train_card_vs_cpu(torch):
+    """d. The f32 smoke configs of mamba2-1.3b (B6), recurrentgemma-2b (B4's
+    mma instance, B5) and phi4-mini-3.8b (B4) each train 3 rounds of the
+    cohort trainer from one set of weights, on the card and on the CPU:
+    identical event times, contributors and staleness; global flat and
+    held-out CE within 1e-3 (the FL e2e's bound); every LM kernel the model
+    uses launched on the card, none on the CPU."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.train import build_lm_fl
+    from repro_torch.models.model import build_model, tree_map
+    from repro_torch.runtime.simulator import FLSimulation, SimConfig
+    uses = {"mamba2-1.3b": ("ssd_forward",),
+            "recurrentgemma-2b": ("flash_attention", "rglru_scan"),
+            "phi4-mini-3.8b": ("flash_attention",)}
+    totals = dict.fromkeys([*_lm_kernels(), "flash_attention_tc",
+                            "flash_attention_mma"], 0)
+    for arch, kernels in uses.items():
+        cfg = smoke_config(arch).replace(param_dtype="float32",
+                                         dtype="float32")
+        params = tree_map(lambda t: t.numpy(), build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(0)))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model, server, clients, eval_fn = build_lm_fl(
+                cfg, n_clients=4, concurrency=2, buffer_size=2, seq_len=32,
+                device=dev, params=params)
+            events, agg = [], server._aggregate
+            server._aggregate = lambda now, agg=agg, events=events: (
+                events.append(agg(now)) or events[-1])
+            sim = FLSimulation(server, clients, SimConfig(seed=0),
+                               eval_fn=eval_fn)
+            _reset_lm_counts()
+            hist = sim.run(max_rounds=3)
+            launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+            launched.update(flash_attention_tc=FK.flash_attention_call
+                            .launches_tc, flash_attention_mma=FK
+                            .flash_attention_call.launches_mma)
+            runs[dev] = (hist, events, server.global_flat.cpu(), launched)
+        (hc, ec, gc, lc), (hh, eh, gh, lh) = runs["cuda"], runs["cpu"]
+        if any(lh.values()) or any(bool(lc[n]) != (n in kernels)
+                                   for n in _lm_kernels()):
+            raise AssertionError(f"{arch}: launches card {lc}, CPU {lh}")
+        if lc["flash_attention_tc"] or lc["flash_attention_mma"] != \
+                lc["flash_attention"]:
+            raise AssertionError(f"{arch}: the f32 training ran B4's tc "
+                                 f"instance or not only mma: {lc}")
+        if len(hc) != 3 or [h["time"] for h in hc] != \
+                [h["time"] for h in hh]:
+            raise AssertionError(f"{arch}: event times differ card vs CPU")
+        for a, b in zip(ec, eh):
+            if a.contributors != b.contributors or \
+                    list(a.staleness) != list(b.staleness):
+                raise AssertionError(f"{arch}: contributors or staleness "
+                                     f"differ card vs CPU")
+        dce = max(abs(a["acc"] - b["acc"]) for a, b in zip(hc, hh))
+        dg = float((gc - gh).abs().max())
+        if dce > 1e-3 or dg > 1e-3:
+            raise AssertionError(f"{arch}: card vs CPU differ: CE {dce}, "
+                                 f"global {dg}")
+        for n in totals:
+            totals[n] += lc[n]
+        log(f"[train] card-vs-cpu {arch} smoke f32: 3 rounds, event times, "
+            f"contributors and staleness identical; max|d CE| {dce:.3e}, "
+            f"max|d global| {dg:.3e}; launches card {lc}, CPU {lh}")
+    return totals
+
+
+def phase_train(torch):
+    """The LM training path: a. gradient parity of B4-B6, b.
+    make_train_step at mamba2-1.3b's full width, c. the SEAFL cohort
+    trainer at full width, d. card against CPU on three f32 smoke
+    configs."""
+    t0 = time.perf_counter()
+    errs = _train_grad_parity(torch)
+    step = _train_step_full(torch)
+    torch.cuda.empty_cache()
+    cohort = _train_cohort_full(torch)
+    smoke = _train_card_vs_cpu(torch)
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    return errs, step, cohort, smoke
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1073,6 +1532,22 @@ def main() -> int:
     launches, walls, peak = phase_e2e(torch)
     lm_launches, serving = phase_serve(torch)
     phase_card_vs_cpu(torch)
+    grad_errs, train_step, cohort, smoke_launches = phase_train(torch)
+    train_launches = {  # the training runs' launches, by kernel row
+        "sim_partials_from_params": {
+            "cohort": cohort["seafl_launches"]["sim_partials_from_params"]},
+        "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"]},
+        "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"]},
+        "flash_attention_bf16_tc": {
+            "smoke_card_vs_cpu": smoke_launches["flash_attention_tc"]},
+        "flash_attention_f32_mma": {
+            "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"]},
+        "rglru_scan": {"smoke_card_vs_cpu": smoke_launches["rglru_scan"]},
+        "ssd_forward": {
+            "train_step": train_step["launches"]["ssd_forward"],
+            "cohort": cohort["launches"]["ssd_forward"],
+            "smoke_card_vs_cpu": smoke_launches["ssd_forward"]},
+    }
 
     src = "src/repro_torch/kernels/seafl_agg/csrc/seafl_agg.cu"
     replaces = {"sim_partials_from_params":
@@ -1090,6 +1565,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "on_main_path": kname != "sim_partials",
             "bf16_rows_ms": timing[(kname, "bfloat16")]["ms"],
+            "train_launches": train_launches[kname],
         })
     flash = "src/repro/kernels/flash_attention/kernel.py:27"
     lm = {"flash_attention_bf16_tc": ("kernels/flash_attention/csrc/"
@@ -1114,10 +1590,13 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "on_main_path": kname != "flash_attention_f32_mma",
+            "train_launches": train_launches[kname],
+            "grad_max_abs_err": grad_errs.get(err_key),
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
         f"memory MiB: {peak:.1f}")
     log(f"[serve] summary: {json.dumps(serving)}")
+    log(f"[train] summary: {json.dumps(dict(step=train_step, cohort=cohort))}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,12 +24,15 @@ def make_epoch_fn(loss_fn: Callable, lr: float | None = None):
     loss_fn(params, batch) -> scalar loss tensor; data: dict of tensors with
     leading (n_batches, batch_size, ...) (pre-batched client shard).
     Returns (new params, mean loss tensor); the given params are not
-    modified.
+    modified.  Each step is the JAX ``w - lr * g.astype(w.dtype)``, whose
+    Python-float ``lr`` takes the parameter's dtype (JAX's weak typing), so
+    a bf16 leaf steps by bf16(lr) * g.
     """
 
     def epoch(params: Params, data: dict, lr_: float):
         names = list(params)
         p = [params[n].detach() for n in names]
+        lrs = {t.dtype: torch.tensor(lr_, dtype=t.dtype) for t in p}
         losses = []
         for b in range(next(iter(data.values())).shape[0]):
             batch = {k: v[b] for k, v in data.items()}
@@ -37,7 +40,8 @@ def make_epoch_fn(loss_fn: Callable, lr: float | None = None):
             loss = loss_fn(dict(zip(names, leaves)), batch)
             grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
-                p = [w - lr_ * g.to(w.dtype) for w, g in zip(leaves, grads)]
+                p = [w - lrs[w.dtype] * g.to(w.dtype)
+                     for w, g in zip(leaves, grads)]
             losses.append(loss.detach())
         return dict(zip(names, p)), torch.mean(torch.stack(losses))
 

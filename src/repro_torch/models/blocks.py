@@ -15,7 +15,10 @@ Kernel routes: on CUDA tensors ``rg_lru_scan`` launches the RG-LRU kernel
 (``kernels/rglru``) and ``ssd_chunked`` the SSD kernel (``kernels/ssd``);
 on CPU tensors ``rg_lru_scan`` runs the sequential recurrence and
 ``ssd_chunked`` the torch translation of the JAX model function.  These
-functions are the only place the model picks a route.
+functions are the only place the model picks a route.  Both kernel routes
+have a gradient: the RG-LRU scan's is the reverse-time recurrence, run by
+the same kernel (:func:`rg_lru_scan_backward`); the SSD kernel's
+differentiates the torch translation, recomputed from the saved inputs.
 """
 from __future__ import annotations
 
@@ -132,6 +135,50 @@ def rg_lru_gates(p, xb):
     return log_a, b
 
 
+def rg_lru_scan_backward(scan, log_a, h, h0, dh, dh_last):
+    """Gradients of (h, h_last) = scan of h_t = a_t h_{t-1} + b_t, a_t =
+    exp(log_a_t), from h0, given dh (B, S, C) and dh_last (B, C), either
+    None for zero.  With g the gradient reaching h_t (h_last's added at the
+    last step), g_t = dh_t + a_{t+1} g_{t+1}: the same recurrence in
+    reversed time, which ``scan(log_a, b) -> (h, h_last)`` (zero start) runs.
+    Returns (dlog_a_t = g_t a_t h_{t-1}, db_t = g_t, dh0 = a_0 g_0), f32."""
+    la = log_a.to(torch.float32)
+    g_in = torch.zeros_like(h) if dh is None else dh.to(torch.float32).clone()
+    if dh_last is not None:
+        g_in[:, -1] += dh_last
+    # a_{t+1} at step t; past the end any decay does, it multiplies g = 0
+    la_next = torch.cat([la[:, 1:], torch.zeros_like(la[:, :1])], dim=1)
+    g = scan(la_next.flip(1).contiguous(), g_in.flip(1).contiguous())[0] \
+        .flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]) if h0 is None
+                        else h0[:, None].to(torch.float32), h[:, :-1]], dim=1)
+    a = torch.exp(la)
+    return g * a * h_prev, g, a[:, 0] * g[:, 0]
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The RG-LRU kernel with a gradient: the backward runs the reverse-time
+    recurrence on the same kernel (:func:`rg_lru_scan_backward`)."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, h0):
+        from repro_torch.kernels.rglru.kernel import rglru_scan_call
+        h, h_last = rglru_scan_call(log_a, b, h0)
+        ctx.save_for_backward(log_a, h, h0)
+        ctx.b_dtype = b.dtype
+        ctx.set_materialize_grads(False)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        from repro_torch.kernels.rglru.kernel import rglru_scan_call
+        log_a, h, h0 = ctx.saved_tensors
+        dlog_a, db, dh0 = rg_lru_scan_backward(
+            rglru_scan_call, log_a, h, h0, dh, dh_last)
+        return (dlog_a.to(log_a.dtype), db.to(ctx.b_dtype),
+                None if h0 is None else dh0)
+
+
 def rg_lru_scan(log_a, b, h0=None):
     """Linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t in f32, from h0
     (zeros when None).  Returns (h (B, S, C), h_last (B, C)); the JAX
@@ -140,8 +187,7 @@ def rg_lru_scan(log_a, b, h0=None):
     CUDA: the RG-LRU kernel, which exponentiates ``log_a`` in registers.
     CPU: the sequential recurrence."""
     if log_a.device.type == "cuda":
-        from repro_torch.kernels.rglru.kernel import rglru_scan_call
-        return rglru_scan_call(log_a, b, h0)
+        return _RGLRUScan.apply(log_a, b, h0)
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     if h0 is None:
         h0 = torch.zeros((log_a.shape[0], log_a.shape[2]),
@@ -281,11 +327,41 @@ def ssd_chunked(x, dt, a, B_mat, C_mat, chunk, h0=None):
     CUDA: the SSD kernel, which reads this layout through strides and
     writes y in it.  CPU: the torch translation of the JAX model function."""
     if x.device.type == "cuda":
+        return _SSDChunked.apply(x, dt, a, B_mat, C_mat, chunk, h0)
+    return _ssd_chunked_plain(x, dt, a, B_mat, C_mat, chunk, h0)
+
+
+SSD_BACKWARD_RANGE = "ssd_chunked_backward"
+
+
+class _SSDChunked(torch.autograd.Function):
+    """The SSD kernel with a gradient, in the model's layouts: the backward
+    recomputes :func:`_ssd_chunked_plain` from the saved inputs and
+    differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, B_mat, C_mat, chunk, h0):
         from repro_torch.kernels.ssd.kernel import ssd_forward_call
         y, state = ssd_forward_call(x.transpose(1, 2), dt.transpose(1, 2), a,
                                     B_mat, C_mat, chunk=chunk, h0=h0)
+        ctx.save_for_backward(x, dt, a, B_mat, C_mat, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
         return y.transpose(1, 2), state
-    return _ssd_chunked_plain(x, dt, a, B_mat, C_mat, chunk, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, B_mat, C_mat, h0 = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        # a named range, so a profile of training reads this backward's
+        # device time
+        with torch.profiler.record_function(SSD_BACKWARD_RANGE):
+            grads = L.plain_vjp(
+                lambda x, dt, a, Bm, Cm, h0: _ssd_chunked_plain(
+                    x, dt, a, Bm, Cm, ctx.chunk, h0),
+                (x, dt, a, B_mat, C_mat, h0), (dy, dstate),
+                needs[:5] + needs[6:])
+        return (*grads[:5], None, grads[5])
 
 
 def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None):

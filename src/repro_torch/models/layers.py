@@ -16,6 +16,10 @@ prefill and training -- it calls the hand-written flash-attention kernel
 dims above 256 or not a multiple of 4).  Everywhere else (decode's single
 query, a partly filled cache, soft-capping, and every CPU tensor) it runs
 the torch translation below, as the JAX package has no kernel there either.
+The kernel route has a gradient (:class:`_FlashAttention`): its backward
+differentiates the torch translation, recomputed from the saved inputs,
+which is the function the JAX training path differentiates (the JAX kernel
+has no backward).
 """
 from __future__ import annotations
 
@@ -136,6 +140,47 @@ def _uses_flash_kernel(q, q_offset, kv_len, softcap):
             and kv_len is None and softcap is None)
 
 
+def plain_vjp(fn, inputs, out_grads, needs_grad):
+    """The input gradients of ``fn(*inputs)`` against ``out_grads`` (one per
+    output of ``fn``, None for an output without a gradient), by autograd
+    through ``fn`` recomputed from ``inputs``; None for each input whose
+    ``needs_grad`` is False.  The backward of the kernel routes whose JAX
+    kernel has no backward of its own."""
+    with torch.enable_grad():
+        xs = [None if x is None else x.detach().requires_grad_(bool(n))
+              for x, n in zip(inputs, needs_grad)]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, out_grads) if g is not None]
+        want = [x for x, n in zip(xs, needs_grad) if n]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                         [g for _, g in pairs],
+                                         allow_unused=True)
+                     if want and pairs else [None] * len(want))
+    return [next(grads) if n else None for n in needs_grad]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash-attention kernel's forward with a gradient: the backward
+    recomputes :func:`_attention_plain` from the saved q, k, v and
+    differentiates it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk):
+        from repro_torch.kernels.flash_attention.kernel import \
+            flash_attention_call
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_chunk=q_chunk)
+        return flash_attention_call(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = plain_vjp(
+            lambda q, k, v: _attention_plain(q, k, v, **ctx.opts),
+            ctx.saved_tensors, (do,), ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
+
+
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                       kv_len=None, q_chunk=512, softcap=None,
                       score_shard="qrows"):
@@ -146,10 +191,15 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     (there is no mesh).  See the module docstring for the kernel route."""
     del score_shard
     if _uses_flash_kernel(q, q_offset, kv_len, softcap):
-        from repro_torch.kernels.flash_attention.kernel import \
-            flash_attention_call
-        return flash_attention_call(q, k, v, causal=causal, window=window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_chunk)
+    return _attention_plain(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_len=kv_len,
+                            q_chunk=q_chunk, softcap=softcap)
 
+
+def _attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
+                     kv_len=None, q_chunk=512, softcap=None):
+    """The torch translation of the JAX model's ``chunked_attention``."""
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     Dv = v.shape[-1]

@@ -1,11 +1,14 @@
-"""LM assembly: embeddings + block groups + prefill/decode.
+"""LM assembly: embeddings + block groups + loss/prefill/decode.
 
 Torch translation of the JAX package's ``models/model.py`` for the families
 whose blocks are ported (dense, hybrid, ssm).  The params keep the JAX
 tree, ``groups/g{gi}/b{bi}/...`` with a leading repeats axis per group, so
 a JAX params tree carries over leaf for leaf (:func:`from_jax_lm_params`).
-``lax.scan`` over a group becomes a plain loop over its repeats (no remat:
-this port serves, it does not train the LM yet).
+``lax.scan`` over a group becomes a plain loop over its repeats.  Under
+autograd in train mode (``loss``), each repeat runs under
+``torch.utils.checkpoint`` as ``cfg.remat`` says, as JAX checkpoints each
+scan step: "full" saves nothing inside a repeat, "dots" saves the outputs
+of the matrix products without batch dimensions, "none" does not remat.
 
 The decode cache is written in place: each block's new cache is copied into
 the stacked buffers of ``init_cache``, and ``pos`` is a Python int, so a
@@ -14,13 +17,17 @@ decode step reads no device value on the host.
 from __future__ import annotations
 
 from collections.abc import Mapping
+from functools import partial
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
+from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -28,19 +35,39 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict, as a new nested dict."""
-    return {k: (tree_map(fn, v) if isinstance(v, Mapping) else fn(v))
-            for k, v in tree.items()}
+def nest_params(flat: Mapping) -> dict:
+    """A dotted leaf dict (``ParamPacker.unpack``'s ``"groups.g0.b0.ln1.
+    scale"``) as the LM's nested tree, holding the same tensors."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
 
 
-def tree_leaves(tree, prefix=""):
-    """("a/b/c", tensor) for every leaf of a nested dict."""
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
-            yield from tree_leaves(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``cfg.remat == "dots"``: keep the outputs of the 2-D matrix products
+    (JAX's ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` run under the checkpoint ``remat`` names (JAX's
+    ``_remat_policy``), or ``fn`` itself for "none"."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _dots_policy))
+    raise ValueError(f"remat must be 'full', 'dots' or 'none', got {remat!r}")
 
 
 def _copy_into(dst, src):
@@ -98,18 +125,31 @@ class LM:
     # ------------------------------------------------------------ block loop
     def _run_groups(self, params, x, *, mode, cache, pos):
         cfg = self.cfg
+        if cache is None:
+            def repeat(x, rp, pattern):
+                for bi, bname in enumerate(pattern):
+                    x, _ = BLOCKS[bname][2](rp[f"b{bi}"], x, cfg, mode=mode,
+                                            cache=None, pos=pos)
+                return x
+            if mode == "train" and torch.is_grad_enabled():
+                repeat = _remat(repeat, cfg.remat)
+            for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
+                # unbind once: its backward stacks the repeats' gradients
+                rows = tree_map(lambda t: t.unbind(0),
+                                params["groups"][f"g{gi}"])
+                for r in range(reps):
+                    x = repeat(x, tree_map(lambda t: t[r], rows), pattern)
+            return x
         for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
             gp = params["groups"][f"g{gi}"]
-            gc = None if cache is None else cache["groups"][f"g{gi}"]
+            gc = cache["groups"][f"g{gi}"]
             for r in range(reps):
                 for bi, bname in enumerate(pattern):
                     bp = tree_map(lambda t: t[r], gp[f"b{bi}"])
-                    bc = (None if gc is None
-                          else tree_map(lambda t: t[r], gc[f"b{bi}"]))
+                    bc = tree_map(lambda t: t[r], gc[f"b{bi}"])
                     x, c_new = BLOCKS[bname][2](bp, x, cfg, mode=mode,
                                                 cache=bc, pos=pos)
-                    if bc is not None:
-                        _copy_into(bc, c_new)
+                    _copy_into(bc, c_new)
         return x
 
     # ----------------------------------------------------------------- embed
@@ -138,6 +178,39 @@ class LM:
         x = self._embed(params, batch["tokens"])
         x = self._run_groups(params, x, mode="train", cache=None, pos=None)
         return self._unembed(params, x)
+
+    def loss(self, params, batch, loss_chunk: int = 1024):
+        """batch: {tokens, labels (B, S), int, label < 0 masked} -> (ce +
+        aux, {"ce", "aux"}), f32 scalars; aux is 0 for the ported families.
+        Sequence-chunked as the JAX ``LM.loss``: with S % C == 0 (C =
+        min(loss_chunk, S)) the unembed + CE of each chunk of C positions
+        runs under checkpoint (when autograd is on), so the (B, S, V) logits
+        are never live in full; otherwise the full CE."""
+        x = self._embed(params, batch["tokens"])
+        x = self._run_groups(params, x, mode="train", cache=None, pos=None)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        labels = batch["labels"]
+        mask = (labels >= 0).to(torch.float32)
+        labels = torch.clamp(labels, min=0)
+        S = x.shape[1]
+        C = min(loss_chunk, S)
+        if S % C:
+            ce = L.cross_entropy(self._unembed(params, x), labels, mask)
+            return ce + aux, {"ce": ce, "aux": aux}
+
+        def chunk_nll(xc, lc, mc):
+            lf = self._unembed(params, xc).to(torch.float32)
+            gold = torch.gather(lf, -1, lc.long()[..., None])[..., 0]
+            return torch.sum((torch.logsumexp(lf, dim=-1) - gold) * mc)
+
+        if torch.is_grad_enabled():
+            chunk_nll = _remat(chunk_nll, "full")
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, S, C):
+            tot = tot + chunk_nll(x[:, i:i + C], labels[:, i:i + C],
+                                  mask[:, i:i + C])
+        ce = tot / torch.clamp(torch.sum(mask), min=1.0)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):

@@ -270,3 +270,135 @@ def test_lm_smoke_card_matches_cpu(cuda):
         assert torch.equal(toks["cuda"], toks["cpu"])
         torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-3,
                                    atol=1e-3)
+
+
+# ------------------------------------------------------------ gradients
+
+def _leaves(*ts):
+    return [t.detach().clone().requires_grad_(True) for t in ts]
+
+
+def _assert_grads_equal(got, want, rtol):
+    for g, w in zip(got, want):
+        assert g is not None
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((g.float() - w.float()).abs().max()) <= rtol * scale
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,window,dt", [
+    (2, 300, 8, 2, 128, 128, "bf16"),        # tc instance
+    (1, 200, 4, 2, 64, None, "f32"),         # mma instance
+    (2, 40, 4, 1, 16, 16, "f32"),            # the f32 smoke shape
+])
+def test_flash_attention_route_has_the_plain_gradient(cuda, B, S, H, KVH, D,
+                                                      window, dt):
+    """The kernel route of chunked_attention returns a tensor with a
+    gradient, and it is autograd's through the plain translation (the
+    backward recomputes it): expected bit-identical, 1e-6 allowed."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import layers
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v, do = (_randn(cuda, *s, seed=i, dtype=dtype) for i, s in
+                   enumerate([(B, S, H, D), (B, S, KVH, D), (B, S, KVH, D),
+                              (B, S, H, D)]))
+    ins = _leaves(q, k, v)
+    before = FK.flash_attention_call.launches
+    o = layers.chunked_attention(*ins, causal=True, window=window)
+    assert o.grad_fn is not None
+    assert FK.flash_attention_call.launches == before + 1
+    got = torch.autograd.grad(o, ins, do)
+    ref = _leaves(q, k, v)
+    want = torch.autograd.grad(layers._attention_plain(
+        *ref, causal=True, window=window), ref, do)
+    _assert_grads_equal(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_route_has_the_recurrences_gradient(cuda, with_h0):
+    """rg_lru_scan on the card: the backward is the reverse-time scan on the
+    same kernel; within the forward's tolerance of autograd through the
+    sequential recurrence, for gradients on h and on h_last."""
+    from repro_torch.kernels.rglru import kernel as RK, ref as RR
+    from repro_torch.models import blocks
+    B, S, C = 2, 333, 96
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    log_a = torch.log(torch.rand(B, S, C, generator=gen, device=cuda) * 0.3
+                      + 0.7)
+    b = torch.randn(B, S, C, generator=gen, device=cuda) * 0.1
+    h0 = torch.randn(B, C, generator=gen, device=cuda)
+    dh = torch.randn(B, S, C, generator=gen, device=cuda)
+    dh_last = torch.randn(B, C, generator=gen, device=cuda)
+    n = 3 if with_h0 else 2
+    ins = _leaves(log_a, b, h0)
+    before = RK.rglru_scan_call.launches
+    h, hl = blocks.rg_lru_scan(ins[0], ins[1], ins[2] if with_h0 else None)
+    assert h.grad_fn is not None and hl.grad_fn is not None
+    got = torch.autograd.grad([h, hl], ins[:n], [dh, dh_last])
+    assert RK.rglru_scan_call.launches == before + 2
+    ref = _leaves(log_a, b, h0)
+    hr, hlr = RR.rglru_scan_ref(torch.exp(ref[0]), ref[1],
+                                ref[2] if with_h0 else torch.zeros_like(h0))
+    want = torch.autograd.grad([hr, hlr], ref[:n], [dh, dh_last])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_ssd_route_has_the_plain_gradient(cuda, with_h0):
+    """ssd_chunked on the card: the backward differentiates the plain
+    chunked translation, so every input's gradient (a and h0 included)
+    equals autograd's through it."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models import blocks
+    B, S, NH, hd, ds, chunk = 2, 300, 4, 32, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(B, S, NH, hd, generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, NH, generator=gen, device=cuda))
+    a = -torch.linspace(1.0, 16.0, NH, device=cuda)
+    Bm, Cm = (torch.randn(B, S, ds, generator=gen, device=cuda)
+              for _ in range(2))
+    h0 = torch.randn(B, NH, hd, ds, generator=gen, device=cuda)
+    dy = torch.randn(B, S, NH, hd, generator=gen, device=cuda)
+    ds_ = torch.randn(B, NH, hd, ds, generator=gen, device=cuda)
+    n = 6 if with_h0 else 5
+    ins = _leaves(x, dt, a, Bm, Cm, h0)
+    before = SK.ssd_forward_call.launches
+    y, st = blocks.ssd_chunked(*ins[:5], chunk, ins[5] if with_h0 else None)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad([y, st], ins[:n], [dy, ds_])
+    assert SK.ssd_forward_call.launches == before + 1
+    ref = _leaves(x, dt, a, Bm, Cm, h0)
+    yr, sr = blocks._ssd_chunked_plain(*ref[:5], chunk,
+                                       ref[5] if with_h0 else None)
+    want = torch.autograd.grad([yr, sr], ref[:n], [dy, ds_])
+    _assert_grads_equal(got, want, 1e-6)
+
+
+def test_lm_cohort_round_card_matches_cpu(cuda):
+    """One round of the SEAFL cohort trainer on mamba2's and
+    recurrentgemma's f32 smoke configs, card against CPU from one set of
+    weights: the same event times, the global within
+    1e-3."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import build_lm_fl
+    from repro_torch.models.model import build_model, tree_map
+    from repro_torch.runtime.simulator import FLSimulation, SimConfig
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b"):
+        cfg = smoke_config(arch).replace(param_dtype="float32",
+                                         dtype="float32")
+        params = tree_map(lambda t: t.numpy(), build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(0)))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            _, server, clients, eval_fn = build_lm_fl(
+                cfg, n_clients=4, concurrency=2, buffer_size=2, seq_len=32,
+                device=dev, params=params)
+            sim = FLSimulation(server, clients, SimConfig(seed=0),
+                               eval_fn=eval_fn)
+            hist = sim.run(max_rounds=1)
+            out[dev] = (hist, server.global_flat.cpu())
+        (hc, gc), (hh, gh) = out["cuda"], out["cpu"]
+        assert [h["time"] for h in hc] == [h["time"] for h in hh]
+        assert abs(hc[0]["acc"] - hh[0]["acc"]) <= 1e-3
+        torch.testing.assert_close(gc, gh, rtol=0, atol=1e-3)
