@@ -52,16 +52,29 @@ Phases, each printing its lines; no phase's failure is caught:
               at that P; (d) the f32 smoke configs of mamba2-1.3b,
               recurrentgemma-2b and phi4-mini-3.8b train 3 rounds on the
               card and on the CPU from one set of weights and must agree
-  8. result   one JSON line of per-kernel numbers (B4 as two rows, one
-              per instance; each row with its training launches), the
-              nvidia-smi line, and last the contract line
+  8. uplink   (e) the uplink codecs and the checkpointer at mamba2-1.3b's
+              full width: bf16, topk:0.01 and int8 encode and decode one
+              seeded (P,) delta on the card (wire bytes as reckoned, the
+              first and last 8 chunks equal to the CPU encode); the cohort
+              trainer under the topk:0.01 uplink (2 clients, K = 2) to one
+              aggregation (B1/B2 once, B6 as reckoned, both uploaders'
+              EF residuals); that server's ~16 GB checkpoint saved
+              (async, then wait) to a temporary directory and restored into
+              a fresh server on the card, bit-equal
+  9. result   one JSON line of per-kernel numbers (B4 as two rows, one
+              per instance; each row with its training and uplink
+              launches), the nvidia-smi line, and last the contract line
               {"ok": true, "device": {...}}
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
 why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
 one JSON line per SSD parity case.  With --probe it runs phases 1 and 2 and
 then only phase_probe: the card's mma.sync TF32 rate and variants of B4's
-f32 instance and of B5's ring, one JSON line each.
+f32 instance and of B5's ring, one JSON line each.  With --lm-cost it runs
+phases 1 and 2 and then only the full-width train step and one prefill of
+each LM (phase_lm_cost), one JSON line: copied into another tree's root
+and run there in turns with this one, it compares two trees' LM numerics
+on one card.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's src/ beside this file.
@@ -71,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1501,12 +1515,277 @@ def phase_train(torch):
     return errs, step, cohort, smoke
 
 
+# ------------------------- phase e: uplink codecs and checkpoint (full width)
+
+# mamba2-1.3b's flat size, and the wire bytes of one (P,) payload in 64 Ki
+# element chunks, reckoned from the JAX package's byte laws
+P_MAMBA2 = 1_344_052_224
+UPLINK_CHUNKS = 20_509
+WIRE_BYTES = {"f32": 5_376_537_040, "bf16": 2_688_432_592,
+              "topk:0.01": 107_793_256, "int8": 1_344_462_404}
+UPLINK = dict(n_clients=2, concurrency=2, buffer_size=2, seq_len=512,
+              batch_size=4, shard_seqs=8, local_epochs=1)
+UPLINK_SPEC = "topk:0.01"
+
+
+def _sync_s(torch, fn):
+    """(result, host seconds) of fn, closed by a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same_payload(torch, a, b):
+    """Two chunk payloads (tensors or dicts of tensors) bit for bit."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(
+            _same_payload(torch, a[k], b[k]) for k in a)
+    a, b = a.cpu(), b.cpu()
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a.view(torch.uint8) if a.dim() else a.reshape(1)
+                    .view(torch.uint8),
+                    b.view(torch.uint8) if b.dim() else b.reshape(1)
+                    .view(torch.uint8)))
+
+
+def _uplink_codecs_full(torch):
+    """Each lossy uplink scheme on one seeded f32 delta of mamba2-1.3b's P
+    on the card: wire bytes as reckoned, the first and last 8 chunks equal
+    to the CPU encode bit for bit, and the encode / decode wall times."""
+    from repro_torch.runtime.codecs import (decode_concat, encode_flat,
+                                            make_wire_format)
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    delta = torch.randn(P_MAMBA2, generator=gen, device="cuda") * 1e-3
+    out = {}
+    for spec in ("bf16", UPLINK_SPEC, "int8"):
+        fmt = make_wire_format(spec)
+        chunks, enc_s = _sync_s(torch, lambda: encode_flat(delta, fmt))
+        dec, dec_s = _sync_s(torch, lambda: decode_concat(chunks, fmt))
+        nbytes = sum(c.nbytes for c in chunks)
+        if (len(chunks), nbytes, fmt.payload_bytes(P_MAMBA2)) != (
+                UPLINK_CHUNKS, WIRE_BYTES[spec], WIRE_BYTES[spec]):
+            raise AssertionError(f"{spec}: {len(chunks)} chunks, {nbytes} "
+                                 f"wire bytes, expected {UPLINK_CHUNKS} and "
+                                 f"{WIRE_BYTES[spec]}")
+        ce = fmt.chunk_elems
+        for first in (0, UPLINK_CHUNKS - 8):
+            cpu = encode_flat(delta[first * ce:(first + 8) * ce].cpu(), fmt)
+            for c, want in zip(chunks[first:first + 8], cpu):
+                if c.length != want.length or not _same_payload(
+                        torch, c.payload, want.payload):
+                    raise AssertionError(f"{spec}: chunk {c.seq} differs "
+                                         f"from the CPU encode")
+        if not bool(torch.isfinite(dec).all()) or dec.shape != delta.shape:
+            raise AssertionError(f"{spec}: decode of shape {dec.shape}")
+        err = float((dec - delta).abs().max())
+        out[spec] = dict(wire_bytes=nbytes, encode_s=enc_s, decode_s=dec_s,
+                         max_abs_err=err)
+        log(f"[uplink] {spec}: {len(chunks)} chunks, {nbytes} wire bytes "
+            f"(f32 {WIRE_BYTES['f32']}), encode {enc_s:.3f} s, decode "
+            f"{dec_s:.3f} s, max |decode - delta| {err:.3e}; first and last "
+            f"8 chunks equal the CPU encode")
+        del chunks, dec
+    del delta
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_method(torch, obj, name, acc):
+    """Wrap obj.name to add its synchronised wall seconds to acc[name]."""
+    fn = getattr(obj, name)
+    acc[name] = 0.0
+
+    def timed(*a, **kw):
+        out, s = _sync_s(torch, lambda: fn(*a, **kw))
+        acc[name] += s
+        return out
+    setattr(obj, name, timed)
+
+
+def _uplink_cohort_full(torch):
+    """The cohort trainer under the top-k uplink at full width, to one
+    aggregation of both clients' updates: wire bytes, launches of B1, B2
+    and B6, both uploaders' EF residuals, a finite global."""
+    from repro_torch.kernels.seafl_agg import kernel as K
+    from repro_torch.launch.train import build_lm_fl
+    from repro_torch.runtime.simulator import FLSimulation, SimConfig
+    model, server, clients, eval_fn = build_lm_fl(
+        "mamba2-1.3b", smoke=False, device="cuda", compression=UPLINK_SPEC,
+        **UPLINK)
+    steps = _count_batches(clients)
+    spent = {}
+    for name in ("encode_update", "ingest_payload"):
+        _timed_method(torch, server, name, spent)
+    sim = FLSimulation(server, clients, SimConfig(seed=0), eval_fn=eval_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    _reset_lm_counts()
+    hist, wall = _sync_s(torch, lambda: sim.run(max_rounds=1))
+    seafl = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
+    launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    evals = sum("acc" in h for h in sim.history)
+    cfg = model.cfg
+    want_b6 = _ssd_per_forward(cfg) * (steps[0] * (1 + _remat_reruns(cfg))
+                                       + evals)
+    if server.total_aggregations != 1 or \
+            server.bytes_uploaded != 2 * WIRE_BYTES[UPLINK_SPEC]:
+        raise AssertionError(f"{server.total_aggregations} aggregations, "
+                             f"{server.bytes_uploaded} uplink bytes")
+    if (seafl["sim_partials_from_params"], seafl["weighted_agg"]) != (1, 1):
+        raise AssertionError(f"seafl_agg launched {seafl}")
+    if launched != {"flash_attention": 0, "rglru_scan": 0,
+                    "ssd_forward": want_b6}:
+        raise AssertionError(f"launched {launched}; B6 expected {want_b6}")
+    if sorted(c for c, ef in server._ef.items()
+              if ef.residual is not None) != sorted(clients):
+        raise AssertionError(f"EF residuals for {sorted(server._ef)}")
+    if not bool(torch.isfinite(server.global_flat).all()) or not \
+            math.isfinite(hist[-1]["acc"]):
+        raise AssertionError("non-finite global or held-out CE")
+    rec = dict(wall_s=wall, peak_gib=peak, uplink_bytes=server.bytes_uploaded,
+               encode_s=spent["encode_update"],
+               ingest_s=spent["ingest_payload"],
+               sgd_steps=steps[0], evals=evals, seafl_launches=seafl,
+               launches=launched, heldout_ce=-hist[-1]["acc"])
+    log(f"[uplink] cohort trainer, {UPLINK_SPEC} uplink, P={P_MAMBA2}: one "
+        f"aggregation, wall {wall:.3f} s, peak {peak:.2f} GiB, uplink "
+        f"{server.bytes_uploaded} bytes, encode {rec['encode_s']:.3f} s "
+        f"({rec['encode_s'] / wall:.2%} of the wall), ingest "
+        f"{rec['ingest_s']:.3f} s ({rec['ingest_s'] / wall:.2%}), held-out "
+        f"CE {rec['heldout_ce']:.4f}, seafl_agg {seafl}, LM {launched} "
+        f"({steps[0]} SGD steps, {evals} evaluations)")
+    del model, clients, eval_fn, sim
+    return server, rec
+
+
+def _checkpoint_full(torch, box):
+    """Save the top-k server (``box``'s one item, taken out so that it can
+    be freed before the restore) as the trainer does (async, then wait),
+    and restore it into a fresh server for the same model on the card:
+    state_dict equal, every tree bit-equal."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _crc, _to_np
+    from repro_torch.core.server import SeaflServer
+    server = box.pop()
+    want_state = server.state_dict()
+    trees = server.checkpoint_trees()
+    tree_bytes = sum(t.numel() * t.element_size() for t in trees.values())
+    tmp = tempfile.mkdtemp(prefix="seafl_ckpt_")
+    try:
+        ck = Checkpointer(tmp, keep=1)
+        _, snap_s = _sync_s(torch, lambda: ck.save(
+            server.round, trees, extra=want_state))
+        _, write_s = _sync_s(torch, ck.wait)
+        step_dir = ck._step_dir(server.round)
+        disk = sum(os.path.getsize(os.path.join(step_dir, f))
+                   for f in os.listdir(step_dir))
+        want = {k: v.cpu() for k, v in trees.items()}
+        t0 = time.perf_counter()
+        for v in want.values():
+            _crc(_to_np(v)[0])
+        crc_s = time.perf_counter() - t0
+        template = server.params
+        cfg, sizes = server.cfg, dict(server.client_sizes)
+        del trees, server
+        gc.collect()                 # the timing wrappers hold a cycle
+        torch.cuda.empty_cache()
+        fresh = SeaflServer(cfg, template, sizes, device="cuda")
+        del template
+
+        def restore():
+            step, got, extra = ck.restore(device="cuda")
+            fresh.load_state(extra, got)
+        _, restore_s = _sync_s(torch, restore)
+        got = fresh.checkpoint_trees()
+        if fresh.state_dict() != want_state or sorted(got) != sorted(want) \
+                or not all(torch.equal(got[k].cpu(), want[k]) for k in want):
+            raise AssertionError("restored server differs from the saved one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = dict(trees=sorted(want), tree_bytes=tree_bytes, disk_bytes=disk,
+               snapshot_s=snap_s, write_s=write_s, crc_s=crc_s,
+               restore_s=restore_s, write_gb_s=disk / 1e9 / (snap_s + write_s),
+               restore_gb_s=disk / 1e9 / restore_s)
+    log(f"[ckpt] trees {rec['trees']}: {tree_bytes} bytes, {disk} on disk; "
+        f"host snapshot {snap_s:.2f} s, write (+CRC) {write_s:.2f} s, CRC "
+        f"alone {crc_s:.2f} s; save {rec['write_gb_s']:.3f} GB/s; restore "
+        f"(read, CRC, to the card, load_state) {restore_s:.2f} s, "
+        f"{rec['restore_gb_s']:.3f} GB/s; state_dict equal, trees "
+        f"bit-equal")
+    del fresh, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_uplink(torch):
+    """e. Uplink codecs and checkpoint at full width: the lossy codecs on a
+    (P,) delta, the cohort trainer under the top-k uplink to one
+    aggregation, and its server's ~16 GB checkpoint saved and restored."""
+    t0 = time.perf_counter()
+    codecs = _uplink_codecs_full(torch)
+    server, cohort = _uplink_cohort_full(torch)
+    box = [server]
+    del server
+    ckpt = _checkpoint_full(torch, box)
+    took = time.perf_counter() - t0
+    log(f"[uplink] phase took {took:.1f} s")
+    return dict(codecs=codecs, cohort=cohort, checkpoint=ckpt, phase_s=took)
+
+
+def phase_lm_cost(torch):
+    """--lm-cost: the full-width train step of phase b, and a prefill
+    (median of 3, after one warm-up) and a decode step (median of 8, after
+    2) of each LM of the serve phase, one JSON line.  Run from the root of
+    two trees in turns to compare their LM numerics' cost on one card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model
+    out = {"train_step_ms": _train_step_full(torch)["step_ms"]}
+    torch.cuda.empty_cache()
+    for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
+        model = build_model(get_config(arch), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = model.init(gen)
+        prompts = torch.randint(0, model.cfg.vocab_size,
+                                (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                                device="cuda")
+        step = make_prefill_step(model)
+        walls = []
+        for _ in range(4):
+            cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + 11)
+            (logits, cache), ms = _sync_s(torch, lambda: step(
+                params, {"tokens": prompts}, cache))
+            walls.append(ms * 1e3)
+        out[f"prefill_ms_{arch}"] = sorted(walls[1:])[1]
+        decode = make_serve_step(model)
+        nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        steps = []
+        for _ in range(10):
+            (nxt, cache), ms = _sync_s(torch, lambda: decode(params, cache,
+                                                             nxt))
+            steps.append(ms * 1e3)
+        out[f"decode_step_ms_{arch}"] = sorted(steps[2:])[4]
+        log(f"[lm-cost] {arch} prefill ms: {[round(w, 2) for w in walls]}, "
+            f"decode step ms: {[round(w, 2) for w in steps]}")
+        del model, params, cache, step, decode, logits
+        torch.cuda.empty_cache()
+    print(json.dumps({"lm_cost": out}))
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ["--ssd-precision"], ["--probe"]):
-        print("usage: chip_smoke.py [--ssd-precision | --probe]",
-              file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--ssd-precision"], ["--probe"],
+                            ["--lm-cost"]):
+        print("usage: chip_smoke.py [--ssd-precision | --probe | "
+              "--lm-cost]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1525,6 +1804,9 @@ def main() -> int:
     if sys.argv[1:] == ["--probe"]:
         phase_probe(torch)
         return 0
+    if sys.argv[1:] == ["--lm-cost"]:
+        phase_lm_cost(torch)
+        return 0
     errs = phase_parity(torch)
     errs.update(phase_parity_lm(torch))
     timing = phase_timing(torch)
@@ -1533,10 +1815,14 @@ def main() -> int:
     lm_launches, serving = phase_serve(torch)
     phase_card_vs_cpu(torch)
     grad_errs, train_step, cohort, smoke_launches = phase_train(torch)
+    uplink = phase_uplink(torch)
+    up_seafl = uplink["cohort"]["seafl_launches"]
     train_launches = {  # the training runs' launches, by kernel row
         "sim_partials_from_params": {
-            "cohort": cohort["seafl_launches"]["sim_partials_from_params"]},
-        "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"]},
+            "cohort": cohort["seafl_launches"]["sim_partials_from_params"],
+            "uplink_topk": up_seafl["sim_partials_from_params"]},
+        "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"],
+                         "uplink_topk": up_seafl["weighted_agg"]},
         "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"]},
         "flash_attention_bf16_tc": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_tc"]},
@@ -1546,7 +1832,8 @@ def main() -> int:
         "ssd_forward": {
             "train_step": train_step["launches"]["ssd_forward"],
             "cohort": cohort["launches"]["ssd_forward"],
-            "smoke_card_vs_cpu": smoke_launches["ssd_forward"]},
+            "smoke_card_vs_cpu": smoke_launches["ssd_forward"],
+            "uplink_topk": uplink["cohort"]["launches"]["ssd_forward"]},
     }
 
     src = "src/repro_torch/kernels/seafl_agg/csrc/seafl_agg.cu"
@@ -1597,6 +1884,7 @@ def main() -> int:
         f"memory MiB: {peak:.1f}")
     log(f"[serve] summary: {json.dumps(serving)}")
     log(f"[train] summary: {json.dumps(dict(step=train_step, cohort=cohort))}")
+    log(f"[uplink] summary: {json.dumps(uplink)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

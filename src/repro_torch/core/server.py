@@ -12,20 +12,27 @@ Policies (paper §VI comparison set):
 
 Hot path: every algorithm aggregates through the flat (K, P) buffer engine
 (kernels/seafl_agg, hand-written CUDA kernels on the card).  Uploads arrive
-over the chunked uplink transport (runtime/transport.py, raw f32 chunks) and
-are written straight into a reserved (K, P) buffer slot.  Model versions
-live in ``_history`` as flat (P,) f32 tensors, unpacked only at dispatch /
-eval boundaries.  The buffer can store slots in bf16
-(``FLConfig.buffer_dtype``); the kernels accumulate in f32 regardless.
+over the chunked uplink transport (runtime/transport.py: raw f32/bf16, or
+topk/int8-compressed deltas against the dispatch version with per-client
+flat error feedback) and are written straight into a reserved (K, P) buffer
+slot.  Model versions live in ``_history`` as flat (P,) f32 tensors,
+unpacked only at dispatch / eval boundaries.  The buffer can store slots in
+bf16 (``FLConfig.buffer_dtype``); the kernels accumulate in f32 regardless.
+
+Fault tolerance: ``state_dict`` (JSON-able control state) and
+``checkpoint_trees`` (the flat tensors) go through ``repro_torch.checkpoint``
+in the same format as the JAX package's, and ``load_state`` restores either
+package's checkpoint.
 
 ``FLConfig`` keeps every field of the JAX package's config so the two are
 interchangeable; options whose modules this port does not carry yet
-(compressed uplink, version-tracked dispatch, cohorts, the run monitor, the
-autotuner, kernel timing) raise ``NotImplementedError`` at construction.
+(version-tracked dispatch, cohorts, the run monitor, the autotuner, kernel
+timing) raise ``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import warnings
+from dataclasses import dataclass, field, replace as dc_replace
 from typing import Optional
 
 import numpy as np
@@ -41,13 +48,14 @@ from repro_torch.kernels.seafl_agg.ops import (
 )
 from repro_torch.runtime.codecs import Chunk, make_wire_format
 from repro_torch.runtime.dispatch import DispatchPayload
-from repro_torch.runtime.policy import RatePolicy, RESYNC_MODES
+from repro_torch.runtime.policy import DriftTracker, RatePolicy, RESYNC_MODES
 from repro_torch.runtime.scheduler import make_scheduler
 from repro_torch.runtime.telemetry import Telemetry
 from repro_torch.runtime.transport import (
-    IngestBatcher, IngestSession, UploadPayload,
+    FlatErrorFeedback, IngestBatcher, IngestSession, UploadPayload,
     encode_update as transport_encode_update,
 )
+from repro_torch.tree import tree_map
 
 Params = dict[str, torch.Tensor]
 
@@ -75,7 +83,7 @@ class FLConfig:
     fedbuff_eta_g: float = 1.0
     fedasync_alpha0: float = 0.6
     fedasync_poly_a: float = 0.5
-    # uplink wire format: None (= raw f32) or 'f32' in this port
+    # uplink wire format: None (= raw f32) | 'bf16' | 'topk:<ratio>' | 'int8'
     compression: Optional[str] = None
     chunk_elems: int = 1 << 16       # wire chunk granularity (elements)
     buffer_dtype: str = "float32"    # 'float32' | 'bfloat16' slot storage
@@ -124,8 +132,6 @@ class FLConfig:
 def _refuse_unported(cfg: FLConfig) -> None:
     """Options that need a module this port does not carry yet."""
     unported = []
-    if cfg.compression not in (None, "none", "f32"):
-        unported.append(f"compression={cfg.compression!r}")
     if cfg.dispatch_compression is not None:
         unported.append(f"dispatch_compression={cfg.dispatch_compression!r}")
     if cfg.cohorts == "on":
@@ -187,17 +193,21 @@ class SeaflServer:
         self.scheduler = make_scheduler(cfg.scheduler, self.tel)
         self.wire = make_wire_format(cfg.compression, cfg.chunk_elems)
         _refuse_unported(cfg)
-        # the drift-adaptive rate policy needs top-k dispatch or uplink,
-        # which raise above; validated so a bad band config fails here too
-        RatePolicy.from_config(cfg)
+        # drift-adaptive rate policy: validated here so a bad band config
+        # fails at construction, not mid-run.  Its dispatch consumer needs
+        # top-k dispatch, which raises above until the dispatch session is
+        # ported.
+        self.rate_policy = RatePolicy.from_config(cfg)
         if cfg.dispatch_ratio_policy == "drift":
             raise ValueError(
                 "dispatch_ratio_policy='drift' adapts the top-k dispatch "
                 "ratio and needs dispatch_compression='topk:<ratio>'")
-        if cfg.uplink_ratio_policy == "drift":
+        if cfg.uplink_ratio_policy == "drift" and self.wire.scheme != "topk":
             raise ValueError(
                 "uplink_ratio_policy='drift' adapts the top-k uplink "
                 "ratio and needs compression='topk:<ratio>'")
+        self._drift = DriftTracker(cfg.drift_ema_beta)
+        self._ratio_by_version: dict[int, float] = {}
         self.packer = ParamPacker(params)
         self._flat = self.packer.pack(params).to(self.device)   # (P,) global
         self.round = 0
@@ -216,6 +226,7 @@ class SeaflServer:
         self.total_aggregations = 0
         self.bytes_uploaded = 0                  # uplink wire bytes
         self.bytes_downloaded = 0                # downlink wire bytes
+        self._ef: dict[int, FlatErrorFeedback] = {}
         self._ingests: dict[int, IngestSession] = {}   # cid -> mid-stream
 
     # ------------------------------------------------------------- plumbing
@@ -260,6 +271,10 @@ class SeaflServer:
         self._history = {v: p for v, p in self._history.items() if v in live}
         self._unpack_cache = {v: p for v, p in self._unpack_cache.items()
                               if v in live}
+        # chosen per-version ratios die with the versions they encode for
+        self._ratio_by_version = {v: r for v, r in
+                                  self._ratio_by_version.items()
+                                  if v in self._history}
 
     def _sample_idle(self, k: int) -> list[int]:
         """Every idle-pool draw routes through the scheduler policy: it
@@ -349,11 +364,41 @@ class SeaflServer:
     def encode_update(self, cid: int, client_params: Params,
                       n_epochs: int) -> UploadPayload:
         """Client-side encoder (simulated on the server object): pack once,
-        then serialise to wire chunks."""
+        then serialise to wire chunks per the configured WireFormat.  For
+        delta-coded schemes (topk/int8) the delta is taken against the
+        dispatch version and the client's flat error-feedback residual is
+        folded in and updated."""
         version = self.active[cid]
         flat = self.packer.pack(client_params)
+        wire = self.wire
+        if wire.scheme == "topk":
+            if self.cfg.uplink_ratio_policy == "drift":
+                # the drift band chosen for the version this client trained
+                # from also sizes its upload
+                r = self._ratio_by_version.get(version)
+                if r is not None:
+                    wire = dc_replace(wire, topk_ratio=r)
+            if n_epochs < self.cfg.local_epochs:
+                # SEAFL² byte coupling: a notified partial-training client
+                # did n' < E epochs of work, so it ships proportionally
+                # fewer coefficients (decode is ratio-free: top-k chunks
+                # carry their own indices)
+                wire = dc_replace(
+                    wire, topk_ratio=wire.topk_ratio
+                    * max(1, n_epochs) / self.cfg.local_epochs)
+        base = ef = None
+        if wire.delta_coded:
+            base = self._uplink_base(cid, version)
+            ef = self._ef.setdefault(cid, FlatErrorFeedback())
         return transport_encode_update(cid, version, n_epochs, flat,
-                                       self.wire)
+                                       wire, base, ef)
+
+    def _uplink_base(self, cid: int, version: int) -> torch.Tensor:
+        """The flat base a delta-coded upload is measured against: the
+        dispatch-version global the client trained from.  (The reference
+        measures against the delivered reconstruction under a lossy
+        dispatch scheme; the port's dispatch is the exact broadcast.)"""
+        return self._history[version]
 
     def begin_ingest(self, cid: int, version: int, n_epochs: int,
                      recv_time: float = 0.0) -> IngestSession:
@@ -361,10 +406,12 @@ class SeaflServer:
         upload and return the session that decodes chunks into it."""
         if cid in self._ingests:
             raise RuntimeError(f"client {cid} already has an ingest open")
+        base = (self._uplink_base(cid, version) if self.wire.delta_coded
+                else None)
         slot = self.buffer.reserve(Update(
             client_id=cid, n_samples=self.client_sizes[cid], version=version,
             n_epochs=n_epochs, recv_time=recv_time))
-        sess = IngestSession(self.buffer, slot, self.wire,
+        sess = IngestSession(self.buffer, slot, self.wire, base,
                              param_size=self.packer.size,
                              batcher=self._batcher)
         self._ingests[cid] = sess
@@ -425,6 +472,7 @@ class SeaflServer:
         """One server aggregation, entirely on the flat (K, P) engine.  The
         new global is a new tensor: ``_history`` still holds the old one."""
         cfg = self.cfg
+        prev_flat = self._flat            # drift observation base
         updates = self.buffer.updates()
         staleness = np.asarray([self.round - u.version for u in updates],
                                np.float32)
@@ -480,6 +528,14 @@ class SeaflServer:
         self.round += 1
         self.total_aggregations += 1
         self._history[self.round] = self._flat
+        if self.rate_policy.active:
+            # one scalar per aggregation: the round-over-round drift norm,
+            # EMA-normalised and binned into a discrete ratio band, chosen
+            # once per target version
+            x = self._drift.observe(
+                float(torch.linalg.norm(self._flat - prev_flat)))
+            self._ratio_by_version[self.round] = \
+                self.rate_policy.ratio_for(x, telemetry=self.tel)
         self._gc_history()
 
         # contributors + top-up to M go back to training on the new model.
@@ -506,3 +562,121 @@ class SeaflServer:
             round=self.round, weights=weights, staleness=staleness,
             contributors=contributors, dispatch=dispatch,
             notify=self.clients_to_notify())
+
+    # ------------------------------------------------------ fault tolerance
+    def state_dict(self) -> dict:
+        """JSON-able control state (the tensors are saved separately, from
+        :meth:`checkpoint_trees`), with the JAX package's keys.  Committed
+        buffer slots are persisted -- a checkpoint taken while SEAFL
+        sync-wait holds aggregation must not drop a non-empty buffer.
+        Uploads still mid-stream are *not*: their clients stay active, so a
+        restored driver re-dispatches them and the upload is re-sent."""
+        return {
+            "round": self.round,
+            "active": {str(k): int(v) for k, v in self.active.items()},
+            "idle": sorted(self.idle),
+            "notified": sorted(self._notified),
+            "total_aggregations": self.total_aggregations,
+            "bytes_uploaded": int(self.bytes_uploaded),
+            "bytes_downloaded": int(self.bytes_downloaded),
+            "dispatch": None,            # no version-tracked dispatch yet
+            "drift": self._drift.state_dict(),
+            "ratio_by_version": {str(v): float(r) for v, r in
+                                 self._ratio_by_version.items()},
+            "rng": self._rng.bit_generator.state,
+            "history_versions": sorted(self._history),
+            # a slot's meta rides along only when non-empty
+            "buffer": [
+                dict({"client_id": u.client_id, "n_samples": u.n_samples,
+                      "version": u.version, "n_epochs": u.n_epochs,
+                      "recv_time": u.recv_time},
+                     **({"meta": u.meta} if u.meta else {}))
+                for u in self.buffer.updates()
+            ],
+            "ef_clients": sorted(c for c, ef in self._ef.items()
+                                 if ef.residual is not None),
+            # the metrics snapshot rides along only when telemetry is on
+            **({"telemetry": self.tel.snapshot()}
+               if self.tel.enabled else {}),
+        }
+
+    def checkpoint_trees(self) -> dict:
+        """Tensors to persist: the flat model at each live version
+        (``v{version}``), each client's error-feedback residual
+        (``ef{cid}``; without them a restart under a delta-coded uplink
+        resets error memory) and the committed buffer rows (``slot{i}``, in
+        the buffer's dtype).  They are the live tensors, not copies: the
+        Checkpointer copies them to the host before it returns."""
+        trees = {f"v{v}": p for v, p in self._history.items()}
+        for cid, ef in self._ef.items():
+            if ef.residual is not None:
+                trees[f"ef{cid}"] = ef.residual
+        for i in range(len(self.buffer)):
+            trees[f"slot{i}"] = self.buffer.row(i)
+        return trees
+
+    def load_state(self, state: dict, trees: dict):
+        """Restore from :meth:`state_dict` / :meth:`checkpoint_trees` as
+        either package wrote them (tensors or arrays; keys of layers off
+        or not ported are dropped with a warning where they carry state)."""
+        def tensor(x, dtype=None):
+            t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+            return t.to(device=self.device, dtype=dtype)
+
+        self.round = int(state["round"])
+        self.active = {int(k): int(v) for k, v in state["active"].items()}
+        self.idle = set(state["idle"])
+        self._notified = set(state["notified"])
+        self.total_aggregations = int(state["total_aggregations"])
+        self.bytes_uploaded = int(state.get("bytes_uploaded", 0))
+        self.bytes_downloaded = int(state.get("bytes_downloaded", 0))
+        if state.get("dispatch") is not None:
+            warnings.warn(
+                "checkpoint carries dispatch version-tracking state but the "
+                "restored config has dispatch_compression=None; dropping it "
+                "(all clients will receive full legacy broadcasts)")
+        self._drift = DriftTracker.from_state(state.get("drift"),
+                                              self.cfg.drift_ema_beta)
+        self._ratio_by_version = {
+            int(k): float(v)
+            for k, v in state.get("ratio_by_version", {}).items()}
+        self._rng = np.random.default_rng()
+        self._rng.bit_generator.state = state["rng"]
+        self._history = {int(k[1:]): tensor(v, torch.float32)
+                         for k, v in trees.items() if k.startswith("v")}
+        self._flat = self._history[self.round]
+        self._unpack_cache = {}
+        self._ingests = {}
+        self._ef = {}
+        ef_keys = sorted(k for k in trees if k.startswith("ef"))
+        if ef_keys and not self.wire.delta_coded:
+            # no delta-coded uplink in the restored config: a residual is
+            # meaningless (and would corrupt the next upload) -- drop it
+            warnings.warn(
+                f"checkpoint carries {len(ef_keys)} error-feedback "
+                f"residual(s) but the restored config uses wire scheme "
+                f"'{self.wire.scheme}'; dropping stale residuals")
+        else:
+            for k in ef_keys:
+                v = trees[k]
+                # flat (P,) residuals are the native format; pre-transport
+                # checkpoints stored per-leaf delta trees -- pack them
+                residual = (self.packer.pack(tree_map(torch.as_tensor, v))
+                            if isinstance(v, dict) else v)
+                self._ef[int(k[2:])] = FlatErrorFeedback(
+                    tensor(residual, torch.float32))
+        self.buffer = UpdateBuffer(self._trigger_size(), self.packer.size,
+                                   dtype=self._buffer_dtype,
+                                   telemetry=self.tel, device=self.device)
+        self._batcher = self._make_batcher()
+        for i, m in enumerate(state.get("buffer", [])):
+            self.buffer.add(
+                Update(client_id=int(m["client_id"]),
+                       n_samples=int(m["n_samples"]),
+                       version=int(m["version"]),
+                       n_epochs=int(m["n_epochs"]),
+                       recv_time=float(m["recv_time"]),
+                       meta=dict(m.get("meta", {}))),
+                tensor(trees[f"slot{i}"]))
+        if self.tel.enabled and "telemetry" in state:
+            self.tel.load_snapshot(state["telemetry"])

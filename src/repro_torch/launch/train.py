@@ -10,14 +10,18 @@ same event timeline as the simulation.
 
 Runs on the card unless ``--device cpu``.  The CLI keeps the JAX trainer's
 flags and defaults (smoke configs); the full-size configs go through the
-Python API, ``build_lm_fl(arch, smoke=False, ...)``.  ``--ckpt-dir`` raises
-NotImplementedError (the checkpointer is ROADMAP.md's A12), and the options
-the port's server refuses (compression, dispatch compression, cohorts, the
-run monitor and ``--slo``, the autotuner, kernel timing) raise there.
+Python API, ``build_lm_fl(arch, smoke=False, ...)``.  ``--compression``
+(bf16, topk:<ratio>, int8) sets the server's uplink.  ``--ckpt-dir``
+restores the server from the directory's latest checkpoint at start
+(``[train] restored from round N``) and saves after every ``--ckpt-every``
+rounds, in the JAX package's format, so either trainer resumes the other's
+run.  The options the port's server refuses (dispatch compression, cohorts,
+the run monitor and ``--slo``, the autotuner, kernel timing) raise there.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
       --rounds 3 --clients 4 --concurrency 2 --buffer 2 --seq-len 32 \
+      [--compression topk:0.2] [--ckpt-dir /tmp/ck --ckpt-every 1] \
       [--device cpu]
 """
 from __future__ import annotations
@@ -29,6 +33,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.client import Client, make_epoch_fn
@@ -352,11 +357,6 @@ def main():
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args()
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "repro_torch.launch.train: --ckpt-dir needs the checkpointer and "
-            "the server's state_dict/load_state, which are not ported yet "
-            "(ROADMAP.md, Queue A, A12)")
     if args.slo is not None:
         args.monitor = "on"
     if args.trace or args.metrics:
@@ -388,15 +388,25 @@ def main():
         scheduler=args.scheduler, autotune=args.autotune,
         device=args.device)
 
+    ck = None
+    if args.ckpt_dir:
+        ck = Checkpointer(args.ckpt_dir, keep=2)
+        step, trees, extra = ck.restore(device=server.device)
+        if step is not None:
+            server.load_state(extra, trees)
+            print(f"[train] restored from round {server.round}")
+
     sim = FLSimulation(server, clients,
                        SimConfig(seed=args.seed,
                                  availability=args.availability),
                        eval_fn=eval_fn, eval_every=1)
     t0 = time.time()
+    last_ck = server.round
     last_logged = server.round
     jlog = JsonlLog(args.log_jsonl)
 
-    # run in chunks of --ckpt-every rounds, printing a line after each
+    # run in chunks of --ckpt-every rounds, printing a line (and saving a
+    # checkpoint) after each
     while server.round < args.rounds:
         sim.run(max_rounds=min(server.round + args.ckpt_every, args.rounds))
         wall = time.time() - t0
@@ -408,8 +418,14 @@ def main():
             if sim.history[-1]["round"] > last_logged:
                 last_logged = sim.history[-1]["round"]
             print(format_round(rec), flush=True)
+        if ck is not None and server.round > last_ck:
+            ck.save(server.round, server.checkpoint_trees(),
+                    extra=server.state_dict())
+            last_ck = server.round
         if not sim._heap:
             break
+    if ck is not None:
+        ck.wait()   # the last async save must land before the process exits
     summary = summary_record(server, sim)
     jlog.write(summary, fsync=True)
     jlog.close()

@@ -8,6 +8,10 @@ families runs.  Every block type exposes
   <name>_cache(cfg, batch, max_len, dtype, device, lead) -> decode cache
   <name>_apply(p, x, cfg, *, mode, cache, pos) -> (x, new_cache)
 
+An apply takes ``x`` in the activation dtype or in f32 and returns its
+residual sum in f32, unrounded (:func:`layers.block_input`,
+:func:`layers.unrounded`): the model rounds it at the end of each repeat.
+
 ``BLOCKS`` lists only ported block types; the MoE, MLA and encoder-decoder
 blocks are still to port (ROADMAP.md, Queue A).
 
@@ -42,20 +46,23 @@ def conv1d_init(gen, width, channels, dtype, device, lead=()):
 
 
 def causal_conv1d(p, x):
-    """x: (B, S, C); depthwise causal conv of width W."""
+    """x: (B, S, C); depthwise causal conv of width W.  Returns its last op,
+    the bias add, unrounded in f32 (:func:`layers.unrounded`): the RG-LRU
+    gate reads it so, everything else in x's dtype."""
     W = p["w"].shape[0]
     xp = F.pad(x, (0, 0, W - 1, 0))
     S = x.shape[1]
     out = sum(xp[:, j:j + S] * p["w"][j].to(x.dtype) for j in range(W))
-    return out + p["b"].to(x.dtype)
+    return L.unrounded(out, p["b"].to(x.dtype))
 
 
 def conv1d_step(p, x1, state):
-    """x1: (B, 1, C); state: (B, W-1, C) last inputs. Returns (y, new_state)."""
+    """x1: (B, 1, C); state: (B, W-1, C) last inputs. Returns (y, new_state),
+    y unrounded in f32 as :func:`causal_conv1d`'s."""
     window = torch.cat([state, x1], dim=1)                  # (B, W, C)
     y = torch.einsum("bwc,wc->bc", window.to(torch.float32),
-                     p["w"].to(torch.float32))[:, None]
-    return y.to(x1.dtype) + p["b"].to(x1.dtype), window[:, 1:]
+                     p["w"].to(torch.float32))[:, None].to(x1.dtype)
+    return L.unrounded(y, p["b"].to(x1.dtype)), window[:, 1:]
 
 
 # ---------------------------------------------------------------------------
@@ -82,14 +89,19 @@ def attn_mlp_cache(cfg, batch, max_len, dtype, device, lead=()):
 
 def attn_mlp_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
     s = _res_scale(cfg)
-    a, new_c = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+    x, x_in = L.block_input(x, cfg)
+    a, new_c = L.attn_apply(p["attn"],
+                            L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype),
                             cfg, mode=mode,
                             cache=None if cache is None else cache["attn"],
                             pos=pos)
-    x = x + s * a
-    x = x + s * L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                            cfg)
-    return x, (None if cache is None else {"attn": new_c})
+    # ln2 reads the residual sum unrounded, the residual stream rounded
+    mid = L.unrounded(x, a * L.const(s, a))
+    x = mid.to(x.dtype)
+    m = L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], mid, cfg.norm_eps, x.dtype),
+                    cfg)
+    return (L.unrounded(x, m * L.const(s, m)),
+            None if cache is None else {"attn": new_c})
 
 
 # ---------------------------------------------------------------------------
@@ -124,12 +136,15 @@ def rec_cache(cfg, batch, max_len, dtype, device, lead=()):
                                 dtype=dtype, device=device)}
 
 
-def rg_lru_gates(p, xb):
-    """Returns (log_a, b_in) in f32 for h_t = a_t h_{t-1} + b_t."""
+def rg_lru_gates(p, xb32, dtype):
+    """Returns (log_a, b_in) in f32 for h_t = a_t h_{t-1} + b_t, from the
+    conv's output unrounded in f32: the gate products read it in ``dtype``,
+    the input gate unrounded, as the reference's (:func:`layers.unrounded`)."""
+    xb = xb32.to(dtype)
     r = torch.sigmoid(L.linear(p["a_gate"], xb).to(torch.float32))
     i = torch.sigmoid(L.linear(p["x_gate"], xb).to(torch.float32))
     log_a = RG_C * r * F.logsigmoid(p["rg_a"].to(torch.float32))
-    gated = i * xb.to(torch.float32)
+    gated = i * xb32
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * gated
     return log_a, b
@@ -196,20 +211,20 @@ def rg_lru_scan(log_a, b, h0=None):
 
 
 def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
-    u = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x, x_in = L.block_input(x, cfg)
+    u = L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype)
     xz = L.linear(p["in_proj"], u)
     xb, z = torch.chunk(xz, 2, dim=-1)
 
     new_cache = cache
     if mode == "decode":
-        xb, conv_state = conv1d_step(p["conv"], xb, cache["conv"])
-        log_a, b = rg_lru_gates(p, xb)
+        xb32, conv_state = conv1d_step(p["conv"], xb, cache["conv"])
+        log_a, b = rg_lru_gates(p, xb32, x.dtype)
         h = torch.exp(log_a[:, 0]) * cache["h"] + b[:, 0]
         new_cache = {"h": h, "conv": conv_state}
         h = h[:, None]
     else:
-        xb = causal_conv1d(p["conv"], xb)
-        log_a, b = rg_lru_gates(p, xb)
+        log_a, b = rg_lru_gates(p, causal_conv1d(p["conv"], xb), x.dtype)
         h0 = cache["h"] if cache is not None else None
         h, h_last = rg_lru_scan(log_a, b, h0)
         if mode == "prefill":
@@ -218,9 +233,11 @@ def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
                          .to(cache["conv"].dtype)}
 
     out = L.linear(p["out_proj"], h.to(x.dtype) * L.gelu(z))
-    x = x + out
-    x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-    return x, new_cache
+    mid = L.unrounded(x, out)
+    x = mid.to(x.dtype)
+    m = L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], mid, cfg.norm_eps, x.dtype),
+                    cfg)
+    return L.unrounded(x, m), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -368,14 +385,15 @@ def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
     B, S, _ = x.shape
     din, ds = cfg.d_inner, cfg.ssm_state
     nh, hd = din // cfg.ssm_head_dim, cfg.ssm_head_dim
-    u = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x, x_in = L.block_input(x, cfg)
+    u = L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype)
     z, xbc, dt = _ssd_split(p, u, cfg)
 
     a = -torch.exp(p["a_log"])                            # (nh,) negative
     new_cache = cache
     if mode == "decode":
         xbc, conv_state = conv1d_step(p["conv"], xbc, cache["conv"])
-        xbc = F.silu(xbc)                                 # (B, 1, C)
+        xbc = L.silu(xbc.to(x.dtype))                     # (B, 1, C)
         xs = xbc[:, 0, :din].reshape(B, nh, hd).to(torch.float32)
         Bm = xbc[:, 0, din:din + ds].to(torch.float32)
         Cm = xbc[:, 0, din + ds:].to(torch.float32)
@@ -389,7 +407,7 @@ def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
         new_cache = {"ssm": S_new, "conv": conv_state}
     else:
         xbc_raw = xbc
-        xbc = F.silu(causal_conv1d(p["conv"], xbc))
+        xbc = L.silu(causal_conv1d(p["conv"], xbc).to(x.dtype))
         xs = xbc[..., :din].reshape(B, S, nh, hd).to(torch.float32)
         Bm = xbc[..., din:din + ds].to(torch.float32)
         Cm = xbc[..., din + ds:].to(torch.float32)
@@ -404,10 +422,11 @@ def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
                          "conv": xbc_raw[:, -(cfg.conv_width - 1):]
                          .to(cache["conv"].dtype)}
 
-    y = y.to(x.dtype) * F.silu(z)
-    y = L.rmsnorm(p["out_norm"], y, cfg.norm_eps)
+    # out_norm reads the gated product unrounded (layers.unrounded)
+    y = y.to(x.dtype).to(torch.float32) * L.silu(z)   # widens exactly
+    y = L.rmsnorm(p["out_norm"], y, cfg.norm_eps, x.dtype)
     out = L.linear(p["out_proj"], y)
-    return x + out, new_cache
+    return L.unrounded(x, out), new_cache
 
 
 BLOCKS = {

@@ -10,12 +10,14 @@ a mesh and are dropped; ``chunked_attention`` still accepts ``score_shard``
 and ignores it.
 
 Routing of ``chunked_attention``, a static contract: on a CUDA tensor with
-Sq > 1, ``q_offset == 0``, ``kv_len is None`` and ``softcap is None`` --
-prefill and training -- it calls the hand-written flash-attention kernel
-(``kernels/flash_attention``), which raises on what it does not take (head
-dims above 256 or not a multiple of 4).  Everywhere else (decode's single
-query, a partly filled cache, soft-capping, and every CPU tensor) it runs
-the torch translation below, as the JAX package has no kernel there either.
+Sq > 1, ``q_offset == 0``, ``kv_len is None``, ``softcap is None`` and one
+head dim for q, k and v -- prefill and training -- it calls the
+hand-written flash-attention kernel (``kernels/flash_attention``), which
+raises on what it does not take (head dims above 256 or not a multiple of
+4).  Everywhere else (decode's single query, a partly filled cache,
+soft-capping, a value head dim other than the query's as MLA has, and every
+CPU tensor) it runs the torch translation below, as the JAX package has no
+kernel there either.
 The kernel route has a gradient (:class:`_FlashAttention`): its backward
 differentiates the torch translation, recomputed from the saved inputs,
 which is the function the JAX training path differentiates (the JAX kernel
@@ -23,6 +25,7 @@ has no backward).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -59,11 +62,15 @@ def norm_init(d, device, dtype=torch.float32, bias=False, lead=()):
     return p
 
 
-def rmsnorm(p, x, eps=1e-6):
+def rmsnorm(p, x, eps=1e-6, dtype=None):
+    """RMSNorm in f32, returned in ``dtype`` (default ``x.dtype``).  A block
+    passes an f32 ``x`` with its activation dtype where the reference's
+    input is a low-precision sum or product that XLA keeps in f32 (see
+    :func:`unrounded`)."""
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
-    return out.to(x.dtype)
+    return out.to(dtype or x.dtype)
 
 
 def layernorm(p, x, eps=1e-6):
@@ -76,14 +83,125 @@ def layernorm(p, x, eps=1e-6):
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# low-precision numerics, op for op as XLA computes the reference's
+# ---------------------------------------------------------------------------
+# XLA computes a bf16 elementwise op in f32 and rounds its result to bf16,
+# op by op, with Python constants rounded to bf16 first (JAX's weak typing).
+# torch's fused F.silu / F.gelu / torch.sigmoid round once, which differs by
+# a bf16 step on a third of the elements, so the bf16 activations here are
+# the reference's op chains; their backward is spelled as JAX differentiates
+# them (lax.logistic's and lax.tanh's JVP rules), each op rounded alike.
+# And XLA skips the rounding where the reference converts a result straight
+# back to f32 (:func:`unrounded`).  In f32 each op rounds to f32 on both
+# sides (tests/test_torch_bf16_trace.py).
+
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def block_input(x, cfg):
+    """A block's input ``x`` -- the activation dtype, or f32 when the block
+    before it in the same repeat returned its residual sum unrounded -- as
+    (the residual stream in ``cfg.dtype``, the value its first norm reads)."""
+    return x.to(DTYPES[cfg.dtype]), x
+
+
+def const(v, x):
+    """The Python constant ``v`` as the reference's weak typing makes it,
+    rounded to ``x``'s dtype (a Python float: torch computes a tensor-scalar
+    op in f32, so the product or sum then rounds as XLA's does)."""
+    return _rounded(float(v), x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v, dtype):
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def unrounded(x, y):
+    """``x + y`` (both in one low precision) in f32, not rounded.  XLA drops
+    the rounding of a bf16 add or multiply whose result the reference at
+    once converts to f32 (the ``astype(float32)`` in ``rmsnorm`` or in the
+    RG-LRU gates), so such a consumer reads the f32 result.  That includes
+    the next block's first norm inside one repeat of a group (one
+    ``lax.scan`` step); the scan's carry between repeats is rounded."""
+    return x.to(torch.float32) + y          # y widens exactly in the add
+
+
+def _sigmoid(x):
+    return torch.reciprocal(torch.exp(-x) + const(1.0, x))
+
+
+class _Sigmoid(torch.autograd.Function):
+    """``jax.nn.sigmoid`` (lax.logistic): 1 / (1 + exp(-x)), each op
+    rounded to x's dtype; backward g · (s · (1 - s)), lax.logistic's JVP."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _sigmoid(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (const(1.0, s) - s))
+
+
+def sigmoid(x):
+    # without autograd, the chain alone (serving: no Function per call)
+    return _Sigmoid.apply(x) if torch.is_grad_enabled() else _sigmoid(x)
+
+
+def silu(x):
+    """``jax.nn.silu``: x · sigmoid(x)."""
+    return x * sigmoid(x)
+
+
+_GELU_C1 = 0.044715
+_GELU_C2 = math.sqrt(2.0 / math.pi)
+
+
+class _GeluTanh(torch.autograd.Function):
+    """``jax.nn.gelu``'s default, the tanh approximation, as JAX writes it:
+    x · (0.5 · (1 + tanh(c2 · (x + c1 · x³)))), x³ = (x · x) · x, each op
+    rounded to x's dtype.  The backward is JAX's reverse pass over those
+    ops: lax.integer_pow's JVP g · (3 · x²), lax.tanh's (g + g·t) · (1 - t)
+    transposed, and the three cotangents of x summed in JAX's order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y, saved = _gelu(x)
+        ctx.save_for_backward(x, *saved)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x2, t, cdf = ctx.saved_tensors
+        ct = ((g * x) * const(0.5, x)) * (const(1.0, x) - t)
+        ct_inner = (ct + ct * t) * const(_GELU_C2, x)
+        ct_cube = (ct_inner * const(_GELU_C1, x)) * (const(3.0, x) * x2)
+        return (g * cdf + ct_inner) + ct_cube
+
+
+def _gelu(x):
+    """(gelu(x), the values its backward reads: x², tanh, the cdf)."""
+    x2 = x * x
+    inner = (x + (x2 * x) * const(_GELU_C1, x)) * const(_GELU_C2, x)
+    t = torch.tanh(inner)
+    cdf = (t + const(1.0, x)) * const(0.5, x)
+    return x * cdf, (x2, t, cdf)
+
+
 def gelu(x):
-    """``jax.nn.gelu``'s default, the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+    return _GeluTanh.apply(x) if torch.is_grad_enabled() else _gelu(x)[0]
 
 
 def act_fn(name):
     return {
-        "silu": F.silu,
+        "silu": silu,
         "gelu": gelu,
         "gelu_tanh": gelu,
         "relu": F.relu,
@@ -135,9 +253,10 @@ def attention_scores_ctx(q, k, v, mask, softcap=None):
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
 
 
-def _uses_flash_kernel(q, q_offset, kv_len, softcap):
+def _uses_flash_kernel(q, k, v, q_offset, kv_len, softcap):
     return (q.device.type == "cuda" and q.shape[1] > 1 and q_offset == 0
-            and kv_len is None and softcap is None)
+            and kv_len is None and softcap is None
+            and k.shape[-1] == v.shape[-1])
 
 
 def plain_vjp(fn, inputs, out_grads, needs_grad):
@@ -190,7 +309,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     last ``window`` positions.  ``score_shard`` is accepted and ignored
     (there is no mesh).  See the module docstring for the kernel route."""
     del score_shard
-    if _uses_flash_kernel(q, q_offset, kv_len, softcap):
+    if _uses_flash_kernel(q, k, v, q_offset, kv_len, softcap):
         return _FlashAttention.apply(q, k, v, causal, window, q_chunk)
     return _attention_plain(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, kv_len=kv_len,

@@ -29,9 +29,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
-
 PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 
 
@@ -89,8 +86,8 @@ class LM:
         self.cfg = cfg
         self.device = (torch.device("meta") if str(device) == "meta"
                        else resolve_device(device))
-        self.pdtype = _DTYPES[cfg.param_dtype]
-        self.adtype = _DTYPES[cfg.dtype]
+        self.pdtype = L.DTYPES[cfg.param_dtype]
+        self.adtype = L.DTYPES[cfg.dtype]
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator | None = None) -> dict:
@@ -130,7 +127,7 @@ class LM:
                 for bi, bname in enumerate(pattern):
                     x, _ = BLOCKS[bname][2](rp[f"b{bi}"], x, cfg, mode=mode,
                                             cache=None, pos=pos)
-                return x
+                return x.to(self.adtype)
             if mode == "train" and torch.is_grad_enabled():
                 repeat = _remat(repeat, cfg.remat)
             for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
@@ -150,6 +147,7 @@ class LM:
                     x, c_new = BLOCKS[bname][2](bp, x, cfg, mode=mode,
                                                 cache=bc, pos=pos)
                     _copy_into(bc, c_new)
+                x = x.to(self.adtype)
         return x
 
     # ----------------------------------------------------------------- embed

@@ -1,16 +1,36 @@
-"""Chunk-codec layer of the wire stack: the raw f32 scheme.
+"""Chunk-codec layer of the wire stack.
 
 Every byte that moves between server and client travels as fixed-size chunks
-of the flat ``(P,)`` ``ParamPacker`` vector, encoded by one of the codecs
-registered here.  This port carries the ``f32`` codec (raw f32 chunks,
-4 B/elem, bit-exact passthrough) — the uplink of the default configuration.
-The spec grammar knows the JAX package's other schemes (``bf16``, ``topk``,
-``int8``) and refuses them with ``NotImplementedError`` until they are
-ported.
+of the flat ``(P,)`` ``ParamPacker`` vector, encoded by exactly one of the
+codecs registered here (the JAX package's ``runtime/codecs.py``, scheme for
+scheme and byte for byte):
+
+  f32   -- raw f32 chunks (4 B/elem).  Bit-exact passthrough; the
+           no-compression baseline.
+  bf16  -- bf16 chunks (2 B/elem), rounded to nearest even.
+  topk  -- per-chunk top-k sparsification (idx i32 + val f32 = 8 B per kept
+           elem) of a *delta*; lossy, so carriers run error feedback.
+  int8  -- per-chunk symmetric int8 quantisation of a delta (1 B/elem +
+           4 B scale); lossy, EF-carried.
+
+Delta-coded schemes (``delta_coded=True``) encode a difference against a
+base both ends share (the dispatch-version global on the uplink), and their
+encode error is what the per-client error-feedback residuals
+(:class:`FlatErrorFeedback`) accumulate: :func:`encode_error` is the
+per-payload EF hook.
+
+Numerics held to the reference's: bf16 and int8 round half to even
+(``torch.round`` as ``jnp.round``); int8 clips to +-127 and scales by
+max|x| / 127 with a 1e-12 floor (as XLA computes it, times 1/127); top-k keeps indices in descending |x|,
+ties to the lower index first (``jax.lax.top_k`` on XLA), so a payload is
+the same bytes in both packages; a top-k decode scatters into zeros.
 
 Every chunk carries ``CHUNK_HEADER_BYTES`` of framing (seq, offset, length,
 scheme tag) counted into its wire size, so the simulator's bandwidth model
 charges real bytes, not idealised payload bytes.
+
+Spec strings (:func:`parse_spec`): ``None`` | ``'none'`` | ``'f32'`` |
+``'bf16'`` | ``'topk[:<ratio>]'`` | ``'int8'``.
 """
 from __future__ import annotations
 
@@ -22,7 +42,6 @@ import torch
 __all__ = [
     "CHUNK_HEADER_BYTES",
     "DEFAULT_CHUNK_ELEMS",
-    "SCHEMES",
     "Chunk",
     "ChunkCodec",
     "CODECS",
@@ -33,6 +52,9 @@ __all__ = [
     "decode_chunk",
     "decode_concat",
     "encode_flat",
+    "encode_flat_batch",
+    "encode_error",
+    "FlatErrorFeedback",
 ]
 
 # seq:u32 | start:u64 | length:u32  — fixed framing per chunk
@@ -40,8 +62,10 @@ CHUNK_HEADER_BYTES = 16
 
 DEFAULT_CHUNK_ELEMS = 1 << 16
 
-#: every scheme the spec grammar accepts (the JAX package's set)
-SCHEMES = ("bf16", "f32", "int8", "topk")
+# full chunks encoded together by encode_flat: bounds the batch encode's
+# transients (a top-k sort holds 12 B an element) to ~200 MB at 64 Ki
+# elements a chunk
+_ROWS_PER_BATCH = 256
 
 
 @dataclass
@@ -55,8 +79,41 @@ class Chunk:
     nbytes: int                  # wire size incl. CHUNK_HEADER_BYTES
 
 
+# --------------------------------------------------------------- kernels
+# Each takes a (B, n) stack of windows and encodes every row alone, so a row
+# of a batch is bit-identical to that window encoded by itself.
+
+def _enc_topk_rows(x: torch.Tensor, k: int) -> dict:
+    xf = x.to(torch.float32)
+    # a stable descending sort keeps equal |x| in index order: the lower
+    # index first, as jax.lax.top_k
+    order = torch.sort(xf.abs(), dim=1, descending=True, stable=True)[1]
+    idx = order[:, :k]
+    return {"idx": idx.to(torch.int32), "val": torch.gather(xf, 1, idx)}
+
+
+# XLA folds the reference's ``/ 127.0`` into a product with the f32
+# reciprocal, which differs from the division in the last ulp
+INV_127 = 1.0 / 127.0
+
+
+def _enc_int8_rows(x: torch.Tensor) -> dict:
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=1), min=1e-12) * INV_127
+    q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127)
+    return {"q": q.to(torch.int8), "scale": scale}
+
+
+# --------------------------------------------------------------- registry
+
 class ChunkCodec:
-    """One wire scheme: encode/decode of a flat f32 window + its byte law."""
+    """One wire scheme: encode/decode of a flat f32 window + its byte law.
+
+    ``delta_coded`` marks lossy difference codecs: they need a shared base
+    on both ends and an error-feedback carrier for their encode error.
+    Stateless — per-payload parameters (the top-k ratio) ride on the
+    :class:`WireFormat`.
+    """
 
     name: str = ""
     delta_coded: bool = False
@@ -66,11 +123,23 @@ class ChunkCodec:
         raise NotImplementedError
 
     def encode(self, x: torch.Tensor, fmt: "WireFormat") -> Any:
-        raise NotImplementedError
+        """Encode one (n,) window: row 0 of :meth:`encode_batch`."""
+        return self.split_batch(self.encode_batch(x[None], fmt), 0)
 
     def decode(self, payload: Any, length: int,
                fmt: "WireFormat") -> torch.Tensor:
         raise NotImplementedError
+
+    def encode_batch(self, x: torch.Tensor, fmt: "WireFormat") -> Any:
+        """Encode a (B, n) stack of windows in one pass; row ``i`` of the
+        result (via :meth:`split_batch`) is bit-identical to ``encode(x[i],
+        fmt)``."""
+        raise NotImplementedError
+
+    def split_batch(self, payload: Any, i: int) -> Any:
+        """Row ``i`` of an :meth:`encode_batch` result, in the layout
+        :meth:`decode` expects for a single chunk."""
+        return payload[i]
 
 
 class _F32Codec(ChunkCodec):
@@ -85,9 +154,73 @@ class _F32Codec(ChunkCodec):
     def decode(self, payload, length, fmt):
         return payload
 
+    def encode_batch(self, x, fmt):
+        return x                                  # rows pass through
 
-CODECS: dict[str, ChunkCodec] = {"f32": _F32Codec()}
 
+class _Bf16Codec(ChunkCodec):
+    name = "bf16"
+
+    def body_bytes(self, n, fmt):
+        return 2 * n
+
+    def encode(self, x, fmt):
+        return x.to(torch.bfloat16)
+
+    def decode(self, payload, length, fmt):
+        return payload.to(torch.float32)
+
+    def encode_batch(self, x, fmt):
+        return x.to(torch.bfloat16)               # elementwise: rank-free
+
+
+class _TopkCodec(ChunkCodec):
+    name = "topk"
+    delta_coded = True
+
+    def kept(self, n: int, fmt: "WireFormat") -> int:
+        """Coefficients kept per n-element chunk (≥1: a chunk is never
+        empty on the wire)."""
+        return max(1, int(n * fmt.topk_ratio))
+
+    def body_bytes(self, n, fmt):
+        return 8 * self.kept(n, fmt)
+
+    def decode(self, payload, length, fmt):
+        out = torch.zeros((length,), dtype=torch.float32,
+                          device=payload["val"].device)
+        return out.index_put_((payload["idx"].long(),), payload["val"])
+
+    def encode_batch(self, x, fmt):
+        return _enc_topk_rows(x, self.kept(int(x.shape[1]), fmt))
+
+    def split_batch(self, payload, i):
+        return {"idx": payload["idx"][i], "val": payload["val"][i]}
+
+
+class _Int8Codec(ChunkCodec):
+    name = "int8"
+    delta_coded = True
+
+    def body_bytes(self, n, fmt):
+        return n + 4
+
+    def decode(self, payload, length, fmt):
+        return payload["q"].to(torch.float32) * payload["scale"]
+
+    def encode_batch(self, x, fmt):
+        return _enc_int8_rows(x)
+
+    def split_batch(self, payload, i):
+        return {"q": payload["q"][i], "scale": payload["scale"][i]}
+
+
+CODECS: dict[str, ChunkCodec] = {
+    c.name: c for c in (_F32Codec(), _Bf16Codec(), _TopkCodec(), _Int8Codec())
+}
+
+
+# ------------------------------------------------------------ wire format
 
 @dataclass(frozen=True)
 class WireFormat:
@@ -101,8 +234,7 @@ class WireFormat:
         try:
             return CODECS[self.scheme]
         except KeyError:
-            raise NotImplementedError(
-                f"wire scheme {self.scheme!r} is not ported yet") from None
+            raise ValueError(f"unknown wire scheme {self.scheme!r}") from None
 
     @property
     def delta_coded(self) -> bool:
@@ -113,14 +245,23 @@ class WireFormat:
         """Wire bytes for one n-element chunk (header included)."""
         return self.codec.body_bytes(n, self) + CHUNK_HEADER_BYTES
 
+    def _windows(self, p: int):
+        """Element counts of the chunks of a (p,)-element payload."""
+        full, tail = divmod(p, self.chunk_elems)
+        return [(self.chunk_elems, full)] + ([(tail, 1)] if tail else [])
+
     def payload_bytes(self, p: int) -> int:
         """Total wire bytes for a (p,)-element payload under this format."""
-        total, off = 0, 0
-        while off < p:
-            n = min(self.chunk_elems, p - off)
-            total += self.chunk_wire_bytes(n)
-            off += n
-        return total
+        return sum(count * self.chunk_wire_bytes(n)
+                   for n, count in self._windows(p) if count)
+
+    def kept_coeffs(self, p: int) -> Optional[int]:
+        """Top-k coefficients a (p,)-element payload keeps (None for dense
+        schemes) — the byte-budget resync policy's unit of account."""
+        if self.scheme != "topk":
+            return None
+        return sum(count * self.codec.kept(n, self)
+                   for n, count in self._windows(p) if count)
 
 
 def parse_spec(spec: Optional[str]) -> tuple[str, Optional[float]]:
@@ -135,10 +276,11 @@ def parse_spec(spec: Optional[str]) -> tuple[str, Optional[float]]:
         raise ValueError(f"wire scheme spec must be a string or None, "
                          f"got {type(spec).__name__}")
     scheme, _, arg = spec.partition(":")
-    if scheme not in SCHEMES:
+    if scheme not in CODECS:
         raise ValueError(
             f"unknown wire scheme spec {spec!r} (expected None, 'none', "
-            f"{', '.join(repr(s) for s in SCHEMES)}, or 'topk:<ratio>')")
+            f"{', '.join(repr(s) for s in sorted(CODECS))}, "
+            f"or 'topk:<ratio>')")
     if scheme != "topk":
         if arg:
             raise ValueError(f"wire scheme {scheme!r} takes no argument, "
@@ -158,12 +300,8 @@ def parse_spec(spec: Optional[str]) -> tuple[str, Optional[float]]:
 
 def make_wire_format(spec: Optional[str],
                      chunk_elems: int = DEFAULT_CHUNK_ELEMS) -> WireFormat:
-    """spec grammar: see :func:`parse_spec`.  Raises NotImplementedError
-    for a valid scheme this port does not carry yet."""
+    """spec grammar: see :func:`parse_spec`."""
     scheme, ratio = parse_spec(spec)
-    if scheme not in CODECS:
-        raise NotImplementedError(
-            f"wire scheme {scheme!r} is not ported yet (only 'f32')")
     if ratio is None:
         return WireFormat(scheme, chunk_elems)
     return WireFormat(scheme, chunk_elems, topk_ratio=ratio)
@@ -193,17 +331,89 @@ def decode_concat(chunks: list[Chunk], fmt: WireFormat) -> torch.Tensor:
     return torch.cat(vals) if len(vals) > 1 else vals[0]
 
 
+def _empty_sentinel(device) -> Chunk:
+    """The one chunk of a zero-parameter model."""
+    return Chunk(0, 0, 0, torch.zeros((0,), dtype=torch.float32,
+                                      device=device), CHUNK_HEADER_BYTES)
+
+
 def encode_flat(vec: torch.Tensor, fmt: WireFormat) -> list[Chunk]:
     """Split a flat (P,) vector into encoded wire chunks (f32 chunks are
-    views of ``vec``, which the caller must not modify afterwards)."""
-    p = int(vec.shape[0])
-    chunks, off, seq = [], 0, 0
+    views of ``vec``, which the caller must not modify afterwards).
+
+    The full chunks are encoded a batch of rows at a time
+    (``codec.encode_batch`` over a (rows, chunk_elems) view), the tail alone;
+    each chunk is bit-identical to :func:`encode_chunk` of its window."""
+    p, ce = int(vec.shape[0]), fmt.chunk_elems
+    if p == 0:
+        return [_empty_sentinel(vec.device)]
+    codec = fmt.codec
+    full = p // ce
+    rows = vec[:full * ce].reshape(full, ce)
+    chunks, nbytes = [], fmt.chunk_wire_bytes(ce)
+    for r0 in range(0, full, _ROWS_PER_BATCH):
+        r1 = min(r0 + _ROWS_PER_BATCH, full)
+        payload = codec.encode_batch(rows[r0:r1], fmt)
+        chunks += [Chunk(seq=r, start=r * ce, length=ce,
+                         payload=codec.split_batch(payload, r - r0),
+                         nbytes=nbytes) for r in range(r0, r1)]
+    if full * ce < p:
+        chunks.append(encode_chunk(vec[full * ce:], full, full * ce, fmt))
+    return chunks
+
+
+def encode_flat_batch(vecs, fmt: WireFormat) -> list[list[Chunk]]:
+    """Encode a stack of same-length flat vectors in one pass per chunk
+    window.  ``vecs`` is a (B, P) tensor or a list of B (P,) tensors.
+    Returns one chunk list per row, each bit-identical to
+    ``encode_flat(vecs[i], fmt)``."""
+    arr = vecs if isinstance(vecs, torch.Tensor) and vecs.ndim == 2 \
+        else torch.stack(list(vecs))
+    b, p = int(arr.shape[0]), int(arr.shape[1])
+    if p == 0:
+        return [[_empty_sentinel(arr.device)] for _ in range(b)]
+    codec = fmt.codec
+    out: list[list[Chunk]] = [[] for _ in range(b)]
+    off, seq = 0, 0
     while off < p:
         n = min(fmt.chunk_elems, p - off)
-        chunks.append(encode_chunk(vec[off:off + n], seq, off, fmt))
+        payload = codec.encode_batch(arr[:, off:off + n], fmt)
+        nbytes = fmt.chunk_wire_bytes(n)
+        for i in range(b):
+            out[i].append(Chunk(seq=seq, start=off, length=n,
+                                payload=codec.split_batch(payload, i),
+                                nbytes=nbytes))
         off += n
         seq += 1
-    if not chunks:             # zero-parameter model: one empty sentinel
-        chunks.append(Chunk(0, 0, 0, torch.zeros((0,), dtype=torch.float32),
-                            CHUNK_HEADER_BYTES))
-    return chunks
+    return out
+
+
+def encode_error(vec: torch.Tensor, chunks: list[Chunk],
+                 fmt: WireFormat) -> Optional[torch.Tensor]:
+    """What the encoded wire failed to deliver: ``vec - decode(chunks)``.
+    The per-payload error-feedback hook; None for an empty vector
+    (zero-parameter model)."""
+    if not int(vec.shape[0]):
+        return None
+    return vec - decode_concat(chunks, fmt)
+
+
+class FlatErrorFeedback:
+    """Per-client error feedback on the flat (P,) delta.
+
+    The residual the lossy wire dropped last round is added to this round's
+    delta before encoding, preserving convergence of compressed uploads:
+    one (P,) tensor.
+    """
+
+    def __init__(self, residual: Optional[torch.Tensor] = None):
+        self.residual = residual
+
+    def carry_in(self, delta: torch.Tensor) -> torch.Tensor:
+        if self.residual is None:
+            return delta
+        return delta + self.residual
+
+    def carry_out(self, sent: torch.Tensor, decoded: torch.Tensor) -> None:
+        """sent = delta + old residual; decoded = what the wire delivered."""
+        self.residual = sent - decoded

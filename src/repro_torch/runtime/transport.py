@@ -8,9 +8,13 @@ sessions route their chunk writes through a shared :class:`IngestBatcher`
 (one indexed write per flush instead of one write per chunk); committed
 slots are bit-identical to the eager path.
 
-Chunk encode/decode lives in :mod:`repro_torch.runtime.codecs` (raw f32 in
-this port).  This module keeps what is uplink-shaped: the payload object,
-the client-side encoder, and the server-side streaming ingest.
+Chunk encode/decode lives in :mod:`repro_torch.runtime.codecs`.  Scheme
+summary (``WireFormat.scheme``): ``f32`` (bit-exact raw), ``bf16``
+(half-size raw), ``topk``/``int8`` (lossy *deltas* against the dispatch
+base, carried with flat error feedback).  Delta-coded schemes need the base
+on both ends; raw schemes are base-free.  This module keeps what is
+uplink-shaped: the payload object, the client-side encoder with its EF
+fold, and the server-side streaming ingest.
 """
 from __future__ import annotations
 
@@ -21,11 +25,13 @@ from typing import Optional
 import torch
 
 from repro_torch.runtime.codecs import (
-    Chunk, WireFormat, decode_chunk, decode_concat, encode_flat,
+    Chunk, FlatErrorFeedback, WireFormat, decode_chunk, decode_concat,
+    encode_flat,
 )
 from repro_torch.runtime.telemetry import Telemetry, of as _tel_of
 
 __all__ = [
+    "FlatErrorFeedback",
     "UploadPayload",
     "encode_update",
     "IngestBatcher",
@@ -48,14 +54,28 @@ class UploadPayload:
 
 
 def encode_update(cid: int, version: int, n_epochs: int,
-                  flat_params: torch.Tensor,
-                  fmt: WireFormat) -> UploadPayload:
-    """Client-side encoder: flat params -> wire payload (raw schemes ship
-    the params themselves)."""
+                  flat_params: torch.Tensor, fmt: WireFormat,
+                  base_flat: Optional[torch.Tensor] = None,
+                  ef: Optional[FlatErrorFeedback] = None) -> UploadPayload:
+    """Client-side encoder: flat params -> wire payload.
+
+    Raw schemes (f32/bf16) ship the params themselves.  Delta-coded schemes
+    (topk/int8) ship delta = params - base (+ EF residual); ``base_flat`` is
+    required (the flat model the client holds from its dispatch), and
+    ``ef`` (if given) is updated in place with the new residual.
+    """
     if fmt.delta_coded:
-        raise NotImplementedError(
-            f"delta-coded wire scheme {fmt.scheme!r} is not ported yet")
-    chunks = encode_flat(flat_params, fmt)
+        if base_flat is None:
+            raise ValueError(f"wire scheme {fmt.scheme} is delta-coded and "
+                             "needs the dispatch-version base")
+        vec = flat_params - base_flat
+        if ef is not None:
+            vec = ef.carry_in(vec)
+    else:
+        vec = flat_params
+    chunks = encode_flat(vec, fmt)
+    if fmt.delta_coded and ef is not None:
+        ef.carry_out(vec, decode_concat(chunks, fmt))
     return UploadPayload(
         cid=cid, version=version, n_epochs=n_epochs, scheme=fmt.scheme,
         param_size=int(flat_params.shape[0]), chunks=chunks,
@@ -203,22 +223,25 @@ class IngestBatcher:
 class IngestSession:
     """Server-side decoder for one in-flight upload.
 
-    Each wire chunk is decoded and written straight into the reserved
-    ``(K, P)`` buffer slot — in place in eager mode, or enqueued on the
-    shared :class:`IngestBatcher` in batched mode.  Chunks must arrive in
-    order (start == elements ingested so far), which the sequential wire
-    framing guarantees.
+    Each wire chunk is decoded (plus its window of the base, for a
+    delta-coded scheme) and written straight into the reserved ``(K, P)``
+    buffer slot — in place in eager mode, or enqueued on the shared
+    :class:`IngestBatcher` in batched mode.  Chunks must arrive in order
+    (start == elements ingested so far), which the sequential wire framing
+    guarantees.
     """
 
     def __init__(self, buffer, slot: int, fmt: WireFormat,
+                 base_flat: Optional[torch.Tensor] = None,
                  param_size: Optional[int] = None,
                  batcher: Optional[IngestBatcher] = None):
-        if fmt.delta_coded:
-            raise NotImplementedError(
-                f"delta-coded wire scheme {fmt.scheme!r} is not ported yet")
+        if fmt.delta_coded and base_flat is None:
+            raise ValueError(f"wire scheme {fmt.scheme} is delta-coded and "
+                             "needs the dispatch-version base to decode")
         self.buffer = buffer
         self.slot = int(slot)
         self.fmt = fmt
+        self.base = base_flat
         self.param_size = int(param_size if param_size is not None
                               else buffer.param_size)
         self.batcher = batcher
@@ -236,6 +259,8 @@ class IngestSession:
     def write(self, chunk: Chunk) -> None:
         self._check(chunk, self.covered)
         vals = decode_chunk(chunk, self.fmt)
+        if self.fmt.delta_coded:
+            vals = vals + self.base[chunk.start:chunk.start + chunk.length]
         if chunk.length:
             if self.batcher is not None:
                 self.batcher.enqueue(self.slot, chunk.start, vals)
@@ -246,11 +271,11 @@ class IngestSession:
 
     def write_all(self, chunks: list[Chunk]) -> None:
         """Coalesced write of one drained batch of in-order chunks: the
-        sequential framing makes them one contiguous window, decoded once
-        and written with a single in-place write.  Values are bit-identical
-        to chunk-by-chunk ``write``.  The whole batch is validated before
-        any state changes, so a bad batch raises with the session
-        untouched."""
+        sequential framing makes them one contiguous window, decoded (and
+        the delta base added) once and written with a single in-place
+        write.  Values are bit-identical to chunk-by-chunk ``write``.  The
+        whole batch is validated before any state changes, so a bad batch
+        raises with the session untouched."""
         start = end = self.covered
         nbytes = 0
         for chunk in chunks:
@@ -258,8 +283,10 @@ class IngestSession:
             end += chunk.length
             nbytes += chunk.nbytes
         if end > start:
-            self.buffer.write_range(self.slot, start,
-                                    decode_concat(chunks, self.fmt))
+            vals = decode_concat(chunks, self.fmt)
+            if self.fmt.delta_coded:
+                vals = vals + self.base[start:end]
+            self.buffer.write_range(self.slot, start, vals)
         self.covered = end
         self.nbytes += nbytes
 

@@ -1,0 +1,336 @@
+"""The port's checkpointer and server state against the JAX package's.
+
+* The reference's eight ``tests/test_checkpoint.py`` tests, run against
+  ``repro_torch.checkpoint``.
+* The on-disk format is shared: a tree saved by either package loads in the
+  other, bf16 leaves included.
+* The reference's server-state cases (``tests/test_transport.py``): the
+  buffer kept under sync-wait, a mid-stream upload dropped while committed
+  slots are kept, stale EF residuals guarded, legacy tree residuals packed.
+* A JAX server checkpointed mid-round under the top-k uplink restores into
+  both packages' servers, and both replay the same 3 aggregations: event
+  times, contributors and staleness identical, weights and globals within
+  1e-5 (the slice's gates, PERF.md section 2).  Saved again by the port,
+  its manifest and extra state equal the JAX package's.
+"""
+import os
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_integration_fl import exp_cfg  # noqa: E402
+from test_torch_slice import _port_cfg, _record_events  # noqa: E402
+
+from repro import checkpoint as J  # noqa: E402
+from repro.experiment import build_experiment as jax_build  # noqa: E402
+from repro_torch.checkpoint import Checkpointer, load_tree, save_tree  # noqa: E402
+from repro_torch.core.server import FLConfig, SeaflServer  # noqa: E402
+from repro_torch.experiment import build_experiment  # noqa: E402
+
+
+# ----------------------------------------- the reference's eight, on the port
+
+@pytest.fixture
+def tree():
+    return {"a": torch.ones((3, 4), dtype=torch.bfloat16),
+            "b": {"c": torch.arange(5), "d": torch.linspace(0, 1, 7)}}
+
+
+def test_roundtrip_with_structure(tmp_path, tree):
+    p = str(tmp_path / "ck")
+    save_tree(p, tree, {"round": 7})
+    out, extra = load_tree(p, like=tree)
+    assert extra["round"] == 7
+    assert out["a"].dtype == torch.bfloat16
+    np.testing.assert_allclose(out["b"]["d"].numpy(), tree["b"]["d"].numpy())
+
+
+def test_roundtrip_without_like(tmp_path, tree):
+    p = str(tmp_path / "ck")
+    save_tree(p, tree)
+    out, _ = load_tree(p)
+    np.testing.assert_array_equal(out["b"]["c"].numpy(), np.arange(5))
+
+
+def test_crc_detects_corruption(tmp_path, tree):
+    p = str(tmp_path / "ck")
+    save_tree(p, tree)
+    # corrupt the arrays file
+    f = os.path.join(p, "arrays.npz")
+    data = bytearray(open(f, "rb").read())
+    data[len(data) // 2] ^= 0xFF
+    open(f, "wb").write(bytes(data))
+    with pytest.raises(Exception):
+        load_tree(p, like=tree)
+
+
+def test_atomic_commit_never_corrupts_latest(tmp_path, tree):
+    """A stale .tmp dir from a crashed save must not break a later save."""
+    p = str(tmp_path / "ck")
+    os.makedirs(p + ".tmp")
+    open(os.path.join(p + ".tmp", "junk"), "w").write("crash residue")
+    save_tree(p, tree)
+    out, _ = load_tree(p, like=tree)
+    assert out["a"].shape == (3, 4)
+
+
+def test_keep_last_k_gc(tmp_path, tree):
+    ck = Checkpointer(str(tmp_path), keep=2, async_save=False)
+    for s in [1, 2, 3, 4]:
+        ck.save(s, tree, {"s": s})
+    assert ck.steps() == [3, 4]
+    step, out, extra = ck.restore(like=tree)
+    assert step == 4 and extra["s"] == 4
+
+
+def test_async_save_then_restore(tmp_path, tree):
+    ck = Checkpointer(str(tmp_path), keep=3, async_save=True)
+    ck.save(1, tree, {"s": 1})
+    ck.wait()
+    step, out, extra = ck.restore(like=tree)
+    assert step == 1
+    np.testing.assert_allclose(out["a"].float().numpy(), 1.0)
+
+
+def test_restore_specific_step(tmp_path, tree):
+    ck = Checkpointer(str(tmp_path), keep=5, async_save=False)
+    for s in [1, 2, 3]:
+        t = {"a": tree["a"] * s, "b": {k: v * s for k, v in tree["b"].items()}}
+        ck.save(s, t, {"s": s})
+    step, out, extra = ck.restore(step=2, like=tree)
+    assert step == 2
+    np.testing.assert_allclose(out["a"].float().numpy(), 2.0)
+
+
+def test_empty_restore(tmp_path, tree):
+    ck = Checkpointer(str(tmp_path))
+    step, out, extra = ck.restore(like=tree)
+    assert step is None and out is None
+
+
+def test_async_save_copies_before_it_returns(tmp_path):
+    """The server overwrites its tensors in place while the thread writes:
+    the checkpoint holds the values at save()."""
+    x = torch.arange(1000, dtype=torch.float32)
+    ck = Checkpointer(str(tmp_path), keep=1)
+    ck.save(1, {"x": x})
+    x.fill_(-1.0)
+    ck.wait()
+    _, out, _ = ck.restore()
+    np.testing.assert_array_equal(out["x"].numpy(), np.arange(1000))
+
+
+def test_shardings_are_refused(tmp_path, tree):
+    save_tree(str(tmp_path / "ck"), tree)
+    with pytest.raises(NotImplementedError):
+        load_tree(str(tmp_path / "ck"), like=tree, shardings={})
+
+
+# ------------------------------------------------------ one format, both ways
+
+def _jax_tree():
+    return {"a": jnp.asarray(np.linspace(-2, 2, 12).reshape(3, 4),
+                             jnp.bfloat16),
+            "b": {"c": jnp.arange(5, dtype=jnp.int32),
+                  "d": jnp.linspace(0, 1, 7)}}
+
+
+def _as_np(x):
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(jnp.bfloat16)
+        return x.numpy()
+    return np.asarray(x)
+
+
+def test_a_jax_checkpoint_loads_in_the_port_and_back(tmp_path):
+    jt = _jax_tree()
+    J.save_tree(str(tmp_path / "j"), jt, {"round": 3})
+    got, extra = load_tree(str(tmp_path / "j"))
+    assert extra == {"round": 3} and got["a"].dtype == torch.bfloat16
+    for k, want in (("a", jt["a"]), ("c", jt["b"]["c"]), ("d", jt["b"]["d"])):
+        g = got["a"] if k == "a" else got["b"][k]
+        np.testing.assert_array_equal(_as_np(g), np.asarray(want))
+    save_tree(str(tmp_path / "t"), got, extra)
+    back, extra2 = J.load_tree(str(tmp_path / "t"), like=jt)
+    assert extra2 == extra
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jt)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert _manifest(tmp_path / "t") == _manifest(tmp_path / "j")
+
+
+def _manifest(path):
+    import json
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)
+
+
+# ------------------------------------------------------------ server state
+
+def make_server(algorithm="seafl", n=12, M=6, K=3, beta=4.0, **kw):
+    params = {"w": torch.zeros((11, 7)), "b": {"c": torch.zeros((13,))}}
+    cfg = FLConfig(algorithm=algorithm, n_clients=n, concurrency=M,
+                   buffer_size=K, staleness_limit=beta, seed=0, **kw)
+    return SeaflServer(cfg, params, {i: 10 * (i + 1) for i in range(n)},
+                       device="cpu")
+
+
+def perturbed(base, rng, scale=0.1):
+    return {k: v + scale * torch.from_numpy(
+        rng.normal(size=tuple(v.shape)).astype(np.float32))
+        for k, v in base.items()}
+
+
+def drive_to_nonempty_blocked_buffer(s, rng):
+    """Freeze one client so sync-wait engages with a non-empty buffer."""
+    frozen = sorted(s.active)[0]
+    for _ in range(60):
+        if len(s.buffer) >= s.buffer.capacity and s._blocked_by_stale():
+            return frozen
+        live = [c for c in sorted(s.active) if c != frozen]
+        cid = min(live, key=lambda c: (s.active[c], c))
+        s.on_update(cid, perturbed(s.params_at(s.active[cid]), rng), 5)
+    raise AssertionError("never reached blocked+non-empty state")
+
+
+def test_checkpoint_preserves_buffer_under_sync_wait():
+    s = make_server(beta=2.0, K=3)
+    s.start()
+    rng = np.random.default_rng(6)
+    frozen = drive_to_nonempty_blocked_buffer(s, rng)
+    assert len(s.buffer) > 0
+    state, trees = s.state_dict(), s.checkpoint_trees()
+    assert any(k.startswith("slot") for k in trees)
+    s2 = make_server(beta=2.0, K=3)
+    s2.load_state(state, trees)
+    assert len(s2.buffer) == len(s.buffer)
+    assert torch.equal(s2.buffer.stacked_flat(), s.buffer.stacked_flat())
+    assert [u.client_id for u in s2.buffer.updates()] == \
+        [u.client_id for u in s.buffer.updates()]
+    rng_a, rng_b = np.random.default_rng(7), np.random.default_rng(7)
+    for srv, rng_x in ((s, rng_a), (s2, rng_b)):
+        w = perturbed(srv.params_at(srv.active[frozen]), rng_x)
+        assert srv.on_update(frozen, w, n_epochs=5) is not None
+    np.testing.assert_allclose(s2.global_flat.numpy(), s.global_flat.numpy(),
+                               atol=1e-6)
+
+
+def test_checkpoint_mid_stream_drops_pending_keeps_committed():
+    s = make_server(chunk_elems=13)
+    s.start()
+    rng = np.random.default_rng(8)
+    cid0 = sorted(s.active)[0]
+    s.on_update(cid0, perturbed(s.params_at(s.active[cid0]), rng), 5)
+    cid1 = sorted(s.active)[0]
+    payload = s.encode_update(
+        cid1, perturbed(s.params_at(s.active[cid1]), rng), 5)
+    s.begin_ingest(payload.cid, payload.version, payload.n_epochs)
+    for c in payload.chunks[: len(payload.chunks) // 2]:
+        s.ingest_chunk(payload.cid, c)
+    assert s.buffer.streaming
+    state, trees = s.state_dict(), s.checkpoint_trees()
+    assert len(state["buffer"]) == 1          # committed only
+    s2 = make_server(chunk_elems=13)
+    s2.load_state(state, trees)
+    assert len(s2.buffer) == 1 and not s2.buffer.streaming
+    assert cid1 in s2.active                  # will be re-dispatched/re-sent
+    s2.ingest_payload(s2.encode_update(
+        cid1, perturbed(s2.params_at(s2.active[cid1]), rng), 5))
+    assert len(s2.buffer) == 2
+
+
+def test_load_state_guards_stale_ef_residuals():
+    s = make_server(compression="topk:0.25")
+    s.start()
+    rng = np.random.default_rng(9)
+    for _ in range(3):
+        cid = sorted(s.active)[0]
+        s.on_update(cid, perturbed(s.params_at(s.active[cid]), rng), 5)
+    state, trees = s.state_dict(), s.checkpoint_trees()
+    assert any(k.startswith("ef") for k in trees)
+    s2 = make_server()                        # compression=None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        s2.load_state(state, trees)
+    assert any("residual" in str(w.message) for w in caught)
+    assert not s2._ef
+    cid = sorted(s2.active)[0]
+    s2.on_update(cid, perturbed(s2.params_at(s2.active[cid]), rng), 5)
+
+
+def test_load_state_restores_legacy_pytree_residuals():
+    s = make_server(compression="topk:0.25")
+    s.start()
+    rng = np.random.default_rng(10)
+    for _ in range(2):
+        cid = sorted(s.active)[0]
+        s.on_update(cid, perturbed(s.params_at(s.active[cid]), rng), 5)
+    state, trees = s.state_dict(), s.checkpoint_trees()
+    legacy = {k: (s.packer.unpack(v) if k.startswith("ef") else v)
+              for k, v in trees.items()}
+    s2 = make_server(compression="topk:0.25")
+    s2.load_state(state, legacy)
+    for cid in s._ef:
+        np.testing.assert_allclose(s2._ef[cid].residual.numpy(),
+                                   s._ef[cid].residual.numpy(), atol=1e-7)
+
+
+# ------------------------------------------------ cross-package replay
+
+def test_jax_checkpoint_replays_in_both_packages(tmp_path):
+    """JAX's simulation under topk:0.25, stopped mid-round with committed
+    slots and EF residuals, checkpointed to disk; restored into a fresh
+    JAX server and a fresh port server, each run 3 more aggregations."""
+    jc = exp_cfg("seafl", compression="topk:0.25")
+    jsim, jmodel, _ = jax_build(jc)
+    params0 = jax.tree.map(np.asarray,
+                           jmodel.init(jax.random.PRNGKey(jc.seed)))
+    jsim.run(max_rounds=2)
+    js = jsim.server
+    while len(js.buffer) == 0:                 # on, event by event
+        jsim.run(max_time=jsim._heap[0].time)
+    assert js.round == 2 and js._ef
+    path = str(tmp_path / "jax")
+    J.save_tree(path, js.checkpoint_trees(), js.state_dict())
+
+    jsim2, _, _ = jax_build(jc)
+    jt, jextra = J.load_tree(path)
+    jsim2.server.load_state(jextra, jt)
+    tsim, _, _ = build_experiment(_port_cfg(jc), params=params0)
+    tt, textra = load_tree(path)
+    tsim.server.load_state(textra, tt)
+    assert tsim.server.state_dict() == jsim2.server.state_dict()
+
+    # saved again by the port: the same manifest and extra as JAX's
+    again = str(tmp_path / "port")
+    save_tree(again, tsim.server.checkpoint_trees(), tsim.server.state_dict())
+    assert _manifest(again) == _manifest(path)
+
+    j_events, t_events = _record_events(jsim2), _record_events(tsim)
+    j_hist = jsim2.run(max_rounds=js.round + 3)
+    t_hist = tsim.run(max_rounds=js.round + 3)
+    assert len(j_events) == len(t_events) == 3
+    assert [(h["time"], h["round"], h["bytes"]) for h in t_hist] == \
+        [(h["time"], h["round"], h["bytes"]) for h in j_hist]
+    for j, t in zip(j_events, t_events):
+        assert t.contributors == j.contributors and t.dispatch == j.dispatch
+        np.testing.assert_array_equal(t.staleness, j.staleness)
+        np.testing.assert_allclose(t.weights, j.weights, atol=1e-5)
+    np.testing.assert_allclose(tsim.server.global_flat.numpy(),
+                               np.asarray(jsim2.server.global_flat),
+                               atol=1e-5)
+    # and the port's checkpoint restores into a JAX server
+    js3 = jax_build(jc)[0].server
+    back, extra = J.load_tree(again)
+    js3.load_state(extra, back)
+    assert js3.state_dict() == js.state_dict()
+    want, got = js.checkpoint_trees(), js3.checkpoint_trees()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))

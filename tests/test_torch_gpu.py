@@ -402,3 +402,87 @@ def test_lm_cohort_round_card_matches_cpu(cuda):
         assert [h["time"] for h in hc] == [h["time"] for h in hh]
         assert abs(hc[0]["acc"] - hh[0]["acc"]) <= 1e-3
         torch.testing.assert_close(gc, gh, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_attention_with_another_value_head_dim_runs_plain(cuda, dt):
+    """MLA's shapes (query/key head dim 192, value head dim 128), causal:
+    the route sends them to the torch translation, which returns what
+    ``_attention_plain`` returns, and launches no flash kernel."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    from repro_torch.models.layers import _attention_plain, chunked_attention
+    dtype = DT[dt]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k = (torch.randn(2, 256, 4, 192, generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    v = torch.randn(2, 256, 4, 128, generator=gen, device=cuda).to(dtype)
+    before = flash_attention_call.launches
+    out = chunked_attention(q, k, v, causal=True)
+    assert flash_attention_call.launches == before
+    assert out.shape == (2, 256, 4, 128) and out.dtype == dtype
+    torch.testing.assert_close(out, _attention_plain(q, k, v, causal=True),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("spec", ["f32", "bf16", "topk:0.05", "int8"])
+def test_codecs_on_the_card_equal_the_cpu(cuda, spec):
+    """Each wire codec on a CUDA delta: every chunk's payload equals the CPU
+    encode's bit for bit (top-k: the same idx and val), and so do the
+    decodes."""
+    from repro_torch.runtime.codecs import (decode_concat, encode_flat,
+                                            make_wire_format)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(5 * 4096 + 1234, generator=gen, device=cuda) * 1e-2
+    x[:4096] = 0.0                     # a chunk of ties: lower index first
+    fmt = make_wire_format(spec, 4096)
+    card, cpu = encode_flat(x, fmt), encode_flat(x.cpu(), fmt)
+    for a, b in zip(card, cpu):
+        pa = a.payload if isinstance(a.payload, dict) else {"": a.payload}
+        pb = b.payload if isinstance(b.payload, dict) else {"": b.payload}
+        for key in pb:
+            assert torch.equal(pa[key].cpu().reshape(-1).view(torch.uint8),
+                               pb[key].reshape(-1).view(torch.uint8)), key
+    assert torch.equal(decode_concat(card, fmt).cpu(),
+                       decode_concat(cpu, fmt))
+
+
+@pytest.mark.parametrize("restore_on", ["cuda", "cpu"])
+def test_card_server_checkpoint_restores_bit_equal(cuda, tmp_path,
+                                                   restore_on):
+    """A CUDA server under a top-k uplink with bf16 buffer rows, saved
+    mid-round (a committed slot, EF residuals) through the Checkpointer,
+    restores onto the card and onto the CPU with bit-equal trees."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.server import FLConfig, SeaflServer
+    gen = torch.Generator(device=cuda).manual_seed(11)
+
+    def server(device):
+        params = {"w": torch.zeros(33, 70, device=device),
+                  "b": {"c": torch.zeros(129, device=device)}}
+        cfg = FLConfig(n_clients=8, concurrency=4, buffer_size=3,
+                       compression="topk:0.25", chunk_elems=512,
+                       buffer_dtype="bfloat16", seed=0)
+        return SeaflServer(cfg, params, {i: 10 + i for i in range(8)},
+                           device=device)
+
+    s = server("cuda")
+    s.start()
+    for _ in range(4):
+        cid = sorted(s.active)[0]
+        w = {k: v + 0.1 * torch.randn(v.shape, generator=gen, device=cuda)
+             for k, v in s.params_at(s.active[cid]).items()}
+        s.on_update(cid, w, n_epochs=5)
+    assert len(s.buffer) and s._ef
+    ck = Checkpointer(str(tmp_path), keep=1)
+    ck.save(s.round, s.checkpoint_trees(), extra=s.state_dict())
+    ck.wait()
+    r = server(restore_on)
+    _, trees, extra = ck.restore(device=restore_on)
+    r.load_state(extra, trees)
+    assert r.state_dict() == s.state_dict()
+    want, got = s.checkpoint_trees(), r.checkpoint_trees()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].device.type == restore_on and got[k].dtype == \
+            want[k].dtype, k
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k

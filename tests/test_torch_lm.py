@@ -4,11 +4,13 @@
 Tolerances:
   * f32 configs: prefill and decode logits within 1e-4 absolute, identical
     greedy tokens -- both compute in f32, in another summation order.
-  * the configs' own bf16: logits within 0.15 absolute (|logits| ~ 3-4, where
-    a bf16 step is 1/64), decode teacher-forced with the JAX tokens.  XLA
-    rounds every op of silu/gelu/sigmoid to bf16 and torch rounds each once,
-    so they differ by one bf16 step on about a third of the elements, and
-    those steps add up over the layers to ~0.12 (mamba2 smoke).
+  * the configs' own bf16: logits within 1/64 absolute, one bf16 step at
+    |logits| ~ 2-4, and identical greedy tokens; decode teacher-forced with
+    the JAX tokens.  The port computes what XLA's lowered bf16 ops compute
+    (tests/test_torch_bf16_trace.py): measured 0 on recurrentgemma-2b and
+    phi4-mini-3.8b, 4.77e-07 on mamba2-1.3b (one logit near 0, one step),
+    where XLA's own f32 exp/log1p differ from torch's.  The bound leaves
+    room for such a flip to reach a logit.
   * int8 KV cache at f32: 1e-3 (both quantise alike; the dequantised cache
     differs in the last bits of the scale).
 """
@@ -83,8 +85,10 @@ def test_f32_prefill_and_decode_match_jax(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_logits_match_jax(arch):
-    diffs, _ = _run_both(arch, teacher_forced=True)
-    assert max(diffs) <= 0.15, diffs
+    diffs, same = _run_both(arch, teacher_forced=True)
+    print(f"{arch} bf16: max |d logits| per step {diffs}")
+    assert max(diffs) <= 2.0 ** -6, diffs
+    assert all(same), same
 
 
 def test_int8_kv_cache_matches_jax():

@@ -196,3 +196,19 @@ def test_ops_refuse_other_devices():
         rglru_scan(a, a)
     with pytest.raises(ValueError):
         ssd_forward(q, q[..., 0], q[0, 0, :, 0], a, a)
+
+
+def test_flash_route_refuses_another_value_head_dim():
+    """The static route rule sends a CUDA call with Sq > 1 to the flash
+    kernel only when q, k and v share one head dim: MLA's Dqk 192 / Dv 128
+    goes to the torch translation (the rule reads shapes and the device
+    type only, so stand-ins with a CUDA device check it without a card)."""
+    from types import SimpleNamespace
+    from repro_torch.models.layers import _uses_flash_kernel
+
+    def t(*shape):
+        return SimpleNamespace(device=torch.device("cuda"), shape=shape)
+
+    q, k = t(2, 256, 4, 192), t(2, 256, 4, 192)
+    assert _uses_flash_kernel(q, k, t(2, 256, 4, 192), 0, None, None)
+    assert not _uses_flash_kernel(q, k, t(2, 256, 4, 128), 0, None, None)

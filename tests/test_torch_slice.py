@@ -135,8 +135,14 @@ def test_scheduler_draws_like_jax(policy):
 
 
 def test_unported_options_raise():
+    """The compressed uplink is ported (it constructs); the downlink
+    dispatch session, cohorts, the monitor, the autotuner and kernel timing
+    are not."""
     params = {"w": torch.zeros(4)}
-    for kw in ({"compression": "topk:0.1"}, {"compression": "bf16"},
+    for spec in ("topk:0.1", "bf16", "int8"):
+        SeaflServer(FLConfig(compression=spec), params, {0: 1}, device="cpu")
+    for kw in ({"dispatch_compression": "topk:0.1"},
+               {"dispatch_compression": "bf16"},
                {"dispatch_compression": "f32"}, {"cohorts": "on"},
                {"monitor": "on"}, {"autotune": "cache"},
                {"telemetry_kernels": True}):

@@ -391,12 +391,62 @@ def test_cli_keeps_every_jax_flag_and_adds_device(monkeypatch):
     assert t["smoke"].default is True
 
 
-def test_cli_refuses_ckpt_dir(monkeypatch, tmp_path):
-    monkeypatch.setattr("sys.argv", ["train", "--arch", "mamba2-1.3b",
-                                     "--device", "cpu", "--ckpt-dir",
-                                     str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A12"):
+def _ckpt_argv(ck, rounds, *extra):
+    return ["train", "--arch", "mamba2-1.3b", "--device", "cpu",
+            "--rounds", str(rounds), "--clients", "4", "--concurrency", "2",
+            "--buffer", "2", "--seq-len", "16", "--ckpt-dir", str(ck),
+            "--ckpt-every", "1", *extra]
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the CLI runs are small, and with a thread per
+    core in each of several test workers they mostly wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_cli_refuses_ckpt_dir(monkeypatch, tmp_path, one_thread):
+    """A ``--ckpt-dir`` whose latest checkpoint fails its CRC is refused
+    (IOError), not restored."""
+    ck = tmp_path / "ck"
+    monkeypatch.setattr("sys.argv", _ckpt_argv(ck, 1))
+    TT.main()
+    npz = ck / "step_0000000001" / "arrays.npz"
+    with np.load(npz) as z:                 # a valid npz, one value changed
+        arrays = dict(z)
+    arrays["a0"].reshape(-1)[0] += 1
+    np.savez(npz, **arrays)
+    monkeypatch.setattr("sys.argv", _ckpt_argv(ck, 2))
+    with pytest.raises(IOError):
         TT.main()
+
+
+def test_cli_ckpt_dir_saves_and_restores(monkeypatch, tmp_path, capsys,
+                                         one_thread):
+    """The verify skill's recipe: rounds 2 under a top-k uplink with a
+    checkpoint a round, then a re-run to round 3 restores from round 2 and
+    carries on (EF residuals included)."""
+    ck = tmp_path / "ck"
+    monkeypatch.setattr("sys.argv",
+                        _ckpt_argv(ck, 2, "--compression", "topk:0.2"))
+    TT.main()
+    out = capsys.readouterr().out
+    assert "restored" not in out and "[train] done: 2 rounds" in out
+    monkeypatch.setattr("sys.argv",
+                        _ckpt_argv(ck, 3, "--compression", "topk:0.2"))
+    TT.main()
+    out = capsys.readouterr().out
+    assert "[train] restored from round 2" in out
+    assert "[round   3]" in out and "[train] done: 3 rounds" in out
+    assert sorted(p.name for p in ck.iterdir()) == [
+        "step_0000000002", "step_0000000003"]
+    manifest = json.loads((ck / "step_0000000003" / "manifest.json")
+                          .read_text())
+    assert manifest["extra"]["round"] == 3
+    assert manifest["extra"]["ef_clients"]
 
 
 @pytest.mark.parametrize("extra", [
@@ -424,7 +474,7 @@ def test_cli_trains_on_the_cpu(monkeypatch, tmp_path, capsys, extra):
 
 @pytest.mark.parametrize("flags", [["--monitor", "on"], ["--slo", "warn"],
                                    ["--cohorts", "on"],
-                                   ["--compression", "topk:0.1"],
+                                   ["--dispatch-compression", "topk:0.1"],
                                    ["--autotune", "cache"]])
 def test_cli_options_the_server_refuses_raise(monkeypatch, flags):
     monkeypatch.setattr("sys.argv", ["train", "--arch", "mamba2-1.3b",

@@ -45,11 +45,15 @@ def _jax_leaves(tree):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_loss_and_gradients_match_jax_loosely(arch):
-    """The configs' own bf16: loss within 1e-2, every gradient leaf within
-    0.1 of its largest |gradient|.  XLA rounds every op of silu/gelu/
-    sigmoid to bf16 and torch rounds each once (tests/test_torch_lm.py),
-    and the differences pile up through the backward: measured 1.7e-3 on
-    the loss and 3.3e-2 on the gradients (mamba2 smoke)."""
+    """The configs' own bf16: loss within 2e-4, every gradient leaf within
+    0.04 of its largest |gradient|, about twice the measured gaps.  The
+    forward computes what XLA's lowered bf16 ops compute (tests/
+    test_torch_bf16_trace.py), which took mamba2's loss gap from 1.7e-3 to
+    2.2e-5 (phi4-mini 9.2e-5, recurrentgemma 9.5e-7).  The gradients moved
+    less, from 3.3e-2 to 2.1e-2 of a leaf's max (mamba2's conv bias): XLA
+    fuses the backward and the remat's loss chunks on its own terms,
+    dropping some roundings there, and that is not located.  Each gap is
+    printed (``pytest -s``)."""
     jc = j_smoke_config(arch)
     tc = smoke_config(arch)
     jm = j_build_model(jc)
@@ -64,14 +68,18 @@ def test_bf16_loss_and_gradients_match_jax_loosely(arch):
     tl, _, tg = _torch_grads(
         tm, tp, {"tokens": torch.from_numpy(toks),
                  "labels": torch.from_numpy(labels)}, loss_chunk=16)
-    assert abs(float(tl) - float(jl)) <= 1e-2
     jg = _jax_leaves(jg)
+    rel = {}
     for name, g in tg.items():
         want = np.asarray(jg[name], np.float32)
         assert str(g.dtype)[6:] == str(jg[name].dtype), name
         scale = max(float(np.abs(want).max()), 1e-30)
-        assert float(np.abs(g.float().numpy() - want).max()) <= 0.1 * scale, \
-            name
+        rel[name] = float(np.abs(g.float().numpy() - want).max()) / scale
+    worst = max(rel, key=rel.get)
+    print(f"{arch} bf16: |d loss| {abs(float(tl) - float(jl)):.3e}, worst "
+          f"gradient {rel[worst]:.3e} of its leaf's max ({worst})")
+    assert abs(float(tl) - float(jl)) <= 2e-4
+    assert all(r <= 0.04 for r in rel.values()), rel
 
 
 @pytest.mark.parametrize("M", [1, 2])
