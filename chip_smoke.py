@@ -30,7 +30,9 @@ Phases, each printing its lines; no phase's failure is caught:
               aggregations; the seafl_agg launch counts are zeroed just before
               and must equal the rounds run.  Then each algorithm runs on the
               small task on the card and on the CPU (plain versions), and
-              the two runs must agree.
+              the two runs must agree; seafl once more with a top-k
+              downlink, cohorts and resync batching (event times,
+              contributors and downlink bytes equal).
   6. serve    repro_torch.launch.serve.serve at full width for
               recurrentgemma-2b, then mamba2-1.3b (4 prompts of 4096 tokens,
               32 generated); the LM kernels' counts are zeroed just before
@@ -61,9 +63,22 @@ Phases, each printing its lines; no phase's failure is caught:
               EF residuals); that server's ~16 GB checkpoint saved
               (async, then wait) to a temporary directory and restored into
               a fresh server on the card, bit-equal
-  9. result   one JSON line of per-kernel numbers (B4 as two rows, one
-              per instance; each row with its training and uplink
-              launches), the nvidia-smi line, and last the contract line
+  9. downlink (f) the version-tracked downlink at mamba2-1.3b's full
+              width: DispatchSession(topk:0.01, multicast) alone on a ring
+              of three seeded (P,) versions on the card (a full f32
+              snapshot, a shared hop and its cache hit, a forced resync
+              fold, an int8 delta: wire bytes as reckoned, the first and
+              last 8 chunks equal to the CPU encode, each client's
+              apply_dispatch equal to held_flat); then the cohort trainer
+              with the topk:0.01 downlink and cohorts on (2 clients, K = 2,
+              raw f32 uplink) to 2 aggregations: downlink bytes, full /
+              delta counts, cache hits, edge merges and B1/B2/B6 launches
+              as reckoned, with round walls, resident state, peak memory
+              and the device's idle share
+ 10. result   one JSON line of per-kernel numbers (B4 as two rows, one
+              per instance; each row with its training, uplink and
+              downlink launches), the nvidia-smi line, and last the
+              contract line
               {"ok": true, "device": {...}}
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
@@ -283,13 +298,13 @@ def phase_timing(torch):
     return rows
 
 
-def _small_cfg(algorithm, device):
+def _small_cfg(algorithm, device, **fl_kw):
     from repro_torch.core.server import FLConfig
     from repro_torch.experiment import ExperimentConfig
     from repro_torch.runtime.simulator import SimConfig
     fl = FLConfig(algorithm=algorithm, n_clients=16, concurrency=8,
                   buffer_size=4, staleness_limit=5, local_epochs=3,
-                  local_lr=0.1, batch_size=32, seed=1)
+                  local_lr=0.1, batch_size=32, seed=1, **fl_kw)
     return ExperimentConfig(dataset="tiny", n_train=1600, n_test=320,
                             model="mlp", dirichlet_alpha=1.0, fl=fl,
                             sim=SimConfig(seed=1), seed=1, device=device)
@@ -407,7 +422,57 @@ def phase_e2e(torch):
         log(f"[e2e] tiny/{algo}: {len(hist_c)} rounds, weighted_agg "
             f"launches +{moved}, card vs CPU: max|d acc|={dacc:.4f} "
             f"max|d global|={dg:.2e}")
+    _small_downlink_card_vs_cpu(torch)
     return launches, walls, peak
+
+
+def _small_downlink_card_vs_cpu(torch):
+    """seafl on the small task with a top-k downlink, cohorts and resync
+    batching, card against CPU: the same event times, contributors (merged
+    ones included), downlink bytes and dispatch counters.  A top-k of two
+    globals that differ in the last bits may keep another index where two
+    |delta| nearly tie, so the global is held to 1e-3 on all but a few
+    elements (at most 1e-3 of them) and the counts are printed."""
+    from repro_torch.experiment import build_experiment
+    kw = dict(dispatch_compression="topk:0.1", cohorts="on",
+              resync_batching=True, dispatch_resync=0.5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sim, _, _ = build_experiment(_small_cfg("seafl", dev, **kw))
+        events, agg = [], sim.server._aggregate
+
+        def wrapped(now, agg=agg, events=events):
+            ev = agg(now)
+            events.append(ev.contributors)
+            return ev
+        sim.server._aggregate = wrapped
+        hist = sim.run(max_rounds=3)
+        d = sim.server.dispatch
+        out[dev] = (hist, events, sim.server.global_flat.cpu(),
+                    (d.full_dispatches, d.delta_dispatches,
+                     d.resync_dispatches, d.cache_hits, d.cache_misses),
+                    sim.server.cohort_stats())
+    (hc, ec, gc, dc, cc), (hh, eh, gh, dh, ch) = out["cuda"], out["cpu"]
+    if [(h["time"], h["bytes"], h["bytes_down"]) for h in hc] != \
+            [(h["time"], h["bytes"], h["bytes_down"]) for h in hh]:
+        raise AssertionError("downlink: event times or bytes differ card "
+                             "vs CPU")
+    if ec != eh or dc != dh or cc != ch:
+        raise AssertionError(f"downlink: contributors {ec} / {eh}, dispatch "
+                             f"{dc} / {dh}, cohorts {cc} / {ch}")
+    gap = (gc - gh).abs()
+    off = int((gap > 1e-3).sum())
+    if off > 1e-3 * gap.numel() or not bool(torch.isfinite(gc).all()):
+        raise AssertionError(f"downlink: {off} elements of the global off "
+                             f"by more than 1e-3")
+    if dc[1] < 1 or cc["edge_merges_total"] < 1:
+        raise AssertionError(f"downlink: no delta or no edge merge: {dc} "
+                             f"{cc}")
+    log(f"[e2e] tiny/seafl, topk:0.1 downlink + cohorts + resync batching: "
+        f"{len(hc)} rounds, downlink {hc[-1]['bytes_down']} bytes, (full, "
+        f"delta, resync, hits, misses) {dc}, {cc}; card vs CPU equal events, "
+        f"contributors and bytes; global max|d| {float(gap.max()):.2e}, "
+        f"{off} elements over 1e-3")
 
 
 # ------------------------------------------------- LM serving path (B4-B6)
@@ -1550,6 +1615,20 @@ def _same_payload(torch, a, b):
                     .view(torch.uint8)))
 
 
+def _same_as_cpu_encode(torch, chunks, vec, fmt, what):
+    """The first and last 8 of ``chunks`` (the card's encode of ``vec``)
+    equal the CPU encode of the same windows, bit for bit."""
+    from repro_torch.runtime.codecs import encode_flat
+    ce = fmt.chunk_elems
+    for first in (0, UPLINK_CHUNKS - 8):
+        cpu = encode_flat(vec[first * ce:(first + 8) * ce].cpu(), fmt)
+        for c, want in zip(chunks[first:first + 8], cpu):
+            if c.length != want.length or not _same_payload(
+                    torch, c.payload, want.payload):
+                raise AssertionError(f"{what}: chunk {c.seq} differs from "
+                                     f"the CPU encode")
+
+
 def _uplink_codecs_full(torch):
     """Each lossy uplink scheme on one seeded f32 delta of mamba2-1.3b's P
     on the card: wire bytes as reckoned, the first and last 8 chunks equal
@@ -1569,14 +1648,7 @@ def _uplink_codecs_full(torch):
             raise AssertionError(f"{spec}: {len(chunks)} chunks, {nbytes} "
                                  f"wire bytes, expected {UPLINK_CHUNKS} and "
                                  f"{WIRE_BYTES[spec]}")
-        ce = fmt.chunk_elems
-        for first in (0, UPLINK_CHUNKS - 8):
-            cpu = encode_flat(delta[first * ce:(first + 8) * ce].cpu(), fmt)
-            for c, want in zip(chunks[first:first + 8], cpu):
-                if c.length != want.length or not _same_payload(
-                        torch, c.payload, want.payload):
-                    raise AssertionError(f"{spec}: chunk {c.seq} differs "
-                                         f"from the CPU encode")
+        _same_as_cpu_encode(torch, chunks, delta, fmt, spec)
         if not bool(torch.isfinite(dec).all()) or dec.shape != delta.shape:
             raise AssertionError(f"{spec}: decode of shape {dec.shape}")
         err = float((dec - delta).abs().max())
@@ -1739,6 +1811,228 @@ def phase_uplink(torch):
     return dict(codecs=codecs, cohort=cohort, checkpoint=ckpt, phase_s=took)
 
 
+# ---------------------------- phase f: the version-tracked downlink (full width)
+
+DOWN_SPEC = "topk:0.01"
+DOWN_ROUNDS = 2
+DOWNLINK = dict(n_clients=2, concurrency=2, buffer_size=2, seq_len=512,
+                batch_size=4, shard_seqs=8, local_epochs=1)
+
+
+def _downlink_session_full(torch):
+    """(i) DispatchSession(topk:0.01, multicast) alone on a ring of three
+    seeded (P,) f32 versions on the card: a full snapshot (f32 fallback),
+    the delta 0 -> 1 for client a, the same hop for client b (a cache hit
+    with the same chunks), a resync fold forced by a tiny threshold, and
+    an int8 delta.  Wire bytes as reckoned, first and last 8 chunks equal
+    to the CPU encode, and each client's ``apply_dispatch`` of what it
+    received equal to ``held_flat`` = ring[v] - residual."""
+    from repro_torch.runtime.codecs import make_wire_format
+    from repro_torch.runtime.dispatch import DispatchSession, apply_dispatch
+    gen = torch.Generator(device="cuda").manual_seed(400)
+    ring = {0: torch.randn(P_MAMBA2, generator=gen, device="cuda") * 0.02}
+    for v in (1, 2):
+        ring[v] = ring[v - 1] + 1e-3 * torch.randn(
+            P_MAMBA2, generator=gen, device="cuda")
+    fmt = make_wire_format(DOWN_SPEC)
+    sess = DispatchSession(fmt, history=3, multicast=True)
+    times, held = {}, {}
+
+    def step(name, cid, target, want_bytes):
+        p, s = _sync_s(torch, lambda: sess.encode(cid, target, ring))
+        times[name] = s
+        if p.nbytes != want_bytes or len(p.chunks) != UPLINK_CHUNKS:
+            raise AssertionError(f"{name}: {len(p.chunks)} chunks, "
+                                 f"{p.nbytes} wire bytes, expected "
+                                 f"{UPLINK_CHUNKS} and {want_bytes}")
+        return p
+
+    def deliver(name, p, check=True):
+        sess.deliver(p)
+        if not check:
+            return
+        base = None if p.full else held[p.cid]
+        held[p.cid], s = _sync_s(torch, lambda: apply_dispatch(p, sess.fmt,
+                                                               base))
+        times[f"apply_{name}"] = s
+        want = sess.held_flat(p.cid, ring)
+        r = sess.residuals.get(p.cid)
+        if r is not None and not torch.equal(want, ring[p.target_version] - r):
+            raise AssertionError(f"{name}: held_flat is not ring[v] - r")
+        gap = float((held[p.cid] - want).abs().max())
+        if not gap <= 1e-5:
+            raise AssertionError(f"{name}: the client rebuilt a model "
+                                 f"{gap:.3e} off held_flat")
+        times[f"gap_{name}"] = gap
+
+    full = step("full_snapshot", 0, 0, WIRE_BYTES["f32"])
+    if full.scheme != "f32" or not full.full:
+        raise AssertionError("the full snapshot is not raw f32")
+    deliver("full", full)
+    deliver("full_b", step("full_snapshot_hit", 1, 0, WIRE_BYTES["f32"]),
+            check=False)
+    a = step("delta_encode", 0, 1, WIRE_BYTES[DOWN_SPEC])
+    b = step("delta_hit", 1, 1, WIRE_BYTES[DOWN_SPEC])
+    if sess.cache_hits != 2 or sess.cache_misses != 2 or \
+            b.chunks is not a.chunks or b.encode_cost_bytes != 0:
+        raise AssertionError(f"client b's hop was not a cache hit: "
+                             f"{sess.cache_info()}")
+    hop = ring[1] - ring[0]
+    _same_as_cpu_encode(torch, a.chunks, hop, fmt, "hop 0 -> 1")
+    del hop
+    deliver("delta", a)
+    deliver("delta_b", b, check=False)
+    sess.resync = 1e-6                       # force the fold for client a
+    f = step("resync_fold", 0, 2, WIRE_BYTES[DOWN_SPEC])
+    if f.shared or not f.resync:
+        raise AssertionError("the forced resync did not fold")
+    fold_vec = ring[2] - ring[1] + sess.residuals[0]
+    _same_as_cpu_encode(torch, f.chunks, fold_vec, fmt, "resync fold")
+    del fold_vec
+    deliver("fold", f)
+    if (sess.full_dispatches, sess.delta_dispatches,
+            sess.resync_dispatches) != (2, 3, 1):
+        raise AssertionError(f"counters {sess.cache_info()}")
+    info = sess.cache_info()
+    del sess, a, b, f, full, held
+    torch.cuda.empty_cache()
+    # the int8 delta 0 -> 2 of another session
+    i8 = DispatchSession(make_wire_format("int8"), history=3)
+    i8.deliver(i8.encode(0, 0, ring, materialize=False))
+    p, times["int8_delta_encode"] = _sync_s(torch,
+                                            lambda: i8.encode(0, 2, ring))
+    if p.nbytes != WIRE_BYTES["int8"] or len(p.chunks) != UPLINK_CHUNKS:
+        raise AssertionError(f"int8: {p.nbytes} wire bytes")
+    _same_as_cpu_encode(torch, p.chunks, ring[2] - ring[0], i8.fmt,
+                        "int8 delta")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del p, i8, ring
+    torch.cuda.empty_cache()
+    log(f"[downlink] session, P={P_MAMBA2}, {UPLINK_CHUNKS} chunks: full "
+        f"snapshot {WIRE_BYTES['f32']} bytes encode "
+        f"{times['full_snapshot']:.3f} s (hit {times['full_snapshot_hit']:.3f}"
+        f" s); {DOWN_SPEC} hop {WIRE_BYTES[DOWN_SPEC]} bytes encode "
+        f"{times['delta_encode']:.3f} s, cache hit "
+        f"{times['delta_hit']:.6f} s, resync fold "
+        f"{times['resync_fold']:.3f} s; int8 delta "
+        f"{WIRE_BYTES['int8']} bytes encode "
+        f"{times['int8_delta_encode']:.3f} s; apply_dispatch full "
+        f"{times['apply_full']:.3f} s, delta {times['apply_delta']:.3f} s, "
+        f"fold {times['apply_fold']:.3f} s (rebuilt within "
+        f"{max(times['gap_delta'], times['gap_fold']):.2e} of held_flat); "
+        f"cache {info}; first and last 8 chunks equal the CPU encode; peak "
+        f"{peak:.2f} GiB")
+    return dict(times=times, cache=info, peak_gib=peak)
+
+
+def _downlink_cohort_full(torch):
+    """(ii) The cohort trainer at full width with the top-k downlink and
+    cohorts on: 2 clients, both in flight, K = 2, raw f32 uplink, 2
+    aggregations.  Reckoned before the run: each client's first dispatch is
+    a full f32 snapshot (the second a cache hit), the hop 0 -> 1 is
+    encoded once and shared (the round-2 hop is encoded, not delivered
+    before the run stops); both uploads of a version merge at the edge, so
+    B1 and B2 run once an aggregation on one merged row; B6 as the SGD
+    steps and evaluations say."""
+    import gc
+    from repro_torch.kernels.seafl_agg import kernel as K
+    from repro_torch.launch.train import build_lm_fl, summary_record
+    from repro_torch.runtime.simulator import FLSimulation, SimConfig
+    model, server, clients, eval_fn = build_lm_fl(
+        "mamba2-1.3b", smoke=False, device="cuda",
+        dispatch_compression=DOWN_SPEC, dispatch_history=2, cohorts="on",
+        **DOWNLINK)
+    steps = _count_batches(clients)
+    spent = {}
+    for name in ("encode_dispatch", "dispatch_model", "_edge_absorb"):
+        _timed_method(torch, server, name, spent)
+    sim = FLSimulation(server, clients, SimConfig(seed=0), eval_fn=eval_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    _reset_lm_counts()
+    walls, busy = [], []
+    for r in range(1, DOWN_ROUNDS + 1):
+        t0 = time.perf_counter()
+        with _cuda_profiler(torch) as prof:
+            hist = sim.run(max_rounds=r)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        busy.append(_kernel_times(torch, prof)[0])
+    seafl = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
+    launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    evals = sum("acc" in h for h in sim.history)
+    cfg = model.cfg
+    want_b6 = _ssd_per_forward(cfg) * (steps[0] * (1 + _remat_reruns(cfg))
+                                       + evals)
+    want_down = 2 * WIRE_BYTES["f32"] + 2 * WIRE_BYTES[DOWN_SPEC]
+    disp, cs = server.dispatch, server.cohort_stats()
+    summary = summary_record(server, sim)
+    if server.total_aggregations != DOWN_ROUNDS or \
+            server.bytes_uploaded != 2 * DOWN_ROUNDS * WIRE_BYTES["f32"]:
+        raise AssertionError(f"{server.total_aggregations} aggregations, "
+                             f"{server.bytes_uploaded} uplink bytes")
+    if server.bytes_downloaded != want_down:
+        raise AssertionError(f"downlink {server.bytes_downloaded} bytes, "
+                             f"expected {want_down}")
+    if (summary["dispatch_full"], summary["dispatch_delta"],
+            summary["resyncs"], disp.cache_hits, disp.cache_misses) != \
+            (2, 2, 0, 3, 3):
+        raise AssertionError(f"dispatch {summary}, {disp.cache_info()}")
+    if cs["edge_merges_total"] != DOWN_ROUNDS or summary["cohorts"] != 1:
+        raise AssertionError(f"cohorts {cs}")
+    if (seafl["sim_partials_from_params"], seafl["weighted_agg"]) != \
+            (DOWN_ROUNDS, DOWN_ROUNDS):
+        raise AssertionError(f"seafl_agg launched {seafl}")
+    if launched != {"flash_attention": 0, "rglru_scan": 0,
+                    "ssd_forward": want_b6}:
+        raise AssertionError(f"launched {launched}; B6 expected {want_b6}")
+    if not bool(torch.isfinite(server.global_flat).all()) or not \
+            all(math.isfinite(h["acc"]) for h in hist):
+        raise AssertionError("non-finite global or held-out CE")
+    resident = server.resident_state_bytes()
+    idle = [1 - b / (w * 1e3) for b, w in zip(busy, walls)]
+    rec = dict(round_walls_s=walls, busy_ms=busy, idle_share=idle,
+               peak_gib=peak, downlink_bytes=server.bytes_downloaded,
+               uplink_bytes=server.bytes_uploaded, seafl_launches=seafl,
+               launches=launched, sgd_steps=steps[0], evals=evals,
+               encode_dispatch_s=spent["encode_dispatch"],
+               dispatch_model_s=spent["dispatch_model"],
+               edge_absorb_s=spent["_edge_absorb"], cache=disp.cache_info(),
+               resident_state_bytes=resident, summary=summary,
+               heldout_ce=[-h["acc"] for h in hist])
+    log(f"[downlink] cohort trainer, {DOWN_SPEC} downlink, cohorts on, "
+        f"P={P_MAMBA2}: round walls {[round(w, 3) for w in walls]} s "
+        f"(profiled), kernels busy {[round(b, 1) for b in busy]} ms, idle "
+        f"share {[round(i, 4) for i in idle]}, peak {peak:.2f} GiB; "
+        f"downlink {server.bytes_downloaded} bytes, dispatch full "
+        f"{summary['dispatch_full']} delta {summary['dispatch_delta']}, "
+        f"cache {disp.cache_info()}, edge merges {cs['edge_merges_total']}; "
+        f"encode_dispatch {spent['encode_dispatch']:.3f} s, dispatch_model "
+        f"{spent['dispatch_model']:.3f} s, edge merges "
+        f"{spent['_edge_absorb']:.3f} s; seafl_agg {seafl}, LM {launched} "
+        f"({steps[0]} SGD steps, {evals} evaluations)")
+    log(f"[downlink] resident_state_bytes {json.dumps(resident)}")
+    del model, server, clients, eval_fn, sim, disp
+    gc.collect()                     # the timing wrappers hold a cycle
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_downlink(torch):
+    """f. The version-tracked downlink at full width: the dispatch session
+    alone on (P,) versions, then the cohort trainer with the top-k
+    downlink, cohorts and the edge tier."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    session = _downlink_session_full(torch)
+    cohort = _downlink_cohort_full(torch)
+    took = time.perf_counter() - t0
+    log(f"[downlink] phase took {took:.1f} s")
+    return dict(session=session, cohort=cohort, phase_s=took)
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -1816,13 +2110,19 @@ def main() -> int:
     phase_card_vs_cpu(torch)
     grad_errs, train_step, cohort, smoke_launches = phase_train(torch)
     uplink = phase_uplink(torch)
+    downlink = phase_downlink(torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
+    down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
         "sim_partials_from_params": {
             "cohort": cohort["seafl_launches"]["sim_partials_from_params"],
-            "uplink_topk": up_seafl["sim_partials_from_params"]},
+            "uplink_topk": up_seafl["sim_partials_from_params"],
+            "downlink_cohorts": down["seafl_launches"][
+                "sim_partials_from_params"]},
         "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"],
-                         "uplink_topk": up_seafl["weighted_agg"]},
+                         "uplink_topk": up_seafl["weighted_agg"],
+                         "downlink_cohorts": down["seafl_launches"][
+                             "weighted_agg"]},
         "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"]},
         "flash_attention_bf16_tc": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_tc"]},
@@ -1833,7 +2133,8 @@ def main() -> int:
             "train_step": train_step["launches"]["ssd_forward"],
             "cohort": cohort["launches"]["ssd_forward"],
             "smoke_card_vs_cpu": smoke_launches["ssd_forward"],
-            "uplink_topk": uplink["cohort"]["launches"]["ssd_forward"]},
+            "uplink_topk": uplink["cohort"]["launches"]["ssd_forward"],
+            "downlink_cohorts": down["launches"]["ssd_forward"]},
     }
 
     src = "src/repro_torch/kernels/seafl_agg/csrc/seafl_agg.cu"
@@ -1885,6 +2186,7 @@ def main() -> int:
     log(f"[serve] summary: {json.dumps(serving)}")
     log(f"[train] summary: {json.dumps(dict(step=train_step, cohort=cohort))}")
     log(f"[uplink] summary: {json.dumps(uplink)}")
+    log(f"[downlink] summary: {json.dumps(downlink)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

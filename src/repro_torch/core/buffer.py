@@ -34,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.runtime.telemetry import Telemetry, of as _tel_of
 
 
@@ -49,16 +50,17 @@ class Update:
 
 
 class UpdateBuffer:
-    """Fixed-capacity slot buffer: metadata list + (capacity, P) tensor."""
+    """Fixed-capacity slot buffer: metadata list + (capacity, P) tensor on
+    ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
 
     def __init__(self, capacity: int, param_size: Optional[int] = None,
                  dtype=torch.float32, telemetry: Optional[Telemetry] = None,
-                 device="cpu"):
+                 device=None):
         self.tel = _tel_of(telemetry)
         self.capacity = int(capacity)
         self.param_size = param_size
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._committed: list[tuple[Update, int]] = []   # (meta, row), arrival
         self._pending: dict[int, Update] = {}            # row -> meta
         self._free: list[int] = list(range(self.capacity))  # min-heap

@@ -15,9 +15,15 @@ Hot path: every algorithm aggregates through the flat (K, P) buffer engine
 over the chunked uplink transport (runtime/transport.py: raw f32/bf16, or
 topk/int8-compressed deltas against the dispatch version with per-client
 flat error feedback) and are written straight into a reserved (K, P) buffer
-slot.  Model versions live in ``_history`` as flat (P,) f32 tensors,
-unpacked only at dispatch / eval boundaries.  The buffer can store slots in
-bf16 (``FLConfig.buffer_dtype``); the kernels accumulate in f32 regardless.
+slot.  Downlink dispatches go through the multicast ``DispatchSession``
+(runtime/dispatch.py) when ``dispatch_compression`` is set: version-tracked
+f32/bf16 snapshots or topk/int8 deltas against the client's held ring
+version, with shared hops encoded once.  ``cohorts='on'`` makes the cohort
+the unit of dispatch state (runtime/cohorts.py) and merges same-version
+uploads into one buffer slot (the edge tier, ``_edge_absorb``).  Model
+versions live in ``_history`` as flat (P,) f32 tensors, unpacked only at
+dispatch / eval boundaries.  The buffer can store slots in bf16
+(``FLConfig.buffer_dtype``); the kernels accumulate in f32 regardless.
 
 Fault tolerance: ``state_dict`` (JSON-able control state) and
 ``checkpoint_trees`` (the flat tensors) go through ``repro_torch.checkpoint``
@@ -25,9 +31,9 @@ in the same format as the JAX package's, and ``load_state`` restores either
 package's checkpoint.
 
 ``FLConfig`` keeps every field of the JAX package's config so the two are
-interchangeable; options whose modules this port does not carry yet
-(version-tracked dispatch, cohorts, the run monitor, the autotuner, kernel
-timing) raise ``NotImplementedError`` at construction.
+interchangeable; options whose modules this port does not carry yet (the
+run monitor, the autotuner, kernel timing) raise ``NotImplementedError`` at
+construction.
 """
 from __future__ import annotations
 
@@ -47,7 +53,8 @@ from repro_torch.kernels.seafl_agg.ops import (
     seafl_aggregate_flat_from_params,
 )
 from repro_torch.runtime.codecs import Chunk, make_wire_format
-from repro_torch.runtime.dispatch import DispatchPayload
+from repro_torch.runtime.cohorts import CohortDispatchSession
+from repro_torch.runtime.dispatch import DispatchPayload, DispatchSession
 from repro_torch.runtime.policy import DriftTracker, RatePolicy, RESYNC_MODES
 from repro_torch.runtime.scheduler import make_scheduler
 from repro_torch.runtime.telemetry import Telemetry
@@ -87,14 +94,22 @@ class FLConfig:
     compression: Optional[str] = None
     chunk_elems: int = 1 << 16       # wire chunk granularity (elements)
     buffer_dtype: str = "float32"    # 'float32' | 'bfloat16' slot storage
-    # downlink: None keeps the whole-model broadcast (raw f32 model bytes);
-    # the version-tracked dispatch session is not ported yet
+    # downlink wire format: None keeps the whole-model broadcast (no wire
+    # object; the bandwidth model charges raw f32 model bytes); 'f32' |
+    # 'bf16' | 'topk:<ratio>' | 'int8' serve chunked dispatch payloads with
+    # per-client version tracking (runtime/dispatch.py)
     dispatch_compression: Optional[str] = None
-    dispatch_history: int = 8
-    dispatch_chunk_elems: int = 1 << 16
+    dispatch_history: int = 8        # global-history ring depth (versions)
+    dispatch_chunk_elems: int = 1 << 16   # downlink chunk granularity
+    # multicast: delta hits encode the pure ring hop once per (base,
+    # target) and fan the cached chunks out; a client whose accumulated EF
+    # residual exceeds dispatch_resync x |hop delta| gets one personalized
+    # fold-in encode (False: per-client fold-in on every delta)
     dispatch_multicast: bool = True
     dispatch_resync: float = 4.0
-    dispatch_resync_mode: str = "norm"
+    dispatch_resync_mode: str = "norm"       # 'norm' | 'bytes' (policy.py)
+    # 'drift' bins the round-over-round global drift norm into bands and
+    # dispatches each round at its band's top-k ratio (runtime/policy.py)
     dispatch_ratio_policy: str = "static"    # 'static' | 'drift'
     uplink_ratio_policy: str = "static"      # 'static' | 'drift'
     drift_band_edges: tuple = (0.8, 1.6)
@@ -108,7 +123,12 @@ class FLConfig:
     # against a batched flush at the actual chunk size and falls back to
     # eager pass-through where coalescing loses
     ingest_auto_bypass: bool = True
-    cohorts: str = "off"             # 'on' is not ported yet
+    # 'on': one shared dispatch residual and fold encode per cohort (held
+    # version, drift band) instead of per client, and the edge tier that
+    # merges same-version uploads into one (K, P) slot (runtime/cohorts.py)
+    cohorts: str = "off"
+    # coalesce one round's personalized resync re-encodes into one batched
+    # encode pass (DispatchSession.encode_many)
     resync_batching: bool = False
     telemetry: bool = False
     telemetry_kernels: bool = False  # True is not ported yet
@@ -132,10 +152,6 @@ class FLConfig:
 def _refuse_unported(cfg: FLConfig) -> None:
     """Options that need a module this port does not carry yet."""
     unported = []
-    if cfg.dispatch_compression is not None:
-        unported.append(f"dispatch_compression={cfg.dispatch_compression!r}")
-    if cfg.cohorts == "on":
-        unported.append("cohorts='on'")
     if cfg.monitor == "on":
         unported.append("monitor='on'")
     if cfg.autotune != "off":
@@ -193,12 +209,25 @@ class SeaflServer:
         self.scheduler = make_scheduler(cfg.scheduler, self.tel)
         self.wire = make_wire_format(cfg.compression, cfg.chunk_elems)
         _refuse_unported(cfg)
+        self._cohorts_on = cfg.cohorts == "on"
+        self.dispatch: Optional[DispatchSession] = None
+        if cfg.dispatch_compression is not None:
+            sess_cls = (CohortDispatchSession if self._cohorts_on
+                        else DispatchSession)
+            self.dispatch = sess_cls(
+                make_wire_format(cfg.dispatch_compression,
+                                 cfg.dispatch_chunk_elems),
+                cfg.dispatch_history,
+                multicast=cfg.dispatch_multicast,
+                resync=cfg.dispatch_resync,
+                resync_mode=cfg.dispatch_resync_mode,
+                telemetry=self.tel)
         # drift-adaptive rate policy: validated here so a bad band config
-        # fails at construction, not mid-run.  Its dispatch consumer needs
-        # top-k dispatch, which raises above until the dispatch session is
-        # ported.
+        # fails at construction, not mid-run
         self.rate_policy = RatePolicy.from_config(cfg)
-        if cfg.dispatch_ratio_policy == "drift":
+        if cfg.dispatch_ratio_policy == "drift" and (
+                self.dispatch is None
+                or self.dispatch.fmt.scheme != "topk"):
             raise ValueError(
                 "dispatch_ratio_policy='drift' adapts the top-k dispatch "
                 "ratio and needs dispatch_compression='topk:<ratio>'")
@@ -216,6 +245,14 @@ class SeaflServer:
                                    dtype=self._buffer_dtype,
                                    telemetry=self.tel, device=self.device)
         self._batcher = self._make_batcher()
+        # two-tier edge aggregation (cohorts='on'): same-version uploads
+        # pre-combine into one resident (P,) partial per version, and the
+        # trigger counts uploads absorbed since the last aggregation
+        self._edge_slots: dict[int, tuple[int, Update]] = {}
+        self._updates_since_agg = 0
+        self._edge_merges_round = 0
+        self._edge_merges_total = 0
+        self._edge_partials_last = 0
         self.client_sizes = client_sizes
         self.active: dict[int, int] = {}         # cid -> version t_k
         self.idle: set[int] = set(client_sizes)
@@ -268,6 +305,11 @@ class SeaflServer:
 
     def _gc_history(self):
         live = set(self.active.values()) | {self.round}
+        if self.dispatch is not None and self.dispatch.fmt.delta_coded:
+            # the bounded dispatch ring: keep the last `dispatch_history`
+            # globals so returning clients can receive deltas against the
+            # version they hold (raw schemes never read old versions)
+            live |= self.dispatch.ring_versions(self.round)
         self._history = {v: p for v, p in self._history.items() if v in live}
         self._unpack_cache = {v: p for v, p in self._unpack_cache.items()
                               if v in live}
@@ -275,6 +317,9 @@ class SeaflServer:
         self._ratio_by_version = {v: r for v, r in
                                   self._ratio_by_version.items()
                                   if v in self._history}
+        if self.dispatch is not None:
+            # encode-cache entries age out with the ring they index into
+            self.dispatch.age_cache(self.round)
 
     def _sample_idle(self, k: int) -> list[int]:
         """Every idle-pool draw routes through the scheduler policy: it
@@ -303,6 +348,10 @@ class SeaflServer:
         """Client died mid-training: return a replacement dispatch if any."""
         self.active.pop(cid, None)
         self.abort_ingest(cid)           # a mid-stream upload dies with it
+        if self.dispatch is not None:
+            # the device lost its model: version tracking is void and its
+            # next dispatch re-requests a full snapshot
+            self.dispatch.drop(cid)
         # the dead client may rejoin the idle pool later (recovery)
         repl = self._sample_idle(1)
         for c in repl:
@@ -336,29 +385,79 @@ class SeaflServer:
         return out
 
     # ----------------------------------------------------- downlink transport
-    def encode_dispatch(self, cid: int) -> DispatchPayload:
-        """Serve the current global to ``cid``: the whole-model broadcast,
-        a marker payload whose ``nbytes`` is the raw f32 model size."""
-        target = self.active.get(cid, self.round)
-        return DispatchPayload(
-            cid=cid, target_version=target, base_version=None,
-            scheme="raw", param_size=self.packer.size, chunks=None,
-            nbytes=4 * self.packer.size,
-            encode_cost_bytes=4 * self.packer.size)
-
-    def dispatch_ratio(self, version: Optional[int] = None) -> Optional[float]:
-        """Top-k dispatch ratio for the simulator's history (None: the
-        broadcast is not top-k coded)."""
+    def _dispatch_ratio_of(self, target: int) -> Optional[float]:
+        if self.cfg.dispatch_ratio_policy == "drift":
+            return self._ratio_by_version.get(target)
         return None
 
+    def encode_dispatch(self, cid: int,
+                        materialize: bool = True) -> DispatchPayload:
+        """Serve the current global to ``cid``.
+
+        With ``dispatch_compression=None`` there is no wire object: a marker
+        payload whose ``nbytes`` is the raw f32 model size.  Otherwise the
+        DispatchSession encodes chunked f32/bf16 snapshots or topk/int8
+        deltas against the client's held ring version
+        (``materialize=False`` skips building full chunks whose bytes have a
+        closed form, the simulator's path).  Tracking state is untouched
+        until :meth:`deliver_dispatch`."""
+        target = self.active.get(cid, self.round)
+        if self.dispatch is None:
+            return DispatchPayload(
+                cid=cid, target_version=target, base_version=None,
+                scheme="raw", param_size=self.packer.size, chunks=None,
+                nbytes=4 * self.packer.size,
+                encode_cost_bytes=4 * self.packer.size)
+        with self.tel.span("dispatch.encode", cid=cid, version=target):
+            return self.dispatch.encode(cid, target, self._history,
+                                        materialize=materialize,
+                                        ratio=self._dispatch_ratio_of(target))
+
+    def encode_dispatch_round(self, cids: list[int],
+                              materialize: bool = True
+                              ) -> tuple[list[DispatchPayload], int]:
+        """Encode one aggregation round's dispatch fan-out in one pass
+        (``DispatchSession.encode_many``): every personalized resync fold-in
+        coalesces into one batched encode per wire format.  Returns
+        ``(payloads, fold_cost_bytes)``, payloads aligned to ``cids`` and
+        byte-identical to sequential :meth:`encode_dispatch` calls."""
+        if self.dispatch is None:
+            return ([self.encode_dispatch(c, materialize) for c in cids], 0)
+        reqs = []
+        for cid in cids:
+            target = self.active.get(cid, self.round)
+            reqs.append((cid, target, self._dispatch_ratio_of(target)))
+        return self.dispatch.encode_many(reqs, self._history,
+                                         materialize=materialize)
+
+    def dispatch_ratio(self, version: Optional[int] = None) -> Optional[float]:
+        """Top-k dispatch ratio for dispatches of ``version`` (default: the
+        current round): the drift band's ratio under the adaptive policy,
+        the static ratio for top-k dispatch, None for other schemes."""
+        if self.dispatch is None or self.dispatch.fmt.scheme != "topk":
+            return None
+        v = self.round if version is None else version
+        r = self._dispatch_ratio_of(v)
+        return self.dispatch.fmt.topk_ratio if r is None else r
+
     def deliver_dispatch(self, cid: int, payload: DispatchPayload) -> None:
-        """The last downlink chunk reached the client: account the bytes."""
+        """The last downlink chunk reached the client: account the wire
+        bytes and commit version tracking + error-feedback residual."""
         self.bytes_downloaded += payload.nbytes
+        if self.dispatch is not None and payload.scheme != "raw":
+            self.dispatch.deliver(payload)
 
     def dispatch_model(self, cid: int) -> Params:
         """The model ``cid`` holds (training-base boundary): the exact
-        dispatch-version global."""
-        return self.params_at(self.active[cid])
+        dispatch-version global under the broadcast or f32 dispatch, the
+        delivered reconstruction under a lossy dispatch."""
+        if self.dispatch is None or cid not in self.dispatch.versions:
+            return self.params_at(self.active[cid])
+        v = self.dispatch.versions[cid]
+        held = self.dispatch.held_flat(cid, self._history)
+        if held is self._history.get(v):
+            return self.params_at(v)
+        return self.packer.unpack(held)
 
     # ------------------------------------------------------- uplink transport
     def encode_update(self, cid: int, client_params: Params,
@@ -394,10 +493,17 @@ class SeaflServer:
                                        wire, base, ef)
 
     def _uplink_base(self, cid: int, version: int) -> torch.Tensor:
-        """The flat base a delta-coded upload is measured against: the
-        dispatch-version global the client trained from.  (The reference
-        measures against the delivered reconstruction under a lossy
-        dispatch scheme; the port's dispatch is the exact broadcast.)"""
+        """The flat base a delta-coded upload is measured against.
+
+        Under a lossy dispatch the client trained from the *delivered*
+        reconstruction (``held = ring[version] - dispatch residual``), so
+        its delta is measured against that, and the server, which knows the
+        residual, decodes against the same base.  Exact dispatch (the
+        broadcast, f32, or no tracking for this client) keeps the
+        snapshot."""
+        if (self.dispatch is not None
+                and self.dispatch.versions.get(cid) == version):
+            return self.dispatch.held_flat(cid, self._history)
         return self._history[version]
 
     def begin_ingest(self, cid: int, version: int, n_epochs: int,
@@ -444,12 +550,46 @@ class SeaflServer:
             # readers only ever see flushed rows
             self._batcher.flush()
         self.buffer.commit(sess.slot)
+        self._updates_since_agg += 1
+        if self._cohorts_on and self.buffer.capacity > 1:
+            self._edge_absorb(sess.slot)
         self.active.pop(cid, None)
         self.idle.add(cid)
-        if (len(self.buffer) >= self.buffer.capacity
+        filled = (self._updates_since_agg if self._cohorts_on
+                  else len(self.buffer))
+        if (filled >= self.buffer.capacity
                 and not self._blocked_by_stale()):
             return self._aggregate(recv_time)
         return None
+
+    def _edge_absorb(self, slot: int) -> None:
+        """Two-tier aggregation, edge tier: fold the just-committed upload
+        into its version's resident partial.
+
+        The first upload of a version this round claims its slot as the
+        version's partial; every later same-version upload merges into it
+        as a sample-weighted mean and its own row returns to the free pool.
+        The partial's metadata accumulates the contributor ids
+        (``meta['merged_cids']``) and the sample count, so the Eq. (4)-(8)
+        weights see one slot per version carrying the cohort's mass, while
+        the trigger still counts raw uploads."""
+        hu, _ = self.buffer._committed[-1]
+        v = hu.version
+        held = self._edge_slots.get(v)
+        if held is None:
+            self._edge_slots[v] = (slot, hu)
+            return
+        hslot, head = held
+        self.buffer.merge_rows(hslot, slot, float(head.n_samples),
+                               float(hu.n_samples))
+        head.meta.setdefault("merged_cids",
+                             [head.client_id]).append(hu.client_id)
+        head.n_samples += hu.n_samples
+        head.recv_time = hu.recv_time
+        head.n_epochs = max(head.n_epochs, hu.n_epochs)
+        self.buffer.uncommit(slot)
+        self._edge_merges_round += 1
+        self._edge_merges_total += 1
 
     def ingest_payload(self, payload: UploadPayload,
                        recv_time: float = 0.0) -> Optional[AggregationEvent]:
@@ -523,8 +663,15 @@ class SeaflServer:
             if weights is not None:
                 self.tel.histogram_many("agg.weight", weights)
 
-        contributors = [u.client_id for u in updates]
+        # an edge partial contributes every client it absorbed; a plain
+        # slot its own id
+        contributors = [c for u in updates
+                        for c in u.meta.get("merged_cids", [u.client_id])]
         self.buffer.drain()
+        self._edge_partials_last = self._edge_merges_round
+        self._edge_merges_round = 0
+        self._edge_slots = {}
+        self._updates_since_agg = 0
         self.round += 1
         self.total_aggregations += 1
         self._history[self.round] = self._flat
@@ -563,6 +710,58 @@ class SeaflServer:
             contributors=contributors, dispatch=dispatch,
             notify=self.clients_to_notify())
 
+    # ------------------------------------------------------- fleet telemetry
+    def cohort_stats(self) -> Optional[dict]:
+        """Cohort-layer occupancy (None when ``cohorts='off'``): the live
+        cohort count of the dispatch table (0 without a dispatch session)
+        and the edge merges of the round that just aggregated."""
+        if not self._cohorts_on:
+            return None
+        return {
+            "cohorts": (self.dispatch.table.n_cohorts()
+                        if isinstance(self.dispatch, CohortDispatchSession)
+                        else 0),
+            "edge_partials": int(self._edge_partials_last),
+            "edge_merges_total": int(self._edge_merges_total),
+        }
+
+    def resident_state_bytes(self) -> dict:
+        """Server-resident fleet state, in bytes.
+
+        ``server_array_bytes`` sums the (P,)-scaled state the server holds
+        (history ring, (K, P) buffer, dispatch residuals), which must stay
+        ~O(cohorts + ring) as the fleet grows; ``tracking_entries`` counts
+        the per-client scalar entries (held versions).  ``client_ef_bytes``
+        is apart: uplink error-feedback residuals live on the devices in a
+        deployment and are only simulated here.  Counted as the reference
+        counts them, 4 bytes an element."""
+        hist = sum(int(v.numel()) * 4 for v in self._history.values())
+        buf = int(self.buffer.hbm_bytes)
+        ef = sum(int(e.residual.numel()) * 4 for e in self._ef.values()
+                 if e.residual is not None)
+        disp = cache = tracking = 0
+        if self.dispatch is not None:
+            tracking = len(self.dispatch.versions)
+            if isinstance(self.dispatch, CohortDispatchSession):
+                disp = self.dispatch.table.resident_bytes()
+            else:
+                disp = sum(int(r.numel()) * 4
+                           for r in self.dispatch.residuals.values())
+            for ent in self.dispatch._cache.values():
+                cache += int(ent[2])
+                if ent[1] is not None:
+                    cache += int(ent[1].numel()) * 4
+        return {
+            "history_bytes": hist,
+            "buffer_bytes": buf,
+            "dispatch_residual_bytes": disp,
+            "client_ef_bytes": ef,
+            "encode_cache_bytes": cache,
+            "tracking_entries": tracking,
+            "edge_partial_slots": len(self._edge_slots),
+            "server_array_bytes": hist + buf + disp,
+        }
+
     # ------------------------------------------------------ fault tolerance
     def state_dict(self) -> dict:
         """JSON-able control state (the tensors are saved separately, from
@@ -579,7 +778,8 @@ class SeaflServer:
             "total_aggregations": self.total_aggregations,
             "bytes_uploaded": int(self.bytes_uploaded),
             "bytes_downloaded": int(self.bytes_downloaded),
-            "dispatch": None,            # no version-tracked dispatch yet
+            "dispatch": (self.dispatch.state_dict()
+                         if self.dispatch is not None else None),
             "drift": self._drift.state_dict(),
             "ratio_by_version": {str(v): float(r) for v, r in
                                  self._ratio_by_version.items()},
@@ -595,6 +795,18 @@ class SeaflServer:
             ],
             "ef_clients": sorted(c for c, ef in self._ef.items()
                                  if ef.residual is not None),
+            **({
+                # cohort mode: the upload counter decouples the trigger
+                # from the committed-slot count, and edge partials re-link
+                # to their rebuilt rows by committed index
+                "updates_since_agg": int(self._updates_since_agg),
+                "edge_slots": [
+                    [int(v), next(i for i, (u, _) in
+                                  enumerate(self.buffer._committed)
+                                  if u is hu)]
+                    for v, (_, hu) in self._edge_slots.items()
+                ],
+            } if self._cohorts_on else {}),
             # the metrics snapshot rides along only when telemetry is on
             **({"telemetry": self.tel.snapshot()}
                if self.tel.enabled else {}),
@@ -604,13 +816,16 @@ class SeaflServer:
         """Tensors to persist: the flat model at each live version
         (``v{version}``), each client's error-feedback residual
         (``ef{cid}``; without them a restart under a delta-coded uplink
-        resets error memory) and the committed buffer rows (``slot{i}``, in
+        resets error memory), the dispatch residuals (``dr{cid}``, or the
+        cohort residuals ``cr{i}``) and the committed buffer rows (``slot{i}``, in
         the buffer's dtype).  They are the live tensors, not copies: the
         Checkpointer copies them to the host before it returns."""
         trees = {f"v{v}": p for v, p in self._history.items()}
         for cid, ef in self._ef.items():
             if ef.residual is not None:
                 trees[f"ef{cid}"] = ef.residual
+        if self.dispatch is not None:
+            trees.update(self.dispatch.residual_trees())
         for i in range(len(self.buffer)):
             trees[f"slot{i}"] = self.buffer.row(i)
         return trees
@@ -630,11 +845,37 @@ class SeaflServer:
         self.total_aggregations = int(state["total_aggregations"])
         self.bytes_uploaded = int(state.get("bytes_uploaded", 0))
         self.bytes_downloaded = int(state.get("bytes_downloaded", 0))
-        if state.get("dispatch") is not None:
+        disp_state = state.get("dispatch")
+        disp_trees = {k: v for k, v in trees.items()
+                      if k.startswith(("dr", "cr"))}
+        if disp_state is not None and self.dispatch is None:
             warnings.warn(
                 "checkpoint carries dispatch version-tracking state but the "
                 "restored config has dispatch_compression=None; dropping it "
                 "(all clients will receive full legacy broadcasts)")
+        elif self.dispatch is not None:
+            if disp_state is not None and \
+                    disp_state.get("scheme") != self.dispatch.fmt.scheme:
+                warnings.warn(
+                    f"checkpoint dispatch state was written under scheme "
+                    f"'{disp_state.get('scheme')}' but the restored config "
+                    f"uses '{self.dispatch.fmt.scheme}'; dropping tracking "
+                    f"state (clients re-request full snapshots)")
+                disp_state, disp_trees = None, {}
+            if disp_state is not None and \
+                    ("cohort" in disp_state) != isinstance(
+                        self.dispatch, CohortDispatchSession):
+                # per-client residuals cannot seed cohort tables (or the
+                # reverse): crossing modes drops tracking
+                warnings.warn(
+                    "checkpoint dispatch state was written under the "
+                    f"{'cohort' if 'cohort' in disp_state else 'per-client'}"
+                    " fleet-state mode but the restored config uses "
+                    f"cohorts='{self.cfg.cohorts}'; dropping tracking state "
+                    "(clients re-request full snapshots)")
+                disp_state, disp_trees = None, {}
+            self.dispatch.load_state(disp_state or {}, disp_trees,
+                                     device=self.device)
         self._drift = DriftTracker.from_state(state.get("drift"),
                                               self.cfg.drift_ema_beta)
         self._ratio_by_version = {
@@ -678,5 +919,15 @@ class SeaflServer:
                        recv_time=float(m["recv_time"]),
                        meta=dict(m.get("meta", {}))),
                 tensor(trees[f"slot{i}"]))
+        # edge-tier state: absent in off-mode checkpoints, so the counter
+        # defaults to the committed-slot count and the partial map is empty
+        self._updates_since_agg = int(state.get(
+            "updates_since_agg", len(state.get("buffer", []))))
+        self._edge_slots = {}
+        for v, i in state.get("edge_slots", []):
+            u, row = self.buffer._committed[int(i)]
+            self._edge_slots[int(v)] = (row, u)
+        self._edge_merges_round = 0
+        self._edge_partials_last = 0
         if self.tel.enabled and "telemetry" in state:
             self.tel.load_snapshot(state["telemetry"])

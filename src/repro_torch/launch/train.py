@@ -11,18 +11,24 @@ same event timeline as the simulation.
 Runs on the card unless ``--device cpu``.  The CLI keeps the JAX trainer's
 flags and defaults (smoke configs); the full-size configs go through the
 Python API, ``build_lm_fl(arch, smoke=False, ...)``.  ``--compression``
-(bf16, topk:<ratio>, int8) sets the server's uplink.  ``--ckpt-dir``
+(bf16, topk:<ratio>, int8) sets the server's uplink and
+``--dispatch-compression`` (f32, bf16, topk:<ratio>, int8) its
+version-tracked downlink (``--dispatch-history``, ``--dispatch-resync``,
+``--dispatch-resync-mode``, ``--no-dispatch-multicast``,
+``--dispatch-ratio-policy drift``, ``--resync-batching``); ``--cohorts on``
+shares dispatch state per cohort and merges same-version uploads into one
+buffer slot.  ``--ckpt-dir``
 restores the server from the directory's latest checkpoint at start
 (``[train] restored from round N``) and saves after every ``--ckpt-every``
 rounds, in the JAX package's format, so either trainer resumes the other's
-run.  The options the port's server refuses (dispatch compression, cohorts,
-the run monitor and ``--slo``, the autotuner, kernel timing) raise there.
+run.  The options the port's server refuses (the run monitor and
+``--slo``, the autotuner, kernel timing) raise there.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
       --rounds 3 --clients 4 --concurrency 2 --buffer 2 --seq-len 32 \
-      [--compression topk:0.2] [--ckpt-dir /tmp/ck --ckpt-every 1] \
-      [--device cpu]
+      [--compression topk:0.2] [--dispatch-compression topk:0.2] \
+      [--cohorts on] [--ckpt-dir /tmp/ck --ckpt-every 1] [--device cpu]
 """
 from __future__ import annotations
 
@@ -186,8 +192,8 @@ def format_round(rec: dict) -> str:
 
 def summary_record(server, sim) -> dict:
     """The run's summary record: the JAX record's fields that the port's
-    server can produce (it refuses dispatch compression, cohorts and the
-    run monitor, whose fields the JAX record adds)."""
+    server can produce (it refuses the run monitor, whose field the JAX
+    record adds)."""
     rec = {
         "event": "summary",
         "rounds": int(server.round),
@@ -195,21 +201,39 @@ def summary_record(server, sim) -> dict:
         "uplink_bytes": int(server.bytes_uploaded),
         "downlink_bytes": int(server.bytes_downloaded),
     }
+    disp = server.dispatch
+    if disp is not None:
+        rec["dispatch_full"] = int(disp.full_dispatches)
+        rec["dispatch_delta"] = int(disp.delta_dispatches)
+        rec["encode_cache_hit_rate"] = float(disp.cache_info()["hit_rate"])
+        rec["resyncs"] = int(disp.resync_dispatches)
     if sim.ratio_log:
         counts: dict = {}
         for r in sim.ratio_log:
             counts[r["ratio"]] = counts.get(r["ratio"], 0) + 1
         rec["dispatch_ratio_bands"] = {str(k): v
                                        for k, v in sorted(counts.items())}
+    cs = server.cohort_stats()
+    if cs is not None:
+        rec["cohorts"] = int(cs["cohorts"])
+        rec["edge_merges"] = int(cs["edge_merges_total"])
     return rec
 
 
 def format_summary(rec: dict) -> str:
     note = ""
+    if "dispatch_full" in rec:
+        note += (f", dispatch_full={rec['dispatch_full']}"
+                 f", dispatch_delta={rec['dispatch_delta']}"
+                 f", encode_cache_hit_rate={rec['encode_cache_hit_rate']:.2f}"
+                 f", resyncs={rec['resyncs']}")
     if "dispatch_ratio_bands" in rec:
         bands = ", ".join(f"{k}: {v}"
                           for k, v in rec["dispatch_ratio_bands"].items())
         note += f", dispatch_ratio_bands={{{bands}}}"
+    if "cohorts" in rec:
+        note += (f", cohorts={rec['cohorts']}"
+                 f", edge_merges={rec['edge_merges']}")
     return (f"[train] done: {rec['rounds']} rounds, "
             f"{rec['aggregations']} aggregations, "
             f"uplink_bytes={rec['uplink_bytes']}, "

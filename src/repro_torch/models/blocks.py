@@ -91,15 +91,16 @@ def attn_mlp_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
     s = _res_scale(cfg)
     x, x_in = L.block_input(x, cfg)
     a, new_c = L.attn_apply(p["attn"],
-                            L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype),
+                            L.rmsnorm(p["ln1"], x_in, cfg.norm_eps,
+                                      torch.float32),
                             cfg, mode=mode,
                             cache=None if cache is None else cache["attn"],
-                            pos=pos)
+                            pos=pos, dtype=x.dtype)
     # ln2 reads the residual sum unrounded, the residual stream rounded
-    mid = L.unrounded(x, a * L.const(s, a))
-    x = mid.to(x.dtype)
-    m = L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], mid, cfg.norm_eps, x.dtype),
-                    cfg)
+    x, mid = L.rounded_pair(L.unrounded(x, a * L.const(s, a)), x.dtype)
+    m = L.mlp_apply(p["mlp"],
+                    L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
+                    cfg, x.dtype)
     return (L.unrounded(x, m * L.const(s, m)),
             None if cache is None else {"attn": new_c})
 
@@ -140,11 +141,11 @@ def rg_lru_gates(p, xb32, dtype):
     """Returns (log_a, b_in) in f32 for h_t = a_t h_{t-1} + b_t, from the
     conv's output unrounded in f32: the gate products read it in ``dtype``,
     the input gate unrounded, as the reference's (:func:`layers.unrounded`)."""
-    xb = xb32.to(dtype)
-    r = torch.sigmoid(L.linear(p["a_gate"], xb).to(torch.float32))
-    i = torch.sigmoid(L.linear(p["x_gate"], xb).to(torch.float32))
+    xa, xx, xw = L.fan_out(xb32, dtype, 3, wide=(2,), f32_last=False)
+    r = torch.sigmoid(L.linear(p["a_gate"], xa).to(torch.float32))
+    i = torch.sigmoid(L.linear(p["x_gate"], xx).to(torch.float32))
     log_a = RG_C * r * F.logsigmoid(p["rg_a"].to(torch.float32))
-    gated = i * xb32
+    gated = i * xw
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * gated
     return log_a, b
@@ -232,11 +233,11 @@ def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
                          "conv": xz[:, -(cfg.conv_width - 1):, :cfg.rnn_width]
                          .to(cache["conv"].dtype)}
 
-    out = L.linear(p["out_proj"], h.to(x.dtype) * L.gelu(z))
-    mid = L.unrounded(x, out)
-    x = mid.to(x.dtype)
-    m = L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], mid, cfg.norm_eps, x.dtype),
-                    cfg)
+    out = L.linear(p["out_proj"], L.product(h, L.gelu(z), x.dtype))
+    x, mid = L.rounded_pair(L.unrounded(x, out), x.dtype)
+    m = L.mlp_apply(p["mlp"],
+                    L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
+                    cfg, x.dtype)
     return L.unrounded(x, m), new_cache
 
 
@@ -422,8 +423,8 @@ def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
                          "conv": xbc_raw[:, -(cfg.conv_width - 1):]
                          .to(cache["conv"].dtype)}
 
-    # out_norm reads the gated product unrounded (layers.unrounded)
-    y = y.to(x.dtype).to(torch.float32) * L.silu(z)   # widens exactly
+    # out_norm reads the gated product unrounded (layers.product)
+    y = L.product(y, L.silu(z), x.dtype, unrounded=True)
     y = L.rmsnorm(p["out_norm"], y, cfg.norm_eps, x.dtype)
     out = L.linear(p["out_proj"], y)
     return L.unrounded(x, out), new_cache

@@ -105,7 +105,41 @@ def block_input(x, cfg):
     """A block's input ``x`` -- the activation dtype, or f32 when the block
     before it in the same repeat returned its residual sum unrounded -- as
     (the residual stream in ``cfg.dtype``, the value its first norm reads)."""
-    return x.to(DTYPES[cfg.dtype]), x
+    dtype = DTYPES[cfg.dtype]
+    if x.dtype == dtype:
+        return x, x
+    return rounded_pair(x, dtype)
+
+
+class _RoundedPair(torch.autograd.Function):
+    """(``x`` rounded to ``dtype``, ``x``): a low-precision sum that the
+    reference rounds for the residual stream while XLA hands a norm the
+    unrounded value.  The gradient is the low-precision value's: the
+    norm's f32 cotangent rounded to ``dtype`` and added, in ``dtype``, to
+    the stream's."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.to(dtype), x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g_low, g_wide):
+        if g_wide is None:
+            d = g_low
+        elif g_low is None:
+            d = g_wide.to(ctx.dtype)
+        else:
+            d = g_low + g_wide.to(ctx.dtype)
+        return d.to(torch.float32), None
+
+
+def rounded_pair(x, dtype):
+    """(``x`` rounded to ``dtype``, ``x`` in f32), with the gradient of the
+    reference's rounded value (:class:`_RoundedPair`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RoundedPair.apply(x, dtype)
+    return x.to(dtype), x
 
 
 def const(v, x):
@@ -128,6 +162,88 @@ def unrounded(x, y):
     the next block's first norm inside one repeat of a group (one
     ``lax.scan`` step); the scan's carry between repeats is rounded."""
     return x.to(torch.float32) + y          # y widens exactly in the add
+
+
+class _FanOut(torch.autograd.Function):
+    """Casts of an f32 ``x`` to ``dtype`` for several consumers (and, where
+    ``wide`` marks one, ``x`` itself for a consumer that reads it in f32),
+    with the gradient JAX's autodiff and XLA give a low-precision value
+    read several times: the consumers' cotangents rounded to ``dtype`` and
+    added in reverse order of use, each add in ``dtype``; the last add
+    stays in f32 where ``f32_last`` (XLA keeps the sum that flows into an
+    f32 value, a norm's output, unrounded)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype, wide, f32_last):
+        ctx.dtype, ctx.f32_last = dtype, f32_last
+        y = x.to(dtype)
+        return tuple(x.view_as(x) if w else (y if i == 0 else y.clone())
+                     for i, w in enumerate(wide))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gs = [g.to(ctx.dtype) for g in grads if g is not None]
+        acc = gs[-1]
+        for g in reversed(gs[1:-1]):
+            acc = acc + g
+        if len(gs) > 1:
+            acc = (acc.to(torch.float32) + gs[0].to(torch.float32)
+                   if ctx.f32_last else acc + gs[0])
+        return acc.to(torch.float32), None, None, None
+
+
+def fan_out(x, dtype, n, wide=(), f32_last=True):
+    """``n`` casts of ``x`` to ``dtype``, one for each of its consumers in
+    their order of use (``x`` itself at the indices in ``wide``), with the
+    reference's gradient (:class:`_FanOut`).  The reference casts a
+    norm's f32 output once and feeds it to several products (q/k/v, the
+    MLP's w1/w3).  Without a gradient, one cast serves all."""
+    if torch.is_grad_enabled() and x.requires_grad and x.dtype != dtype:
+        return _FanOut.apply(x, dtype, tuple(i in wide for i in range(n)),
+                             f32_last)
+    y = x.to(dtype)
+    return [x if i in wide else y for i in range(n)]
+
+
+class _Product(torch.autograd.Function):
+    """``a * b`` with both operands rounded to ``dtype``, computed in f32
+    and rounded to ``dtype`` -- or, with ``unrounded``, returned in f32
+    (exact: the product of two bf16 numbers fits an f32), as XLA computes a
+    low-precision product that its consumer converts to f32 at once
+    (:func:`unrounded`).  The gradient is XLA's: the cotangent rounded to
+    ``dtype``; an operand in ``dtype`` gets the product in ``dtype``, an
+    f32 operand (one the reference rounds to ``dtype`` just before the
+    product) gets it in f32, XLA dropping that gradient's convert pair."""
+
+    @staticmethod
+    def forward(ctx, a, b, dtype, unrounded):
+        ar, br = a.to(dtype), b.to(dtype)
+        ctx.save_for_backward(ar, br)
+        ctx.wide = (a.dtype == torch.float32, b.dtype == torch.float32)
+        return _product(ar, br, unrounded)
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, br = ctx.saved_tensors
+        g = g.to(ar.dtype)
+        da = g.float() * br.float() if ctx.wide[0] else g * br
+        db = g.float() * ar.float() if ctx.wide[1] else g * ar
+        return da, db, None, None
+
+
+def product(a, b, dtype, unrounded=False):
+    """``a.astype(dtype) * b.astype(dtype)`` as XLA computes it, with its
+    gradient (:class:`_Product`); ``unrounded`` returns the product in
+    f32 for a consumer that converts it to f32 at once."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _Product.apply(a, b, dtype, unrounded)
+    return _product(a.to(dtype), b.to(dtype), unrounded)
+
+
+def _product(a, b, unrounded):
+    # a bf16 product fits an f32 exactly, so torch's rounded product (an
+    # f32 multiply, rounded once) is XLA's, and the f32 one is exact
+    return a.to(torch.float32) * b if unrounded else a * b
 
 
 def _sigmoid(x):
@@ -438,15 +554,19 @@ def _cache_read(cfg, cache, dtype):
     return cache["k"], cache["v"]
 
 
-def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
+def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None):
     """mode: train | prefill | decode.  pos: int absolute position (decode).
-    The cache is written in place (see ``_cache_write``) and returned."""
+    The cache is written in place (see ``_cache_write``) and returned.
+    ``x`` in the activation dtype, or in f32 with ``dtype`` the one the
+    q/k/v projections read it in (a cast for each, :func:`fan_out`)."""
     B, S, _ = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dtype = dtype or x.dtype
+    xq, xk, xv = fan_out(x, dtype, 3)
 
-    q = linear(p["wq"], x).reshape(B, S, H, Dh)
-    k = linear(p["wk"], x).reshape(B, S, KVH, Dh)
-    v = linear(p["wv"], x).reshape(B, S, KVH, Dh)
+    q = linear(p["wq"], xq).reshape(B, S, H, Dh)
+    k = linear(p["wk"], xk).reshape(B, S, KVH, Dh)
+    v = linear(p["wv"], xv).reshape(B, S, KVH, Dh)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -473,7 +593,7 @@ def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
         span = cache["k"].shape[1]
         slot = pos % span if cfg.window else pos
         new_cache = _cache_write(cfg, cache, k, v, slot)
-        ck, cv = _cache_read(cfg, new_cache, x.dtype)
+        ck, cv = _cache_read(cfg, new_cache, dtype)
         if cfg.window:
             # ring buffer: the absolute position of slot i is recoverable;
             # mask unwritten and out-of-window slots
@@ -504,11 +624,14 @@ def mlp_init(gen, cfg, dtype, device, d_ff=None, gated=True, lead=()):
     return p
 
 
-def mlp_apply(p, x, cfg):
+def mlp_apply(p, x, cfg, dtype=None):
+    """``x`` in the activation dtype, or in f32 with ``dtype`` the one its
+    products read it in (a cast for each, :func:`fan_out`)."""
     act = act_fn(cfg.act)
-    h = act(linear(p["w1"], x))
+    x1, x3 = fan_out(x, dtype or x.dtype, 2)
+    h = act(linear(p["w1"], x1))
     if "w3" in p:
-        h = h * linear(p["w3"], x)
+        h = h * linear(p["w3"], x3)
     return linear(p["w2"], h)
 
 

@@ -42,8 +42,11 @@ so version tracking and mid-stream ingest aborts behave identically.
 ``availability='always'`` (default) draws no RNG and pushes no events:
 bit-identical to the availability-free simulator, pinned by test.
 
-The run monitor and the version-tracked, resync-batched dispatch of the JAX
-package's simulator are not ported yet: the port's server has neither.
+Under ``FLConfig.resync_batching`` one aggregation's dispatch fan-out is
+encoded in one pass (``SeaflServer.encode_dispatch_round``): the resync
+fold-ins coalesce into one batched encode whose source cost is priced once
+and shared by the resynced clients.  The JAX package's run-monitor hooks
+are not ported yet: the port's server has no monitor.
 """
 from __future__ import annotations
 
@@ -353,20 +356,30 @@ class FLSimulation:
         self._top_up()
         return True
 
-    def _dispatch(self, cid: int):
+    def _dispatch(self, cid: int, payload=None,
+                  encode_delay: Optional[float] = None):
         # defensive deferral: selection already filters offline clients,
         # but contributor re-dispatches and restored actives can address
         # a client that went offline since the server decided
         if self._maybe_defer(cid):
             return
         E = self.server.cfg.local_epochs
-        payload = self.server.encode_dispatch(cid)
+        # full payload chunks are never read here (the training base is
+        # reconstructed server-side), so skip materialising them
+        if payload is None:
+            payload = self.server.encode_dispatch(cid, materialize=False)
         if payload.ratio is not None:
             self.ratio_log.append({
                 "time": self.now, "cid": cid,
                 "round": payload.target_version, "ratio": payload.ratio})
-        enc = self._encode_time(payload)
-        self.encode_seconds += enc
+        if encode_delay is None:
+            enc = self._encode_time(payload)
+            self.encode_seconds += enc
+        else:
+            # resync batching: this payload came out of the round's one
+            # coalesced fold pass, whose source cost _on_aggregation
+            # accounted once; the delay is that shared batch-encode time
+            enc = encode_delay
         t0 = self.now + enc + self._down_time(cid, payload.nbytes)
         ends, t = [], t0
         for _ in range(E):
@@ -506,6 +519,10 @@ class FLSimulation:
                "encode_s": self.encode_seconds,
                "dispatch_ratio": self.server.dispatch_ratio(),
                "loss": last_loss}
+        cs = self.server.cohort_stats()
+        if cs is not None:
+            rec["cohorts"] = cs["cohorts"]
+            rec["edge_partials"] = cs["edge_partials"]
         if self._sched_cols:
             # participation columns (only when the availability/scheduler
             # layer is exercised, so default history keys are unchanged):
@@ -531,10 +548,28 @@ class FLSimulation:
         for cid in agg.notify:
             self._notify(cid)
         # defer before encoding: a dispatch addressed to a client that went
-        # offline since the server decided is parked
+        # offline since the server decided is parked, and under resync
+        # batching must not waste an encode (or churn its EF) on a payload
+        # that will never ship
         targets = [c for c in agg.dispatch if not self._maybe_defer(c)]
-        for cid in targets:
-            self._dispatch(cid)
+        if (self.server.cfg.resync_batching
+                and self.server.dispatch is not None and targets):
+            # encode the whole fan-out in one pass: cached hops fan out as
+            # usual, every personalized resync fold coalesces into one
+            # batched encode whose source cost is priced once
+            payloads, fold_cost = self.server.encode_dispatch_round(
+                targets, materialize=False)
+            batch_enc = 0.0
+            if self.cfg.encode_mbps > 0 and fold_cost:
+                batch_enc = fold_cost * 8.0 / (self.cfg.encode_mbps * 1e6)
+                self.encode_seconds += batch_enc
+            for cid, p in zip(targets, payloads):
+                self._dispatch(cid, payload=p,
+                               encode_delay=(batch_enc if p.batched
+                                             else None))
+        else:
+            for cid in targets:
+                self._dispatch(cid)
 
     # ------------------------------------------------------------- faults
     def _kill_inflight(self, cid: int, instant: Optional[str] = None) -> bool:

@@ -287,7 +287,28 @@ def test_jax_checkpoint_replays_in_both_packages(tmp_path):
     """JAX's simulation under topk:0.25, stopped mid-round with committed
     slots and EF residuals, checkpointed to disk; restored into a fresh
     JAX server and a fresh port server, each run 3 more aggregations."""
-    jc = exp_cfg("seafl", compression="topk:0.25")
+    _replay_jax_checkpoint(tmp_path, exp_cfg("seafl", compression="topk:0.25"))
+
+
+def test_jax_checkpoint_with_dispatch_and_cohorts_replays(tmp_path):
+    """The same under a top-k downlink with cohort state: the checkpoint
+    carries the versions, the cohort table and its residuals (``cr*``),
+    the edge partials and the upload counter, and both packages go on
+    from it alike (the downlink bytes and resync counts too)."""
+    js, jsim2, tsim = _replay_jax_checkpoint(tmp_path, exp_cfg(
+        "seafl", compression="topk:0.25", dispatch_compression="topk:0.1",
+        cohorts="on", dispatch_resync=0.5))
+    assert js.state_dict()["dispatch"]["cohort"]["res_keys"]
+    assert "edge_slots" in js.state_dict()
+    jd, td = jsim2.server.dispatch, tsim.server.dispatch
+    assert td.cache_info() == jd.cache_info()
+    assert (td.full_dispatches, td.delta_dispatches, td.resync_dispatches) \
+        == (jd.full_dispatches, jd.delta_dispatches, jd.resync_dispatches)
+    assert tsim.server.bytes_downloaded == jsim2.server.bytes_downloaded
+    assert td.table.stats() == jd.table.stats()
+
+
+def _replay_jax_checkpoint(tmp_path, jc):
     jsim, jmodel, _ = jax_build(jc)
     params0 = jax.tree.map(np.asarray,
                            jmodel.init(jax.random.PRNGKey(jc.seed)))
@@ -334,3 +355,4 @@ def test_jax_checkpoint_replays_in_both_packages(tmp_path):
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    return js, jsim2, tsim

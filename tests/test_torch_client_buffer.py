@@ -52,7 +52,7 @@ def test_local_train_matches_jax(name, n_epochs):
 
 def _ingest(dtype, batched, uploads, p, chunk_elems, auto_bypass=False):
     """Interleave the chunk streams of several uploads into one buffer."""
-    buf = UpdateBuffer(2, p, dtype=dtype)
+    buf = UpdateBuffer(2, p, dtype=dtype, device="cpu")
     fmt = make_wire_format("f32", chunk_elems)
     batcher = (IngestBatcher(buf, flush_chunks=3, auto_bypass=auto_bypass)
                if batched else None)
@@ -110,7 +110,7 @@ def test_bf16_slots_round_like_jax():
                         np.float32)
     jb = JaxBuffer(1, 4097, dtype=jnp.bfloat16)
     jb.add(JaxUpdate(0, 1, 0, 1), jnp.asarray(flat))
-    tb = UpdateBuffer(1, 4097, dtype=torch.bfloat16)
+    tb = UpdateBuffer(1, 4097, dtype=torch.bfloat16, device="cpu")
     tb.add(Update(0, 1, 0, 1), torch.tensor(flat))
     want = np.asarray(jb.stacked_flat()).view(np.uint16)
     got = tb.stacked_flat().view(torch.int16).numpy().view(np.uint16)
@@ -118,7 +118,7 @@ def test_bf16_slots_round_like_jax():
 
 
 def test_slot_protocol_release_and_drain():
-    buf = UpdateBuffer(2, 8)
+    buf = UpdateBuffer(2, 8, device="cpu")
     a = buf.reserve(Update(0, 1, 0, 1))
     b = buf.reserve(Update(1, 1, 0, 1))
     buf.release(a)                       # died mid-stream: row recycled
@@ -138,7 +138,8 @@ def test_merge_rows_and_uncommit_match_jax(dtype):
     jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     rng = np.random.default_rng(9)
     rows = rng.normal(size=(2, 300)).astype(np.float32)
-    jb, tb = JaxBuffer(2, 300, dtype=jd), UpdateBuffer(2, 300, dtype=dtype)
+    jb, tb = JaxBuffer(2, 300, dtype=jd), UpdateBuffer(2, 300, dtype=dtype,
+                                                    device="cpu")
     for i in range(2):
         jb.add(JaxUpdate(i, 1, 0, 1), jnp.asarray(rows[i]))
         tb.add(Update(i, 1, 0, 1), torch.tensor(rows[i]))
@@ -150,3 +151,12 @@ def test_merge_rows_and_uncommit_match_jax(dtype):
     np.testing.assert_allclose(tb.stacked_flat().float().numpy(),
                                np.asarray(jb.stacked_flat(), np.float32),
                                rtol=1e-6, atol=1e-7)
+
+
+def test_buffer_without_a_device_asks_for_the_card(monkeypatch):
+    """The buffer follows the port's device policy: no device means the
+    card, which raises here instead of quietly running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        UpdateBuffer(2, 8)
+    assert UpdateBuffer(2, 8, device="cpu").device.type == "cpu"

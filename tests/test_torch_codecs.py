@@ -184,7 +184,7 @@ def test_ingest_with_a_base_adds_it_back():
     pl = T.encode_update(0, 0, 1, torch.from_numpy(params), fmt,
                          torch.from_numpy(base))
     want = C.decode_concat(pl.chunks, fmt) + torch.from_numpy(base)
-    buf = UpdateBuffer(2, 700)
+    buf = UpdateBuffer(2, 700, device="cpu")
     for slot, feed in ((buf.reserve(Update(0, 1, 0, 1)), "write"),
                        (buf.reserve(Update(1, 1, 0, 1)), "write_all")):
         sess = T.IngestSession(buf, slot, fmt, torch.from_numpy(base))

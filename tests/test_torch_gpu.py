@@ -486,3 +486,59 @@ def test_card_server_checkpoint_restores_bit_equal(cuda, tmp_path,
         assert got[k].device.type == restore_on and got[k].dtype == \
             want[k].dtype, k
         assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+def _payload_bytes(p):
+    """Each chunk's payload tensors as host bytes."""
+    return [{k: v.cpu().reshape(-1).view(torch.uint8)
+             for k, v in (c.payload.items() if isinstance(c.payload, dict)
+                          else {"": c.payload}.items())}
+            for c in p.chunks]
+
+
+@pytest.mark.parametrize("spec", ["bf16", "topk:0.05", "int8"])
+def test_dispatch_on_the_card_equals_the_cpu(cuda, spec):
+    """The downlink session (cohort state, resync on) on a ring of card
+    versions against the same session on the CPU: every payload's bytes,
+    the residuals and the counters equal; each client's ``apply_dispatch``
+    on the card rebuilds what the server's algebra says it holds, up to
+    the member's mismatch bound."""
+    from repro_torch.runtime.codecs import make_wire_format
+    from repro_torch.runtime.cohorts import CohortDispatchSession
+    from repro_torch.runtime.dispatch import apply_dispatch
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    ring = {0: torch.randn(3 * 4096 + 777, generator=gen, device=cuda)}
+    for v in range(1, 5):
+        ring[v] = ring[v - 1] + 0.02 * v * torch.randn(
+            ring[0].shape, generator=gen, device=cuda)
+    cpu_ring = {v: g.cpu() for v, g in ring.items()}
+    fmt = make_wire_format(spec, 4096)
+    card = CohortDispatchSession(fmt, 3, resync=1.0)
+    host = CohortDispatchSession(fmt, 3, resync=1.0)
+    models = {}
+    for target, cids in ((0, [0, 1, 2]), (1, [0, 1]), (2, [0, 1, 2]),
+                         (3, [2, 0]), (4, [0, 1, 2])):
+        for cid in cids:
+            a = card.encode(cid, target, ring)
+            b = host.encode(cid, target, cpu_ring)
+            assert (a.nbytes, a.full, a.shared, a.resync, a.hop) == \
+                (b.nbytes, b.full, b.shared, b.resync, b.hop)
+            for ca, cb in zip(_payload_bytes(a), _payload_bytes(b)):
+                for key in cb:
+                    assert torch.equal(ca[key], cb[key]), key
+            models[cid] = apply_dispatch(a, fmt,
+                                         None if a.full else models[cid])
+            assert models[cid].device == ring[0].device
+            card.deliver(a)
+            host.deliver(b)
+            # a cohort member holds the cohort's model up to its scalar
+            # mismatch bound
+            gap = float(torch.linalg.norm(models[cid]
+                                          - card.held_flat(cid, ring)))
+            assert gap <= card.table.mismatch_of(cid) * (1 + 1e-5) + 1e-4
+            assert torch.equal(card.held_flat(cid, ring).cpu(),
+                               host.held_flat(cid, cpu_ring))
+    assert card.cache_info() == host.cache_info()
+    assert card.table.stats() == host.table.stats()
+    assert card.cache_hits > 0
+    assert (card.delta_dispatches > 0) == fmt.delta_coded

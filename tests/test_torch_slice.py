@@ -2,8 +2,11 @@
 the integration workload (``test_integration_fl.exp_cfg``: tiny task, mlp,
 16 clients) from the same initial params.
 
-Held equal: event times, contributors, staleness and dispatch lists of every
-aggregation.  Held close: aggregation weights (<= 1e-5) and accuracy (within
+Held equal: event times, contributors (an edge partial's merged ones
+included), staleness and dispatch lists of every aggregation, the bytes up
+and down, and under a version-tracked downlink the full/delta/resync
+counts, the encode cache's counters and the ratio each dispatch shipped
+at.  Held close: aggregation weights (<= 1e-5) and accuracy (within
 0.02); training runs in another framework, so params differ in the last
 f32 bits and the weights' cosine terms with them.
 """
@@ -16,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_integration_fl import exp_cfg  # noqa: E402
+from test_torch_dispatch import watch_decisions  # noqa: E402
 
 from repro.data.partition import dirichlet_partition as jax_partition  # noqa: E402
 from repro.data.synthetic import make_image_dataset as jax_dataset  # noqa: E402
@@ -55,6 +59,9 @@ def _port_cfg(jc):
 
 CHURN = dict(fail_prob=0.2, recover_after=5.0, availability="longtail",
              avail_mean_on=20.0, avail_mean_off=5.0, bandwidth_model="pareto")
+# the downlink's bytes and encode cost move the event times
+WIRE = dict(bandwidth_model="pareto", encode_mbps=400.0, fail_prob=0.1,
+            recover_after=5.0)
 
 
 @pytest.mark.parametrize("algorithm,fl_kw,sim_kw", [
@@ -63,13 +70,32 @@ CHURN = dict(fail_prob=0.2, recover_after=5.0, availability="longtail",
     ("seafl", {"buffer_dtype": "bfloat16", "telemetry": True}, {}),
     ("seafl", {"scheduler": "rate_staleness"}, CHURN),
     ("seafl2", {}, dict(CHURN, speed_model="zipf")),
+    ("seafl", {"dispatch_compression": "bf16"}, WIRE),
+    ("seafl", {"dispatch_compression": "int8", "compression": "int8"}, WIRE),
+    ("seafl", {"dispatch_compression": "topk:0.1", "dispatch_resync": 0.5,
+               "compression": "topk:0.2", "telemetry": True}, WIRE),
+    ("seafl2", {"dispatch_compression": "topk:0.1", "cohorts": "on",
+                "resync_batching": True, "dispatch_resync": 0.5}, WIRE),
+    ("fedbuff", {"dispatch_compression": "topk:0.1",
+                 "dispatch_ratio_policy": "drift",
+                 "dispatch_resync_mode": "bytes"}, WIRE),
+    ("seafl", {"cohorts": "on"}, {}),
 ], ids=["seafl", "fedasync", "seafl2", "fedbuff", "fedavg",
-        "seafl-bf16-telemetry", "seafl-churn-ranked", "seafl2-churn-zipf"])
-def test_simulation_replays_jax(algorithm, fl_kw, sim_kw):
+        "seafl-bf16-telemetry", "seafl-churn-ranked", "seafl2-churn-zipf",
+        "down-bf16", "down-int8-up-int8", "down-topk-resync-up-topk",
+        "down-topk-cohorts-batched", "down-topk-drift-bytes",
+        "cohorts-broadcast"])
+def test_simulation_replays_jax(algorithm, fl_kw, sim_kw, monkeypatch):
     """Crashes, churn, the bandwidth model and the ranked scheduler run in
-    the last two cases: their RNG streams and events must replay too.  With
+    the churn cases: their RNG streams and events must replay too.  With
     telemetry on, the same metrics are recorded (values of wall-clock
-    metrics differ)."""
+    metrics differ).  The ``down-*`` cases run the version-tracked
+    downlink (the held reconstruction is then the uplink's base), the
+    cohort table with its edge merges, resync batching and the drift
+    bands; the resync and band decisions read f32 norms that sum in
+    another order than XLA's, and the smallest margin to a threshold is
+    printed (``pytest -s``)."""
+    margins = watch_decisions(monkeypatch)
     jc = exp_cfg(algorithm, **fl_kw)
     jc.sim = dataclasses.replace(jc.sim, **sim_kw)
     jsim, jmodel, _ = jax_build(jc)
@@ -80,6 +106,9 @@ def test_simulation_replays_jax(algorithm, fl_kw, sim_kw):
     tsim, _, _ = build_experiment(_port_cfg(jc), params=params0)
     t_events = _record_events(tsim)
     t_hist = tsim.run(max_rounds=ROUNDS)
+    if margins:
+        print(f"smallest relative margin of {len(margins)} decisions: "
+              f"{min(margins):.3e}")
 
     assert len(t_hist) == len(j_hist) == ROUNDS
     for j, t in zip(j_hist, t_hist):
@@ -104,6 +133,29 @@ def test_simulation_replays_jax(algorithm, fl_kw, sim_kw):
     np.testing.assert_allclose(tsim.server.global_flat.numpy(),
                                np.asarray(jsim.server.global_flat),
                                atol=1e-4)
+    jd, td = jsim.server.dispatch, tsim.server.dispatch
+    assert (jd is None) == (td is None)
+    assert tsim.ratio_log == jsim.ratio_log
+    assert tsim.server.cohort_stats() == jsim.server.cohort_stats()
+    if jd is not None:
+        assert td.cache_info() == jd.cache_info()
+        assert (td.full_dispatches, td.delta_dispatches,
+                td.resync_dispatches) == (jd.full_dispatches,
+                                          jd.delta_dispatches,
+                                          jd.resync_dispatches)
+        assert td.versions == jd.versions
+        assert tsim.server.resident_state_bytes() == \
+            jsim.server.resident_state_bytes()
+        if fl_kw.get("cohorts") == "on":
+            assert td.table.stats() == jd.table.stats()
+            assert td.table.member == jd.table.member
+    if fl_kw.get("dispatch_compression") == "topk:0.1" and "drift" not in \
+            str(fl_kw):
+        assert jd.delta_dispatches > 0 and jd.cache_hits > 0
+    if fl_kw.get("dispatch_resync") == 0.5:
+        assert jd.resync_dispatches > 0
+    if fl_kw.get("cohorts") == "on":
+        assert jsim.server.cohort_stats()["edge_merges_total"] > 0
 
 
 def test_data_is_array_equal():
@@ -135,16 +187,24 @@ def test_scheduler_draws_like_jax(policy):
 
 
 def test_unported_options_raise():
-    """The compressed uplink is ported (it constructs); the downlink
-    dispatch session, cohorts, the monitor, the autotuner and kernel timing
-    are not."""
+    """The compressed uplink, the version-tracked downlink, cohorts, the
+    drift ratio policy and resync batching are ported (they construct); the
+    monitor, the autotuner and kernel timing are not."""
     params = {"w": torch.zeros(4)}
     for spec in ("topk:0.1", "bf16", "int8"):
         SeaflServer(FLConfig(compression=spec), params, {0: 1}, device="cpu")
-    for kw in ({"dispatch_compression": "topk:0.1"},
-               {"dispatch_compression": "bf16"},
-               {"dispatch_compression": "f32"}, {"cohorts": "on"},
-               {"monitor": "on"}, {"autotune": "cache"},
+    for spec in ("topk:0.1", "bf16", "f32", "int8"):
+        SeaflServer(FLConfig(dispatch_compression=spec, cohorts="on",
+                             resync_batching=True), params, {0: 1},
+                    device="cpu")
+    SeaflServer(FLConfig(dispatch_compression="topk:0.1",
+                         dispatch_ratio_policy="drift"), params, {0: 1},
+                device="cpu")
+    with pytest.raises(ValueError, match="dispatch_ratio_policy"):
+        SeaflServer(FLConfig(dispatch_compression="int8",
+                             dispatch_ratio_policy="drift"), params, {0: 1},
+                    device="cpu")
+    for kw in ({"monitor": "on"}, {"autotune": "cache"},
                {"telemetry_kernels": True}):
         with pytest.raises(NotImplementedError):
             SeaflServer(FLConfig(**kw), params, {0: 1}, device="cpu")

@@ -450,11 +450,16 @@ def test_cli_ckpt_dir_saves_and_restores(monkeypatch, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--availability", "diurnal", "--scheduler", "rate_staleness"]],
-    ids=["default", "diurnal-rate_staleness"])
+    [], ["--availability", "diurnal", "--scheduler", "rate_staleness"],
+    ["--dispatch-compression", "topk:0.2", "--dispatch-history", "4",
+     "--dispatch-ratio-policy", "drift", "--dispatch-resync", "0.5",
+     "--dispatch-resync-mode", "bytes", "--cohorts", "on",
+     "--resync-batching"]],
+    ids=["default", "diurnal-rate_staleness", "downlink-cohorts"])
 def test_cli_trains_on_the_cpu(monkeypatch, tmp_path, capsys, extra):
     """The README's command, with the JSONL log, trace and metrics on, and
-    with the availability model and a ranked scheduler."""
+    with the availability model and a ranked scheduler, or the top-k
+    downlink under the drift policy with cohorts and resync batching."""
     log = tmp_path / "run.jsonl"
     monkeypatch.setattr("sys.argv", [
         "train", "--arch", "mamba2-1.3b", "--device", "cpu", "--rounds", "2",
@@ -470,13 +475,23 @@ def test_cli_trains_on_the_cpu(monkeypatch, tmp_path, capsys, extra):
     assert all(np.isfinite(r["heldout_ce"]) for r in recs[:2])
     assert json.loads((tmp_path / "t.json").read_text())
     assert "counters" in json.loads((tmp_path / "m.json").read_text())
+    if "--cohorts" in extra:
+        assert all("cohorts" in r and "edge_partials" in r for r in recs[:2])
+        summary = recs[-1]
+        for key in ("dispatch_full", "dispatch_delta", "resyncs",
+                    "encode_cache_hit_rate", "dispatch_ratio_bands",
+                    "cohorts", "edge_merges"):
+            assert key in summary, key
+        assert summary["dispatch_full"] > 0 and "dispatch_full=" in out
 
 
 @pytest.mark.parametrize("flags", [["--monitor", "on"], ["--slo", "warn"],
-                                   ["--cohorts", "on"],
-                                   ["--dispatch-compression", "topk:0.1"],
+                                   ["--telemetry-kernels"],
+                                   ["--autotune", "sweep"],
                                    ["--autotune", "cache"]])
 def test_cli_options_the_server_refuses_raise(monkeypatch, flags):
+    """The run monitor, its SLO, kernel timing and the autotuner are not
+    ported (the downlink and cohorts are, ``test_cli_trains_on_the_cpu``)."""
     monkeypatch.setattr("sys.argv", ["train", "--arch", "mamba2-1.3b",
                                      "--device", "cpu", *flags])
     with pytest.raises(NotImplementedError):

@@ -28,6 +28,7 @@ from repro.runtime.simulator import FLSimulation as JSim  # noqa: E402
 from repro.runtime.simulator import SimConfig as JSimConfig  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.launch.specs import make_train_step  # noqa: E402
+import repro_torch.launch.train as JT_port  # noqa: E402
 from repro_torch.launch.train import build_lm_fl  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model, from_jax_lm_params, tree_leaves)
@@ -45,14 +46,19 @@ def _jax_leaves(tree):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_loss_and_gradients_match_jax_loosely(arch):
-    """The configs' own bf16: loss within 2e-4, every gradient leaf within
-    0.04 of its largest |gradient|, about twice the measured gaps.  The
-    forward computes what XLA's lowered bf16 ops compute (tests/
-    test_torch_bf16_trace.py), which took mamba2's loss gap from 1.7e-3 to
-    2.2e-5 (phi4-mini 9.2e-5, recurrentgemma 9.5e-7).  The gradients moved
-    less, from 3.3e-2 to 2.1e-2 of a leaf's max (mamba2's conv bias): XLA
-    fuses the backward and the remat's loss chunks on its own terms,
-    dropping some roundings there, and that is not located.  Each gap is
+    """The configs' own bf16: loss within 2e-4; every gradient leaf within
+    0.015 of its largest |gradient|, but the depthwise conv's weight and
+    bias within 0.03.  The forward computes what XLA's lowered bf16 ops
+    compute (tests/test_torch_bf16_trace.py), which took mamba2's loss gap
+    from 1.7e-3 to 2.2e-5 (phi4-mini 9.2e-5, recurrentgemma 9.5e-7).  The
+    backward is traced the same way, block by block: with XLA's f32
+    products and cotangent sums (``layers.product``, ``fan_out``,
+    ``rounded_pair``) every block's gradients equal JAX's up to f32
+    summation order, but the conv's, whose bf16 reduction over batch and
+    time XLA rounds at every step.  Measured: the conv leaves up to
+    2.094e-2 (mamba2's conv bias, unchanged: that reduction), the others
+    up to 8.1e-3 (recurrentgemma; were 2.0e-2), what XLA's compile of the
+    whole loss and its gradient fuses on its own terms.  Each gap is
     printed (``pytest -s``)."""
     jc = j_smoke_config(arch)
     tc = smoke_config(arch)
@@ -79,7 +85,9 @@ def test_bf16_loss_and_gradients_match_jax_loosely(arch):
     print(f"{arch} bf16: |d loss| {abs(float(tl) - float(jl)):.3e}, worst "
           f"gradient {rel[worst]:.3e} of its leaf's max ({worst})")
     assert abs(float(tl) - float(jl)) <= 2e-4
-    assert all(r <= 0.04 for r in rel.values()), rel
+    conv = {n for n in rel if n.endswith(("/conv/w", "/conv/b"))}
+    assert all(rel[n] <= 0.03 for n in conv), rel
+    assert all(r <= 0.015 for n, r in rel.items() if n not in conv), rel
 
 
 @pytest.mark.parametrize("M", [1, 2])
@@ -135,16 +143,41 @@ def _events(server):
     return events
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
-def test_cohort_trainer_replays_jax(arch, monkeypatch):
+def _kept(server):
+    """[(cid, base, target), kept flat indices] of each delta dispatch the
+    server delivers."""
+    log, sess = [], server.dispatch
+    if sess is None:
+        return log
+    deliver = sess.deliver
+
+    def wrapped(p):
+        if not p.full:
+            log.append(((p.cid, p.base_version, p.target_version),
+                        np.concatenate([np.asarray(c.payload["idx"]) + c.start
+                                        for c in p.chunks])))
+        deliver(p)
+
+    sess.deliver = wrapped
+    return log
+
+
+@pytest.mark.parametrize("arch,fl_kw", [
+    ("mamba2-1.3b", {}), ("recurrentgemma-2b", {}),
+    ("mamba2-1.3b", {"dispatch_compression": "topk:0.2", "cohorts": "on"}),
+], ids=["mamba2-1.3b", "recurrentgemma-2b", "mamba2-1.3b-down-topk-cohorts"])
+def test_cohort_trainer_replays_jax(arch, fl_kw, monkeypatch):
     """3 rounds of SEAFL over 4 LM cohorts (2 in flight, K = 2, E = 2,
     batches of 4 x 32 int32 tokens) on the f32 smoke config.  The JAX
     trainer builds its smoke config by name, so the test hands it the f32
-    variant; the port takes the config itself."""
+    variant; the port takes the config itself.  The last case runs the
+    top-k downlink with cohorts: clients train from the delivered
+    reconstruction, and same-version uploads merge at the edge tier."""
     rounds = 3
     jc = j_smoke_config(arch).replace(**F32)
     monkeypatch.setattr(JT, "smoke_config", lambda name: jc)
-    kw = dict(n_clients=4, concurrency=2, buffer_size=2, seq_len=32, seed=0)
+    kw = dict(n_clients=4, concurrency=2, buffer_size=2, seq_len=32, seed=0,
+              **fl_kw)
     jmodel, jserver, jclients, jeval = JT.build_lm_fl(arch, **kw)
     params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
     tmodel, tserver, tclients, teval = build_lm_fl(
@@ -153,6 +186,7 @@ def test_cohort_trainer_replays_jax(arch, monkeypatch):
     np.testing.assert_array_equal(flat0.numpy(),
                                   np.asarray(jserver.global_flat))
     j_events, t_events = _events(jserver), _events(tserver)
+    j_kept, t_kept = _kept(jserver), _kept(tserver)
     jsim = JSim(jserver, jclients, JSimConfig(seed=0), eval_fn=jeval)
     tsim = FLSimulation(tserver, tclients, SimConfig(seed=0), eval_fn=teval)
     j_hist = jsim.run(max_rounds=rounds)
@@ -172,6 +206,34 @@ def test_cohort_trainer_replays_jax(arch, monkeypatch):
         assert t.dispatch == j.dispatch
         np.testing.assert_array_equal(t.staleness, j.staleness)
         np.testing.assert_allclose(t.weights, j.weights, atol=1e-5)
-    np.testing.assert_allclose(tserver.global_flat.numpy(),
-                               np.asarray(jserver.global_flat), atol=1e-4)
+    # a top-k downlink keeps the k largest |delta| of a chunk; the two
+    # globals differ in the last f32 bits, so where the k-th and (k+1)-th
+    # are that close the kept sets differ by one swap (ROADMAP, Queue C).
+    # Every element off by more than 1e-4 is such a swapped index.
+    assert len(t_kept) == len(j_kept)
+    swapped = set()
+    for (jm, ji), (tm, ti) in zip(j_kept, t_kept):
+        assert jm == tm
+        swap = set(ji.tolist()) ^ set(ti.tolist())
+        assert len(swap) <= 1e-3 * len(ji), (jm, len(swap))
+        swapped |= swap
+    gap = np.abs(tserver.global_flat.numpy() - np.asarray(jserver.global_flat))
+    off = set(np.nonzero(gap > 1e-4)[0].tolist())
+    assert off <= swapped, (off, swapped)
+    if swapped:
+        print(f"{len(swapped)} swapped top-k indices, global off by up to "
+              f"{gap.max():.3e} there; elsewhere "
+              f"{np.delete(gap, sorted(swapped)).max():.3e}")
     assert not torch.equal(tserver.global_flat, flat0)
+    assert tserver.cohort_stats() == jserver.cohort_stats()
+    jd, td = jserver.dispatch, tserver.dispatch
+    if jd is not None:
+        assert td.cache_info() == jd.cache_info()
+        assert (td.full_dispatches, td.delta_dispatches,
+                td.resync_dispatches) == (jd.full_dispatches,
+                                          jd.delta_dispatches,
+                                          jd.resync_dispatches)
+        assert jd.delta_dispatches > 0
+        assert td.table.stats() == jd.table.stats()
+        assert JT.summary_record(jserver, jsim) == \
+            JT_port.summary_record(tserver, tsim)
