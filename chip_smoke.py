@@ -75,10 +75,23 @@ Phases, each printing its lines; no phase's failure is caught:
               delta counts, cache hits, edge merges and B1/B2/B6 launches
               as reckoned, with round walls, resident state, peak memory
               and the device's idle share
- 10. result   one JSON line of per-kernel numbers (B4 as two rows, one
-              per instance; each row with its training, uplink and
-              downlink launches), the nvidia-smi line, and last the
-              contract line
+ 10. health   (g) run health and per-device tuning at mamba2-1.3b's full
+              width: ServerTuning.build("sweep") at K = 2, P = 1.344e9
+              into a temporary cache (each block_p candidate's time, the
+              plain twin's, the prediction, the winner); B2 bit-identical
+              and B1's |d|^2, |g|^2 and row cosine within 1e-6 at every
+              candidate grid; sweep_codec
+              (topk:0.01) over four chunk sizes; then the cohort trainer
+              as in phase c with the monitor, an SLO, kernel timing and
+              the cached tuning to 2 aggregations (mem_* equal to the
+              server's resident state, the kernel.* histogram counts
+              equal to the B1/B2 launches, the swept keys active, no SLO
+              breach), its JSONL log and trace rendered as the HTML
+              report; and the small task's SLO stop, card against CPU
+ 11. result   one JSON line of per-kernel numbers (B4 as two rows, one
+              per instance; each row with its training, uplink,
+              downlink and health launches), the nvidia-smi line, and
+              last the contract line
               {"ok": true, "device": {...}}
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
@@ -109,14 +122,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet (dense, 700 W): HBM3 bandwidth, the f32 rate outside
-# the tensor cores, the bf16 tensor-core rate, and the rate of f32-accurate
-# products on the tensor cores (3xTF32: three TF32 products each, 495 / 3).
-# Spec-sheet numbers, used only to compute bound_ms.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
-F32_TC_FLOPS_PER_S = 495e12 / 3
+# the H100's spec-sheet rates (one place in the port), used only to compute
+# bound_ms; without src/ beside this file the import fails
+from repro_torch.kernels._common import (  # noqa: E402
+    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, F32_TC_FLOPS_PER_S, HBM_BYTES_PER_S,
+)
 
 MAIN_K = 10
 RESNET18_P = 11_176_970
@@ -2033,6 +2043,283 @@ def phase_downlink(torch):
     return dict(session=session, cohort=cohort, phase_s=took)
 
 
+# ------------------------------- phase g: run health and per-device tuning
+
+HEALTH_SLO = "error"
+HEALTH_ROUNDS = 2
+HEALTH_CODEC = "topk:0.01"
+SWEPT = ("seafl_aggregate_flat_from_params", "weighted_aggregate")
+
+
+def _health_sweep(torch):
+    """(i) ServerTuning.build('sweep') at the cohort trainer's shape (K = 2
+    f32 rows of mamba2-1.3b's P) into the user cache under $XDG_CACHE_HOME
+    (a temporary directory here): each swept entry's candidates, twin and
+    prediction.  Then B1 and B2 at every candidate grid against the default
+    grid on one seeded (K, P) buffer: B2 bit-identical, B1's |d|^2, |g|^2
+    and row cosine within 1e-6 of the default grid's (autotune.
+    partials_drift; d.g's plain relative change printed), and the fused
+    aggregate's weights and new global within 1e-6 of the default grid's.
+    Then sweep_codec(topk:0.01) at P, one rep: how the per-chunk decode
+    cost scales with the chunk count."""
+    import numpy as np
+    from repro_torch.kernels.seafl_agg import kernel as K, ops
+    from repro_torch.runtime.autotune import (
+        BLOCK_P_CANDIDATES, GRID_BOUND, GRID_BOUNDED, ServerTuning,
+        make_key, partials_drift, sweep_codec,
+    )
+    t0 = time.perf_counter()
+    tuning = ServerTuning.build(
+        "sweep", p=P_MAMBA2, k=2, dtype=torch.float32, scheme="f32",
+        algorithm="seafl", chunk_elems=1 << 16, flush_chunks=16,
+        device="cuda")
+    sweep_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    table, agg = tuning.table, {}
+    for entry in SWEPT:
+        r = table.get(make_key("agg", entry, "float32", None, P_MAMBA2, 2,
+                               device=table.device))
+        agg[entry] = r
+        if r is None or r["use_oracle"] or not all(
+                math.isfinite(v) for v in r["candidates_us"].values()):
+            raise AssertionError(f"sweep of {entry}: {r}")
+        log(f"[health] sweep {entry} K=2 P={P_MAMBA2} f32: candidates_us "
+            f"{r['candidates_us']}, oracle_us {r['oracle_us']} "
+            f"(oracle_faster {r['oracle_faster']}), predicted_us "
+            f"{r['predicted_us']}, measured_vs_predicted "
+            f"{r['measured_vs_predicted']}, winner block_p {r['block_p']} "
+            f"({r['tuned_us']} us against the default's {r['default_us']})")
+    rest = {k: v for k, v in table.entries.items() if v["kind"] != "agg"}
+    log(f"[health] sweep took {sweep_s:.1f} s (agg, codec f32, ingest); "
+        f"{json.dumps(rest)}")
+
+    w, g, wts = _inputs(torch, 2, P_MAMBA2, torch.float32, torch.float32,
+                        seed=300)
+    sizes, stale = np.array([8.0, 8.0], np.float32), np.array([0.0, 1.0],
+                                                              np.float32)
+
+    def fused(bp=None):
+        return ops.seafl_aggregate_flat_from_params(
+            g, w, sizes, stale, 3.0, 1.0, 10.0, THETA,
+            block_p=bp)
+    part = K.sim_partials_from_params_call(w, g)
+    mixed = K.weighted_agg_call(wts, w, g, THETA)
+    new_g, new_w = fused()
+    drift, agg_err = {}, {}
+    for bp in BLOCK_P_CANDIDATES:
+        got = K.sim_partials_from_params_call(w, g, block_p=bp)
+        drift[bp] = partials_drift(got, part)
+        same = torch.equal(K.weighted_agg_call(wts, w, g, THETA,
+                                               block_p=bp), mixed)
+        tg, tw = fused(bp)
+        agg_err[bp] = (float((tw - new_w).abs().max()),
+                       float((tg - new_g).abs().max()))
+        log(f"[health] block_p {bp}: B1 against the default grid "
+            + ", ".join(f"{k} {v:.3e}" for k, v in drift[bp].items())
+            + f" (bounded: {', '.join(GRID_BOUNDED)}), B2 bit-identical "
+            f"{same}; the fused aggregate's weights and global max|d| "
+            f"{agg_err[bp][0]:.3e} / {agg_err[bp][1]:.3e}")
+        if not same or max(max(drift[bp][k] for k in GRID_BOUNDED),
+                           *agg_err[bp]) > GRID_BOUND:
+            raise AssertionError(f"block_p {bp}: B2 identical {same}, B1 "
+                                 f"{drift[bp]}, aggregate {agg_err[bp]}: "
+                                 f"beyond {GRID_BOUND}")
+    del w, g, wts, part, mixed, new_g, new_w, tg, tw
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    codec = sweep_codec(HEALTH_CODEC, P_MAMBA2, device="cuda", reps=1)
+    codec_s = time.perf_counter() - t0
+    chunks = {ce: -(-P_MAMBA2 // int(ce)) for ce in codec["candidates_us"]}
+    log(f"[health] sweep_codec {HEALTH_CODEC} P={P_MAMBA2} (encode + "
+        f"decode round trip, 1 rep): " + ", ".join(
+            f"{ce} elems x {chunks[ce]} chunks {us / 1e6:.3f} s"
+            for ce, us in codec["candidates_us"].items())
+        + f"; winner {codec['chunk_elems']}; took {codec_s:.1f} s")
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    _reset_lm_counts()
+    return dict(agg=agg, rest=rest, drift=drift, agg_err=agg_err,
+                sweep_s=sweep_s,
+                codec=codec, codec_s=codec_s,
+                active_keys=tuning.active_keys())
+
+
+def _health_cohort_full(torch, tmp, phase_c_walls):
+    """(ii) The cohort trainer as in phase c with the monitor, an SLO,
+    kernel timing and the tuning swept in (i): 2 aggregations, the JSONL
+    log and the trace written under ``tmp``, then the HTML report.
+    Reckoned: both in-flight uploads aggregate and are re-dispatched at the
+    new version, so each record holds one history version and the K = 2
+    buffer, mem_server_array_bytes = 12 P; one timed aggregate call and one
+    B1 and B2 launch per round."""
+    import gc
+    from repro_torch.kernels.seafl_agg import kernel as K, ops
+    from repro_torch.launch import report
+    from repro_torch.launch.train import JsonlLog, build_lm_fl, \
+        round_record, summary_record
+    from repro_torch.runtime import codecs
+    from repro_torch.runtime.simulator import FLSimulation, SimConfig
+    model, server, clients, eval_fn = build_lm_fl(
+        "mamba2-1.3b", smoke=False, device="cuda", monitor="on",
+        slo=HEALTH_SLO, telemetry_kernels=True, autotune="cache", **COHORT)
+    steps = _count_batches(clients)
+    sim = FLSimulation(server, clients, SimConfig(seed=0), eval_fn=eval_fn)
+    log_path = os.path.join(tmp, "run.jsonl")
+    trace_path = os.path.join(tmp, "trace.json")
+    jlog = JsonlLog(log_path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    _reset_lm_counts()
+    walls, mem_ok = [], []
+    t_run = time.perf_counter()
+    for r in range(1, HEALTH_ROUNDS + 1):
+        t0 = time.perf_counter()
+        hist = sim.run(max_rounds=r)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rec = hist[-1]
+        resident = server.resident_state_bytes()
+        mem_ok.append({k: rec[f"mem_{k}"] for k in resident} == resident)
+        jlog.write(round_record(rec, time.perf_counter() - t_run))
+    summary = summary_record(server, sim)
+    jlog.write(summary, fsync=True)
+    jlog.close()
+    server.tel.export_chrome_trace(trace_path)
+    if ops._KERNEL_TEL is not None or codecs._KERNEL_TEL is not None:
+        raise AssertionError("the server left its timing hooks installed")
+    seafl = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
+    launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    evals = sum("acc" in h for h in sim.history)
+    want_b6 = _ssd_per_forward(model.cfg) * (
+        steps[0] * (1 + _remat_reruns(model.cfg)) + evals)
+    hists = server.tel.snapshot()["histograms"]
+    timed = {k: v["count"] for k, v in hists.items()
+             if k.startswith("kernel.")}
+    keys = server.tuning.active_keys()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if server.total_aggregations != HEALTH_ROUNDS or not all(mem_ok):
+        raise AssertionError(f"{server.total_aggregations} aggregations; "
+                             f"mem_* equal to resident_state_bytes {mem_ok}")
+    mems = [h["mem_server_array_bytes"] for h in sim.history]
+    if any(m != 12 * P_MAMBA2 for m in mems):
+        raise AssertionError(f"mem_server_array_bytes {mems}, reckoned "
+                             f"12 P = {12 * P_MAMBA2}")
+    n_timed = timed.get("kernel.seafl_aggregate_flat_from_params_us")
+    if not (n_timed == seafl["sim_partials_from_params"]
+            == seafl["weighted_agg"] == HEALTH_ROUNDS):
+        raise AssertionError(f"timed aggregate calls {n_timed}, launches "
+                             f"{seafl}")
+    if launched != {"flash_attention": 0, "rglru_scan": 0,
+                    "ssd_forward": want_b6}:
+        raise AssertionError(f"launched {launched}; B6 expected {want_b6}")
+    if sorted(keys) != sorted([f"agg:{e}" for e in SWEPT] + ["codec:f32"]) \
+            or not all(k in server.tuning.table.entries
+                       for k in keys.values()) \
+            or server.tuning.table.source != "user-cache":
+        raise AssertionError(f"tuning keys {keys}, source "
+                             f"{server.tuning.table.source}")
+    if server.monitor.slo_breached or summary["monitor"]["slo_breached"]:
+        raise AssertionError(f"SLO breached: {summary['monitor']}")
+    if not bool(torch.isfinite(server.global_flat).all()) or not all(
+            math.isfinite(h["acc"]) for h in sim.history):
+        raise AssertionError("non-finite global or held-out CE")
+    t0 = time.perf_counter()
+    doc = report.generate(log_path, os.path.join(tmp, "report.html"),
+                          trace=trace_path)
+    render_s = time.perf_counter() - t0
+    if any(bad in doc for bad in ("http://", "https://", "src=", "<script")) \
+            or "run-monitor alerts" not in doc \
+            or "per-client utilization" not in doc:
+        raise AssertionError("the report is not self-contained or lacks its "
+                             "alert or utilization section")
+    plan = {e: server.tuning.agg_plan(e) for e in SWEPT}
+    rec = dict(round_walls_s=walls, phase_c_walls_s=phase_c_walls,
+               peak_gib=peak, seafl_launches=seafl, launches=launched,
+               timed_counts=timed,
+               timed_us_mean={k: v["mean"] for k, v in hists.items()
+                              if k.startswith("kernel.")},
+               wire_chunk_elems=server.wire.chunk_elems, plans=plan,
+               alerts=summary["monitor"]["alerts_total"],
+               mem=sim.history[-1]["mem_server_array_bytes"],
+               report_bytes=len(doc.encode()), render_s=render_s,
+               heldout_ce=[-h["acc"] for h in sim.history])
+    log(f"[health] cohort trainer, monitor on (slo {HEALTH_SLO!r}), kernel "
+        f"timing, autotune cache: round walls "
+        f"{[round(w, 3) for w in walls]} s (phase c, profiled: "
+        f"{[round(w, 3) for w in phase_c_walls]} s); peak {peak:.2f} GiB; "
+        f"plans {plan}, uplink chunk {server.wire.chunk_elems}; "
+        f"mem_server_array_bytes {rec['mem']} = 12 P, equal to "
+        f"resident_state_bytes each round; seafl_agg {seafl}, LM "
+        f"{launched}; alerts {rec['alerts']}, SLO not breached")
+    means = {k: round(v, 1) for k, v in rec["timed_us_mean"].items()}
+    log(f"[health] kernel.* histogram counts {json.dumps(timed)}, mean us "
+        f"{json.dumps(means)}")
+    log(f"[health] report: {rec['report_bytes']} bytes, rendered in "
+        f"{render_s:.3f} s; self-contained, with its alert and "
+        f"utilization sections")
+    del model, server, clients, eval_fn, sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _health_slo_card_vs_cpu(torch):
+    """(iii) The small task with the monitor on and a byte budget below
+    round 1's bytes under an SLO on byte_budget, on the card and on the
+    CPU: both stop at round 1 with the same alerts, event times, mem_*
+    fields and next queued event."""
+    from repro_torch.experiment import run_experiment
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sim, hist = run_experiment(_small_cfg(
+            "seafl", dev, monitor="on", slo="byte_budget",
+            monitor_byte_budget=1), max_rounds=50)
+        nxt = sim._heap[0] if sim._heap else None
+        out[dev] = ([{k: v for k, v in h.items() if k in ("time", "round",
+                                                          "alerts")
+                      or k.startswith("mem_")} for h in hist],
+                    sim.server.monitor.slo_breached,
+                    None if nxt is None else (nxt.time, nxt.kind,
+                                              nxt.data.get("cid")))
+    if out["cuda"] != out["cpu"] or len(out["cuda"][0]) != 1 \
+            or not out["cuda"][1] or out["cuda"][2] is None:
+        raise AssertionError(f"SLO stop card vs CPU: {out}")
+    alert = out["cuda"][0][0]["alerts"][0]
+    log(f"[health] SLO stop, card and CPU: round 1, {alert['detector']} "
+        f"({alert['severity']}): {alert['message']}; next event "
+        f"{out['cuda'][2]} queued in both; mem_* equal")
+    return dict(alert=alert, next_event=out["cuda"][2])
+
+
+def phase_health(torch, phase_c_walls):
+    """g. Run health and per-device tuning at full width: the sweep and the
+    grid's numerics, the cohort trainer with the monitor, an SLO, kernel
+    timing and the cached tuning, its HTML report, and the SLO stop card
+    against CPU.  The tuning cache, log, trace and report live in a
+    temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="seafl_health_")
+    old = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = os.path.join(tmp, "cache")
+    try:
+        sweep = _health_sweep(torch)
+        cohort = _health_cohort_full(torch, tmp, phase_c_walls)
+        slo = _health_slo_card_vs_cpu(torch)
+    finally:
+        if old is None:
+            os.environ.pop("XDG_CACHE_HOME", None)
+        else:
+            os.environ["XDG_CACHE_HOME"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    took = time.perf_counter() - t0
+    log(f"[health] phase took {took:.1f} s")
+    return dict(sweep=sweep, cohort=cohort, slo=slo, phase_s=took)
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -2085,8 +2372,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
-    # the port is imported only now: without src/ beside this file it fails
-    import repro_torch  # noqa: F401
     from repro_torch.device import set_f32_numerics
     set_f32_numerics()
 
@@ -2111,6 +2396,7 @@ def main() -> int:
     grad_errs, train_step, cohort, smoke_launches = phase_train(torch)
     uplink = phase_uplink(torch)
     downlink = phase_downlink(torch)
+    health = phase_health(torch, [r["wall_s"] for r in cohort["rounds"]])
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -2118,10 +2404,14 @@ def main() -> int:
             "cohort": cohort["seafl_launches"]["sim_partials_from_params"],
             "uplink_topk": up_seafl["sim_partials_from_params"],
             "downlink_cohorts": down["seafl_launches"][
+                "sim_partials_from_params"],
+            "health": health["cohort"]["seafl_launches"][
                 "sim_partials_from_params"]},
         "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"],
                          "uplink_topk": up_seafl["weighted_agg"],
                          "downlink_cohorts": down["seafl_launches"][
+                             "weighted_agg"],
+                         "health": health["cohort"]["seafl_launches"][
                              "weighted_agg"]},
         "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"]},
         "flash_attention_bf16_tc": {
@@ -2134,7 +2424,8 @@ def main() -> int:
             "cohort": cohort["launches"]["ssd_forward"],
             "smoke_card_vs_cpu": smoke_launches["ssd_forward"],
             "uplink_topk": uplink["cohort"]["launches"]["ssd_forward"],
-            "downlink_cohorts": down["launches"]["ssd_forward"]},
+            "downlink_cohorts": down["launches"]["ssd_forward"],
+            "health": health["cohort"]["launches"]["ssd_forward"]},
     }
 
     src = "src/repro_torch/kernels/seafl_agg/csrc/seafl_agg.cu"
@@ -2187,6 +2478,7 @@ def main() -> int:
     log(f"[train] summary: {json.dumps(dict(step=train_step, cohort=cohort))}")
     log(f"[uplink] summary: {json.dumps(uplink)}")
     log(f"[downlink] summary: {json.dumps(downlink)}")
+    log(f"[health] summary: {json.dumps(health, default=str)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,18 +25,25 @@ versions live in ``_history`` as flat (P,) f32 tensors, unpacked only at
 dispatch / eval boundaries.  The buffer can store slots in bf16
 (``FLConfig.buffer_dtype``); the kernels accumulate in f32 regardless.
 
+Run health and tuning, each off by default and the untuned, unmonitored
+code path when off: ``monitor='on'`` builds the run monitor
+(runtime/monitor.py, never checkpointed) and implies an enabled
+``Telemetry``; ``autotune='cache'|'sweep'`` resolves a ``ServerTuning``
+(runtime/autotune.py) once at construction, keyed by the server's device;
+``telemetry_kernels=True`` times the aggregate entry points and the chunk
+codecs into ``kernel.<name>_us`` histograms, for this server's own calls.
+
 Fault tolerance: ``state_dict`` (JSON-able control state) and
 ``checkpoint_trees`` (the flat tensors) go through ``repro_torch.checkpoint``
 in the same format as the JAX package's, and ``load_state`` restores either
 package's checkpoint.
 
-``FLConfig`` keeps every field of the JAX package's config so the two are
-interchangeable; options whose modules this port does not carry yet (the
-run monitor, the autotuner, kernel timing) raise ``NotImplementedError`` at
-construction.
+``FLConfig`` keeps every field of the JAX package's config, so the two are
+interchangeable.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass, field, replace as dc_replace
 from typing import Optional
@@ -50,11 +57,14 @@ from repro_torch.core.packer import ParamPacker
 from repro_torch.device import resolve_device
 from repro_torch.kernels.seafl_agg.ops import (
     fedasync_aggregate_flat, fedavg_aggregate_flat, fedbuff_aggregate_flat,
-    seafl_aggregate_flat_from_params,
+    seafl_aggregate_flat_from_params, set_kernel_timing,
 )
-from repro_torch.runtime.codecs import Chunk, make_wire_format
+from repro_torch.runtime.autotune import ServerTuning
+from repro_torch.runtime.codecs import Chunk, make_wire_format, \
+    set_codec_timing
 from repro_torch.runtime.cohorts import CohortDispatchSession
 from repro_torch.runtime.dispatch import DispatchPayload, DispatchSession
+from repro_torch.runtime.monitor import RunMonitor
 from repro_torch.runtime.policy import DriftTracker, RatePolicy, RESYNC_MODES
 from repro_torch.runtime.scheduler import make_scheduler
 from repro_torch.runtime.telemetry import Telemetry
@@ -131,15 +141,26 @@ class FLConfig:
     # encode pass (DispatchSession.encode_many)
     resync_batching: bool = False
     telemetry: bool = False
-    telemetry_kernels: bool = False  # True is not ported yet
-    monitor: str = "off"             # 'on' is not ported yet
+    # time each aggregate entry point and chunk encode/decode into
+    # kernel.<name>_us histograms (a measurement mode: on CUDA it
+    # synchronises around each call, which changes overlap, never values)
+    telemetry_kernels: bool = False
+    # run-health monitor (runtime/monitor.py): 'on' runs the online
+    # detectors over every round record (mem_* fields, typed alerts) and
+    # implies telemetry; 'off' is the monitor-free stack
+    monitor: str = "off"
+    # fail-fast SLO: severities and/or detector names (monitor.parse_slo);
+    # a violating alert stops the simulator at the next event boundary
     slo: Optional[str] = None
     monitor_byte_budget: Optional[int] = None
     # client-selection policy (runtime/scheduler.py): 'random' reproduces
     # the uniform draw RNG-call-for-RNG-call; 'stragglers_last' and
     # 'rate_staleness' rank eligible clients by predicted round time
     scheduler: str = "random"
-    autotune: str = "off"            # 'cache' / 'sweep' are not ported yet
+    # per-device kernel tuning (runtime/autotune.py): 'off' runs the
+    # defaults; 'cache' applies cached winners; 'sweep' measures this
+    # server's shapes first and persists the winners
+    autotune: str = "off"
     seed: int = 0
 
     def hyper(self) -> SeaflHyper:
@@ -147,21 +168,6 @@ class FLConfig:
         return SeaflHyper(alpha=self.alpha, mu=self.mu, beta=float(beta),
                           theta=self.theta, use_importance=self.use_importance,
                           use_staleness=self.use_staleness)
-
-
-def _refuse_unported(cfg: FLConfig) -> None:
-    """Options that need a module this port does not carry yet."""
-    unported = []
-    if cfg.monitor == "on":
-        unported.append("monitor='on'")
-    if cfg.autotune != "off":
-        unported.append(f"autotune={cfg.autotune!r}")
-    if cfg.telemetry_kernels:
-        unported.append("telemetry_kernels=True")
-    if unported:
-        raise NotImplementedError(
-            "repro_torch does not port these options yet: "
-            + ", ".join(unported))
 
 
 @dataclass
@@ -172,6 +178,24 @@ class AggregationEvent:
     contributors: list[int]
     dispatch: list[int] = field(default_factory=list)
     notify: list[int] = field(default_factory=list)
+
+
+def _timing_scope(method):
+    """A server call that encodes, decodes or aggregates: the server's own
+    kernel timing (its Telemetry, or None) is installed in the codec and
+    aggregate hooks for the length of the call, and what was there before
+    is put back.  A server never times another's calls, nor leaves its
+    hooks behind."""
+    @functools.wraps(method)
+    def scoped(self, *args, **kw):
+        prev_k = set_kernel_timing(self._kernel_tel)
+        prev_c = set_codec_timing(self._kernel_tel)
+        try:
+            return method(self, *args, **kw)
+        finally:
+            set_kernel_timing(prev_k)
+            set_codec_timing(prev_c)
+    return scoped
 
 
 class SeaflServer:
@@ -202,13 +226,20 @@ class SeaflServer:
                              f"{cfg.dispatch_resync_mode!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the monitor consumes telemetry (compact snapshots, sim-track busy
+        # time), so monitor='on' implies an enabled registry
         self.tel = (telemetry if telemetry is not None
-                    else Telemetry(enabled=cfg.telemetry))
+                    else Telemetry(enabled=cfg.telemetry
+                                   or cfg.monitor == "on"))
+        # built eagerly so a bad SLO spec fails at construction; never
+        # checkpointed (detectors restart cold on resume)
+        self.monitor: Optional[RunMonitor] = (
+            RunMonitor.from_config(cfg, self.tel)
+            if cfg.monitor == "on" else None)
         # pluggable client-selection policy: built eagerly (bad names fail
         # at construction)
         self.scheduler = make_scheduler(cfg.scheduler, self.tel)
         self.wire = make_wire_format(cfg.compression, cfg.chunk_elems)
-        _refuse_unported(cfg)
         self._cohorts_on = cfg.cohorts == "on"
         self.dispatch: Optional[DispatchSession] = None
         if cfg.dispatch_compression is not None:
@@ -241,10 +272,29 @@ class SeaflServer:
         self._flat = self.packer.pack(params).to(self.device)   # (P,) global
         self.round = 0
         self._buffer_dtype = BUFFER_DTYPES[cfg.buffer_dtype]
+        # per-device tuning, resolved once here.  'off' keeps the tuner out
+        # of every code path (self.tuning is None and nothing below consults
+        # it); a tuned chunk_elems rebuilds the uplink's wire format
+        self.tuning: Optional[ServerTuning] = None
+        if cfg.autotune != "off":
+            self.tuning = ServerTuning.build(
+                cfg.autotune, p=self.packer.size, k=self._trigger_size(),
+                dtype=self._buffer_dtype, scheme=self.wire.scheme,
+                algorithm=cfg.algorithm, chunk_elems=cfg.chunk_elems,
+                flush_chunks=cfg.ingest_batch_chunks, telemetry=self.tel,
+                device=self.device)
+            ce = self.tuning.chunk_elems(cfg.chunk_elems)
+            if ce != self.wire.chunk_elems:
+                self.wire = make_wire_format(cfg.compression, ce)
         self.buffer = UpdateBuffer(self._trigger_size(), self.packer.size,
                                    dtype=self._buffer_dtype,
                                    telemetry=self.tel, device=self.device)
         self._batcher = self._make_batcher()
+        # kernel timing: this server's Telemetry, installed for the length
+        # of each of its calls that encodes, decodes or aggregates
+        # (_timing_scope), None without telemetry_kernels
+        self._kernel_tel = (self.tel if self.tel.enabled
+                            and cfg.telemetry_kernels else None)
         # two-tier edge aggregation (cohorts='on'): same-version uploads
         # pre-combine into one resident (P,) partial per version, and the
         # trigger counts uploads absorbed since the last aggregation
@@ -268,12 +318,19 @@ class SeaflServer:
 
     # ------------------------------------------------------------- plumbing
     def _make_batcher(self) -> Optional[IngestBatcher]:
+        """Ingest batcher over the current buffer: under tuning a cached
+        bypass verdict answers without the startup probe and the swept
+        flush size replaces the configured one."""
         cfg = self.cfg
         if cfg.ingest_batch_chunks <= 0:
             return None
-        return IngestBatcher(self.buffer, cfg.ingest_batch_chunks,
+        flush, verdict = cfg.ingest_batch_chunks, None
+        if self.tuning is not None:
+            flush = self.tuning.ingest_flush_chunks(flush)
+            verdict = self.tuning.ingest_verdict
+        return IngestBatcher(self.buffer, flush,
                              auto_bypass=cfg.ingest_auto_bypass,
-                             telemetry=self.tel)
+                             telemetry=self.tel, tuned_verdict=verdict)
 
     def _trigger_size(self) -> int:
         if self.cfg.algorithm == "fedavg":
@@ -390,6 +447,7 @@ class SeaflServer:
             return self._ratio_by_version.get(target)
         return None
 
+    @_timing_scope
     def encode_dispatch(self, cid: int,
                         materialize: bool = True) -> DispatchPayload:
         """Serve the current global to ``cid``.
@@ -413,6 +471,7 @@ class SeaflServer:
                                         materialize=materialize,
                                         ratio=self._dispatch_ratio_of(target))
 
+    @_timing_scope
     def encode_dispatch_round(self, cids: list[int],
                               materialize: bool = True
                               ) -> tuple[list[DispatchPayload], int]:
@@ -440,6 +499,7 @@ class SeaflServer:
         r = self._dispatch_ratio_of(v)
         return self.dispatch.fmt.topk_ratio if r is None else r
 
+    @_timing_scope
     def deliver_dispatch(self, cid: int, payload: DispatchPayload) -> None:
         """The last downlink chunk reached the client: account the wire
         bytes and commit version tracking + error-feedback residual."""
@@ -447,6 +507,7 @@ class SeaflServer:
         if self.dispatch is not None and payload.scheme != "raw":
             self.dispatch.deliver(payload)
 
+    @_timing_scope
     def dispatch_model(self, cid: int) -> Params:
         """The model ``cid`` holds (training-base boundary): the exact
         dispatch-version global under the broadcast or f32 dispatch, the
@@ -460,6 +521,7 @@ class SeaflServer:
         return self.packer.unpack(held)
 
     # ------------------------------------------------------- uplink transport
+    @_timing_scope
     def encode_update(self, cid: int, client_params: Params,
                       n_epochs: int) -> UploadPayload:
         """Client-side encoder (simulated on the server object): pack once,
@@ -506,6 +568,7 @@ class SeaflServer:
             return self.dispatch.held_flat(cid, self._history)
         return self._history[version]
 
+    @_timing_scope
     def begin_ingest(self, cid: int, version: int, n_epochs: int,
                      recv_time: float = 0.0) -> IngestSession:
         """Open a streaming ingest: reserve a buffer slot for ``cid``'s
@@ -523,6 +586,7 @@ class SeaflServer:
         self._ingests[cid] = sess
         return sess
 
+    @_timing_scope
     def ingest_chunk(self, cid: int, chunk: Chunk) -> None:
         self._ingests[cid].write(chunk)
 
@@ -535,6 +599,7 @@ class SeaflServer:
                 self._batcher.cancel_slot(sess.slot)
             self.buffer.release(sess.slot)
 
+    @_timing_scope
     def finish_ingest(self, cid: int,
                       recv_time: float = 0.0) -> Optional[AggregationEvent]:
         """Close the stream: validate coverage, commit the slot, account the
@@ -591,6 +656,7 @@ class SeaflServer:
         self._edge_merges_round += 1
         self._edge_merges_total += 1
 
+    @_timing_scope
     def ingest_payload(self, payload: UploadPayload,
                        recv_time: float = 0.0) -> Optional[AggregationEvent]:
         """Atomic ingest of a whole wire payload (the simulator's deliver
@@ -601,6 +667,7 @@ class SeaflServer:
         sess.write_all(payload.chunks)
         return self.finish_ingest(payload.cid, recv_time)
 
+    @_timing_scope
     def on_update(self, cid: int, client_params: Params, n_epochs: int,
                   recv_time: float = 0.0) -> Optional[AggregationEvent]:
         """Encode + ingest in one step (callers without an explicit wire)."""
@@ -619,17 +686,23 @@ class SeaflServer:
         sizes = np.asarray([u.n_samples for u in updates], np.float32)
         stacked = self.buffer.stacked_flat()   # f32 or bf16 slots; kernels
         weights = None                         # accumulate in f32 either way
+        # tuned grids (None without tuning: the untuned calls): the
+        # baselines ride the raw fused pass, seafl/seafl2 the delta-free one
+        grid_w = grid_s = None
+        if self.tuning is not None:
+            grid_w = self.tuning.agg_plan("weighted_aggregate")
+            grid_s = self.tuning.agg_plan("seafl_aggregate_flat_from_params")
 
         with self.tel.span("server.aggregate", round=self.round,
                            k=len(updates), algorithm=cfg.algorithm):
             if cfg.algorithm == "fedavg":
                 self._flat, w = fedavg_aggregate_flat(self._flat, stacked,
-                                                      sizes)
+                                                      sizes, block_p=grid_w)
                 weights = w.cpu().numpy()
             elif cfg.algorithm == "fedasync":
                 self._flat = fedasync_aggregate_flat(
                     self._flat, stacked[0], staleness[0],
-                    cfg.fedasync_alpha0, cfg.fedasync_poly_a)
+                    cfg.fedasync_alpha0, cfg.fedasync_poly_a, block_p=grid_w)
             elif cfg.algorithm == "fedbuff":
                 # fedbuff_aggregate_flat yields w_t + eta*mean(w_k - w_t);
                 # true FedBuff deltas are vs each client's dispatch version,
@@ -637,7 +710,8 @@ class SeaflServer:
                 # the few distinct live versions, not another (K, P) pass.
                 g, k = self._flat, float(len(updates))
                 mixed, w = fedbuff_aggregate_flat(g, stacked,
-                                                  cfg.fedbuff_eta_g)
+                                                  cfg.fedbuff_eta_g,
+                                                  block_p=grid_w)
                 counts: dict[int, int] = {}
                 for u in updates:
                     counts[u.version] = counts.get(u.version, 0) + 1
@@ -653,7 +727,7 @@ class SeaflServer:
                 self._flat, w = seafl_aggregate_flat_from_params(
                     self._flat, stacked, sizes, staleness, h.alpha, h.mu,
                     h.beta, h.theta, use_importance=h.use_importance,
-                    use_staleness=h.use_staleness)
+                    use_staleness=h.use_staleness, block_p=grid_s)
                 weights = w.cpu().numpy()
 
         if self.tel.enabled:

@@ -10,6 +10,8 @@ the one place that turns TF32 off for convolutions and matrix products.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -34,3 +36,26 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): what closes
+    every host-clock time the port takes of device work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed(telemetry, name: str, device: torch.device, fn, *args, **kw):
+    """``fn(*args, **kw)``; when ``telemetry`` is an enabled Telemetry, its
+    wall time also lands in the ``kernel.<name>_us`` histogram, the time of
+    a finished result: ``device`` is synchronised before the clock starts
+    and after the call (the kernel-timing clock of ``telemetry_kernels``)."""
+    if telemetry is None or not getattr(telemetry, "enabled", False):
+        return fn(*args, **kw)
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    sync(device)
+    telemetry.histogram(f"kernel.{name}_us",
+                        (time.perf_counter() - t0) * 1e6)
+    return out

@@ -23,9 +23,13 @@ from repro_torch.kernels._common import check_cuda as _check_cuda
 from repro_torch.kernels._common import stream as _stream
 
 # each thread of a block walks this many elements of P (grid-stride), so the
-# grid is ceil(P / (256 * 16)) blocks: many waves, a small tail
+# grid is ceil(P / (256 * 16)) blocks: many waves, a small tail.  The
+# autotuner's knob ``block_p`` (runtime/autotune.py) is the elements of P one
+# block covers, which sets the grid; None keeps this default.
 _THREADS = 256
 _ELEMS_PER_THREAD = 16
+DEFAULT_BLOCK_P = _THREADS * _ELEMS_PER_THREAD
+_MAX_GRID_X = 2**31 - 1
 _MAX_GRID_Y = 65535
 _ROWS_PER_BLOCK = 16          # kRows in the source
 
@@ -63,18 +67,29 @@ def _check_rows(stacked: torch.Tensor, global_flat: torch.Tensor) -> None:
         raise ValueError("seafl_agg kernels need K >= 1 rows")
 
 
-def _grid(p: int) -> int:
-    return max(1, -(-p // (_THREADS * _ELEMS_PER_THREAD)))
+def _grid(p: int, block_p=None) -> int:
+    """Blocks of the grid over P: ceil(P / block_p).  A block covers its
+    share with a grid-stride loop, so any positive ``block_p`` is exact;
+    only the partials kernel's summation order depends on it."""
+    bp = DEFAULT_BLOCK_P if block_p is None else int(block_p)
+    if bp < 1:
+        raise ValueError(f"block_p must be a positive element count, got "
+                         f"{block_p!r}")
+    nblocks = max(1, -(-p // bp))
+    if nblocks > _MAX_GRID_X:
+        raise ValueError(f"block_p={bp} makes {nblocks} blocks over P={p}, "
+                         f"more than the grid holds")
+    return nblocks
 
 
 def _sim_partials(stacked: torch.Tensor, global_flat: torch.Tensor,
-                  from_params: bool) -> torch.Tensor:
+                  from_params: bool, block_p=None) -> torch.Tensor:
     _check_rows(stacked, global_flat)
     k, p = stacked.shape
     if -(-k // _ROWS_PER_BLOCK) > _MAX_GRID_Y:
         raise ValueError(f"K={k} rows exceed the partials kernel's grid")
     dev = stacked.device
-    nblocks = _grid(p)
+    nblocks = _grid(p, block_p)
     ws = torch.empty((nblocks, k, 3), dtype=torch.float32, device=dev)
     out = torch.empty((k, 4), dtype=torch.float32, device=dev)
     err = _lib().seafl_sim_partials(
@@ -86,24 +101,28 @@ def _sim_partials(stacked: torch.Tensor, global_flat: torch.Tensor,
 
 
 def sim_partials_from_params_call(stacked: torch.Tensor,
-                                  global_flat: torch.Tensor) -> torch.Tensor:
+                                  global_flat: torch.Tensor,
+                                  block_p=None) -> torch.Tensor:
     """(K, P) client params, (P,) global -> (K, 4) f32
     [d.g, |d|^2, |g|^2, 0] with d = w_k - g formed in registers."""
-    out = _sim_partials(stacked, global_flat, from_params=True)
+    out = _sim_partials(stacked, global_flat, from_params=True,
+                        block_p=block_p)
     sim_partials_from_params_call.launches += 1
     return out
 
 
-def sim_partials_call(deltas: torch.Tensor,
-                      global_flat: torch.Tensor) -> torch.Tensor:
+def sim_partials_call(deltas: torch.Tensor, global_flat: torch.Tensor,
+                      block_p=None) -> torch.Tensor:
     """(K, P) explicit deltas, (P,) global -> (K, 4) f32 partials."""
-    out = _sim_partials(deltas, global_flat, from_params=False)
+    out = _sim_partials(deltas, global_flat, from_params=False,
+                        block_p=block_p)
     sim_partials_call.launches += 1
     return out
 
 
 def weighted_agg_call(weights: torch.Tensor, stacked: torch.Tensor,
-                      global_flat: torch.Tensor, theta: float) -> torch.Tensor:
+                      global_flat: torch.Tensor, theta: float,
+                      block_p=None) -> torch.Tensor:
     """(K,) f32 weights, (K, P) rows, (P,) global, host float theta ->
     (1 - theta) * g + theta * (w @ rows), a new (P,) tensor in g's dtype."""
     _check_rows(stacked, global_flat)
@@ -117,7 +136,7 @@ def weighted_agg_call(weights: torch.Tensor, stacked: torch.Tensor,
         raise ValueError(f"K={k} weights exceed the kernel's shared memory")
     dev = stacked.device
     out = torch.empty_like(global_flat)
-    nblocks = _grid(p)
+    nblocks = _grid(p, block_p)
     err = _lib().seafl_weighted_agg(
         weights.data_ptr(), stacked.data_ptr(), _DTYPES[stacked.dtype],
         global_flat.data_ptr(), _DTYPES[global_flat.dtype], k, p,

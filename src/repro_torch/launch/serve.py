@@ -19,14 +19,9 @@ import time
 import torch
 
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, sync
 from repro_torch.launch.specs import make_prefill_step, make_serve_step
 from repro_torch.models.model import build_model, tree_leaves
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
@@ -49,11 +44,11 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     serve_step = make_serve_step(model)
 
     cache = model.init_cache(batch, prompt_len + gen)
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, {"tokens": prompts}, cache)
     nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-    _sync(dev)
+    sync(dev)
     t_prefill = time.perf_counter() - t0
 
     out = [nxt]
@@ -61,7 +56,7 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     for _ in range(gen - 1):
         nxt, cache = serve_step(params, cache, nxt)
         out.append(nxt)
-    _sync(dev)
+    sync(dev)
     t_decode = time.perf_counter() - t0
 
     tokens = torch.cat(out, dim=1)

@@ -21,14 +21,21 @@ buffer slot.  ``--ckpt-dir``
 restores the server from the directory's latest checkpoint at start
 (``[train] restored from round N``) and saves after every ``--ckpt-every``
 rounds, in the JAX package's format, so either trainer resumes the other's
-run.  The options the port's server refuses (the run monitor and
-``--slo``, the autotuner, kernel timing) raise there.
+run.  ``--monitor on`` runs the run-health detectors (alerts on the round
+lines and in the log, the summary's ``monitor``); ``--slo SPEC`` makes a
+violating alert stop the run, print the violations and exit with code 2;
+``--telemetry-kernels`` times the aggregation and codec calls;
+``--autotune cache|sweep`` tunes the kernels' grid, the chunk size and the
+ingest flush for the run's device.  ``python -m repro_torch.launch.report
+run.jsonl`` renders the ``--log-jsonl`` log as HTML.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
       --rounds 3 --clients 4 --concurrency 2 --buffer 2 --seq-len 32 \
       [--compression topk:0.2] [--dispatch-compression topk:0.2] \
-      [--cohorts on] [--ckpt-dir /tmp/ck --ckpt-every 1] [--device cpu]
+      [--cohorts on] [--ckpt-dir /tmp/ck --ckpt-every 1] \
+      [--monitor on] [--slo error] [--autotune sweep] \
+      [--log-jsonl run.jsonl] [--device cpu]
 """
 from __future__ import annotations
 
@@ -191,9 +198,8 @@ def format_round(rec: dict) -> str:
 
 
 def summary_record(server, sim) -> dict:
-    """The run's summary record: the JAX record's fields that the port's
-    server can produce (it refuses the run monitor, whose field the JAX
-    record adds)."""
+    """The run's summary record, the JAX record's fields (``monitor`` when
+    the run monitor is on)."""
     rec = {
         "event": "summary",
         "rounds": int(server.round),
@@ -217,6 +223,8 @@ def summary_record(server, sim) -> dict:
     if cs is not None:
         rec["cohorts"] = int(cs["cohorts"])
         rec["edge_merges"] = int(cs["edge_merges_total"])
+    if server.monitor is not None:
+        rec["monitor"] = server.monitor.summary()
     return rec
 
 
@@ -234,6 +242,11 @@ def format_summary(rec: dict) -> str:
     if "cohorts" in rec:
         note += (f", cohorts={rec['cohorts']}"
                  f", edge_merges={rec['edge_merges']}")
+    if "monitor" in rec:
+        mon = rec["monitor"]
+        note += f", alerts={mon['alerts_total']}"
+        if mon["slo_breached"]:
+            note += " SLO-BREACHED"
     return (f"[train] done: {rec['rounds']} rounds, "
             f"{rec['aggregations']} aggregations, "
             f"uplink_bytes={rec['uplink_bytes']}, "
@@ -331,8 +344,9 @@ def main():
                          "weight histograms, wall + sim-clock spans")
     ap.add_argument("--telemetry-kernels", action="store_true",
                     default=False,
-                    help="also time each aggregation kernel call "
-                         "(not ported yet: the server refuses it)")
+                    help="also time each aggregation kernel call and "
+                         "chunk encode/decode (measurement-grade runs "
+                         "only: it synchronises the device around each)")
     ap.add_argument("--log-jsonl", default=None, metavar="PATH",
                     help="append one structured JSON record per round plus "
                          "a final summary record to PATH")
@@ -446,6 +460,8 @@ def main():
             ck.save(server.round, server.checkpoint_trees(),
                     extra=server.state_dict())
             last_ck = server.round
+        if server.monitor is not None and server.monitor.slo_breached:
+            break
         if not sim._heap:
             break
     if ck is not None:
@@ -461,6 +477,11 @@ def main():
             json.dump(server.tel.snapshot(), fh, indent=1)
         print(f"[train] wrote metrics snapshot to {args.metrics}")
     print(format_summary(summary))
+    if server.monitor is not None and server.monitor.slo_breached:
+        for a in server.monitor.slo_violations:
+            print(f"[train] SLO violation: round {a.round} "
+                  f"{a.detector} ({a.severity}): {a.message}")
+        raise SystemExit(2)
 
 
 if __name__ == "__main__":

@@ -34,10 +34,13 @@ Spec strings (:func:`parse_spec`): ``None`` | ``'none'`` | ``'f32'`` |
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+
+from repro_torch.device import sync, timed
 
 __all__ = [
     "CHUNK_HEADER_BYTES",
@@ -55,6 +58,7 @@ __all__ = [
     "encode_flat_batch",
     "encode_error",
     "FlatErrorFeedback",
+    "set_codec_timing",
 ]
 
 # seq:u32 | start:u64 | length:u32  — fixed framing per chunk
@@ -309,18 +313,67 @@ def make_wire_format(spec: Optional[str],
 
 # --------------------------------------------------------- chunk plumbing
 
+# Opt-in codec wall timing (FLConfig.telemetry_kernels): the clock of the
+# aggregate entry points in kernels/seafl_agg/ops.py, so encoding and
+# decoding record ``kernel.encode_<scheme>_us`` / ``kernel.decode_<scheme>
+# _us`` histograms of finished results (on CUDA the device is synchronised
+# before and after).  None / disabled (the default) leaves them untouched.
+_KERNEL_TEL = None
+
+
+def set_codec_timing(telemetry: Optional[object]) -> Optional[object]:
+    """Install (or clear, with None) the Telemetry that times encoding and
+    decoding; returns the one it replaces.  The server installs it for the
+    length of each of its own calls (core/server.py)."""
+    global _KERNEL_TEL
+    prev, _KERNEL_TEL = _KERNEL_TEL, telemetry
+    return prev
+
+
+def _timing() -> bool:
+    return _KERNEL_TEL is not None and getattr(_KERNEL_TEL, "enabled", False)
+
+
+def _encode_rows(codec: ChunkCodec, rows: torch.Tensor,
+                 fmt: WireFormat) -> Any:
+    """``codec.encode_batch`` of (r, chunk_elems) rows.  Under codec timing
+    the batched call is timed as it runs, and its time over r lands as r
+    samples of ``kernel.encode_<scheme>_us``: one sample a chunk, as the
+    JAX package's per-chunk clock counts, each the chunk's share of the
+    batch."""
+    if not _timing():
+        return codec.encode_batch(rows, fmt)
+    sync(rows.device)
+    t0 = time.perf_counter()
+    payload = codec.encode_batch(rows, fmt)
+    sync(rows.device)
+    r = int(rows.shape[0])
+    _KERNEL_TEL.histogram_many(f"kernel.encode_{fmt.scheme}_us",
+                               [(time.perf_counter() - t0) * 1e6 / r] * r)
+    return payload
+
+
+def _payload_device(payload: Any) -> torch.device:
+    t = payload if isinstance(payload, torch.Tensor) \
+        else next(iter(payload.values()))
+    return t.device
+
+
 def encode_chunk(x: torch.Tensor, seq: int, start: int,
                  fmt: WireFormat) -> Chunk:
     """Encode one (n,) f32 window of the flat vector."""
     n = int(x.shape[0])
-    return Chunk(seq=seq, start=start, length=n,
-                 payload=fmt.codec.encode(x, fmt),
+    payload = timed(_KERNEL_TEL, f"encode_{fmt.scheme}", x.device,
+                    fmt.codec.encode, x, fmt)
+    return Chunk(seq=seq, start=start, length=n, payload=payload,
                  nbytes=fmt.chunk_wire_bytes(n))
 
 
 def decode_chunk(chunk: Chunk, fmt: WireFormat) -> torch.Tensor:
     """Decode one chunk back to its (length,) f32 window."""
-    return fmt.codec.decode(chunk.payload, chunk.length, fmt)
+    return timed(_KERNEL_TEL, f"decode_{fmt.scheme}",
+                 _payload_device(chunk.payload), fmt.codec.decode,
+                 chunk.payload, chunk.length, fmt)
 
 
 def decode_concat(chunks: list[Chunk], fmt: WireFormat) -> torch.Tensor:
@@ -353,7 +406,7 @@ def encode_flat(vec: torch.Tensor, fmt: WireFormat) -> list[Chunk]:
     chunks, nbytes = [], fmt.chunk_wire_bytes(ce)
     for r0 in range(0, full, _ROWS_PER_BATCH):
         r1 = min(r0 + _ROWS_PER_BATCH, full)
-        payload = codec.encode_batch(rows[r0:r1], fmt)
+        payload = _encode_rows(codec, rows[r0:r1], fmt)
         chunks += [Chunk(seq=r, start=r * ce, length=ce,
                          payload=codec.split_batch(payload, r - r0),
                          nbytes=nbytes) for r in range(r0, r1)]

@@ -45,8 +45,12 @@ bit-identical to the availability-free simulator, pinned by test.
 Under ``FLConfig.resync_batching`` one aggregation's dispatch fan-out is
 encoded in one pass (``SeaflServer.encode_dispatch_round``): the resync
 fold-ins coalesce into one batched encode whose source cost is priced once
-and shared by the resynced clients.  The JAX package's run-monitor hooks
-are not ported yet: the port's server has no monitor.
+and shared by the resynced clients.
+
+With ``FLConfig.monitor='on'`` every round record carries the server's
+resident-state breakdown as ``mem_*`` fields and, when a detector fires,
+its ``alerts``; an SLO breach stops ``run`` with the next event still
+queued.  Off, none of it runs and the records keep their keys.
 """
 from __future__ import annotations
 
@@ -544,6 +548,16 @@ class FLSimulation:
             # histogram summaries only) — history keys are unchanged when
             # telemetry is off
             rec["telemetry"] = self.tel.snapshot(compact=True)
+        mon = self.server.monitor
+        if mon is not None:
+            # memory watchdog: the resident-state breakdown rides every
+            # round record as mem_* fields, then the detectors read the
+            # finished record; alerts attach only when one fired
+            for k, v in self.server.resident_state_bytes().items():
+                rec[f"mem_{k}"] = v
+            fired = mon.on_round(rec)
+            if fired:
+                rec["alerts"] = [a.to_dict() for a in fired]
         self.history.append(rec)
         for cid in agg.notify:
             self._notify(cid)
@@ -631,12 +645,15 @@ class FLSimulation:
             if cid not in self._inflight and cid not in self._delivering:
                 self.server.mark_dispatched(cid)
                 self._dispatch(cid)
+        mon = self.server.monitor
         while self._heap:
             # peek before popping: breaking must leave the next event queued
             # so a later run() call (chunked driving) resumes it instead of
-            # silently dropping one client's upload
+            # silently dropping one client's upload, the SLO fail-fast stop
+            # included (train.py reports it and exits non-zero)
             if (self._heap[0].time > max_time
-                    or self.server.round >= max_rounds):
+                    or self.server.round >= max_rounds
+                    or (mon is not None and mon.slo_breached)):
                 break
             ev = heapq.heappop(self._heap)
             if not ev.valid:

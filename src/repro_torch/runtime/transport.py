@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import sync
 from repro_torch.runtime.codecs import (
     Chunk, FlatErrorFeedback, WireFormat, decode_chunk, decode_concat,
     encode_flat,
@@ -95,11 +96,6 @@ _BYPASS_MIN_ELEMS = 4096
 _bypass_probe_cache: dict[tuple, bool] = {}
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _coalescing_loses(length: int, dtype, flush_chunks: int,
                       device: torch.device) -> bool:
     """Cheap startup probe: time one flush-sized run of eager per-chunk
@@ -121,19 +117,19 @@ def _coalescing_loses(length: int, dtype, flush_chunks: int,
              for i in range(int(flush_chunks))]
     scratch.write_range(0, 0, vals)                      # warm eager path
     scratch.write_batch(list(items))                     # warm batched path
-    _sync(device)
+    sync(device)
 
     def eager():
         for slot, start, v in items:
             scratch.write_range(slot, start, v)
-        _sync(device)
+        sync(device)
 
     def batched():
         scratch.write_batch(list(items))
-        _sync(device)
+        sync(device)
 
     def once(fn) -> float:
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
@@ -164,11 +160,16 @@ class IngestBatcher:
 
     def __init__(self, buffer, flush_chunks: int = 16,
                  auto_bypass: bool = False,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None,
+                 tuned_verdict=None):
         self.tel = _tel_of(telemetry)
         self.buffer = buffer
         self.flush_chunks = max(1, int(flush_chunks))
         self.auto_bypass = bool(auto_bypass)
+        # tuned_verdict: (length, dtype, flush_chunks) -> Optional[bool],
+        # the autotuner's cached bypass answer.  None (no tuner, or a cache
+        # miss) falls through to the one-shot timing probe below.
+        self.tuned_verdict = tuned_verdict
         self._bypass: Optional[bool] = None   # verdict, decided once
         self._fill: list[tuple[int, int, torch.Tensor]] = []
         self.flushes = 0
@@ -183,9 +184,14 @@ class IngestBatcher:
     def enqueue(self, slot: int, start: int, vals: torch.Tensor) -> None:
         if self.auto_bypass and int(vals.shape[0]) >= _BYPASS_MIN_ELEMS:
             if self._bypass is None:
-                self._bypass = _coalescing_loses(
-                    int(vals.shape[0]), self.buffer.dtype, self.flush_chunks,
-                    self.buffer.device)
+                if self.tuned_verdict is not None:
+                    self._bypass = self.tuned_verdict(
+                        int(vals.shape[0]), self.buffer.dtype,
+                        self.flush_chunks)
+                if self._bypass is None:      # tuning-cache miss -> probe
+                    self._bypass = _coalescing_loses(
+                        int(vals.shape[0]), self.buffer.dtype,
+                        self.flush_chunks, self.buffer.device)
                 self.tel.gauge("ingest.bypass_verdict",
                                1.0 if self._bypass else 0.0)
             if self._bypass:

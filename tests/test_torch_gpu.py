@@ -121,6 +121,87 @@ def test_server_aggregation_goes_through_the_kernels(cuda):
     np.testing.assert_allclose(outs["cuda"][1], outs["cpu"][1], atol=1e-6)
 
 
+# ------------------------------------------ the autotuner's grid (block_p)
+
+@pytest.mark.parametrize("k,p", [(10, 11_176_970), (33, 70_001)],
+                         ids=["resnet18", "ragged"])
+@pytest.mark.parametrize("wd", ["f32", "bf16"])
+def test_every_grid_gives_the_default_grids_values(cuda, k, p, wd):
+    """B2 writes each element from its own K-term sum: bit-identical at
+    every block_p candidate.  B1 sums per-block partials in a fixed order
+    over the grid: its |d|^2, |g|^2 and row cosine within 1e-6 of the
+    default grid's (autotune.partials_drift)."""
+    from repro_torch.kernels.seafl_agg import kernel as K
+    from repro_torch.runtime.autotune import (
+        BLOCK_P_CANDIDATES, GRID_BOUND, GRID_BOUNDED, partials_drift,
+    )
+    w, g, wts = _inputs(cuda, k, p, DT[wd], torch.float32)
+    part = K.sim_partials_from_params_call(w, g)
+    mixed = K.weighted_agg_call(wts, w, g, 0.7)
+    assert torch.equal(part, K.sim_partials_from_params_call(
+        w, g, block_p=K.DEFAULT_BLOCK_P))
+    for bp in BLOCK_P_CANDIDATES:
+        assert torch.equal(K.weighted_agg_call(wts, w, g, 0.7, block_p=bp),
+                           mixed), bp
+        for got, want in (
+                (K.sim_partials_from_params_call(w, g, block_p=bp), part),
+                (K.sim_partials_call(w - g, g, block_p=bp),
+                 K.sim_partials_call(w - g, g))):
+            drift = partials_drift(got, want)
+            assert max(drift[k] for k in GRID_BOUNDED) <= GRID_BOUND, \
+                (bp, drift)
+
+
+def test_sweep_on_the_card_times_every_candidate(cuda):
+    from repro_torch.runtime.autotune import (
+        AGG_ENTRY_POINTS, BLOCK_P_CANDIDATES, sweep_agg_entry,
+    )
+    for entry in AGG_ENTRY_POINTS:
+        r = sweep_agg_entry(entry, 1 << 22, 4, device=cuda, reps=2)
+        times = [*r["candidates_us"].values(), r["oracle_us"],
+                 r["tuned_us"], r["default_us"]]
+        assert all(math.isfinite(t) and t > 0 for t in times), r
+        assert r["use_oracle"] is False and r["device"] == \
+            torch.cuda.get_device_name(cuda)
+        assert set(r["candidates_us"]) == {str(b) for b in
+                                           BLOCK_P_CANDIDATES}
+        assert r["block_p"] in BLOCK_P_CANDIDATES and \
+            r["measured_vs_predicted"] >= 1.0
+
+
+def test_kernel_timing_records_one_sample_per_launch(cuda):
+    """telemetry_kernels on the card: one kernel.<entry>_us sample per
+    aggregate call, each call launching B1 and B2 once; the values equal an
+    untimed server's, which, built after the timed one, times nothing."""
+    from repro_torch.core.server import FLConfig, SeaflServer
+    from repro_torch.kernels.seafl_agg import kernel as K, ops
+    from repro_torch.runtime import codecs
+    params = {"a": torch.linspace(-1, 1, 5000).reshape(50, 100)}
+    globals_ = {}
+    for timed in (True, False):
+        cfg = FLConfig(n_clients=4, concurrency=4, buffer_size=2,
+                       telemetry=True, telemetry_kernels=timed,
+                       chunk_elems=1024)
+        srv = SeaflServer(cfg, params, {c: 10 for c in range(4)},
+                          device=cuda)
+        srv.start()
+        K.reset_launch_counts()
+        for c in sorted(srv.active):
+            srv.on_update(c, {"a": params["a"].to(cuda) * (1 + c)}, 1)
+        globals_[timed] = srv.global_flat
+        h = srv.tel.snapshot()["histograms"]
+        if timed:
+            n = h["kernel.seafl_aggregate_flat_from_params_us"]["count"]
+            assert n == 2 == K.sim_partials_from_params_call.launches \
+                == K.weighted_agg_call.launches
+            assert h["kernel.encode_f32_us"]["count"] == 4 * 5
+            assert h["kernel.decode_f32_us"]["count"] == 4 * 5
+        else:
+            assert not [k for k in h if k.startswith("kernel.")]
+        assert ops._KERNEL_TEL is None and codecs._KERNEL_TEL is None
+    assert torch.equal(globals_[True], globals_[False])
+
+
 # ------------------------------------------------- LM kernels B4-B6 (serving)
 
 def _randn(cuda, *shape, seed=0, dtype=torch.float32):

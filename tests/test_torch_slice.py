@@ -186,10 +186,12 @@ def test_scheduler_draws_like_jax(policy):
     assert tr.bit_generator.state == jr.bit_generator.state
 
 
-def test_unported_options_raise():
-    """The compressed uplink, the version-tracked downlink, cohorts, the
-    drift ratio policy and resync batching are ported (they construct); the
-    monitor, the autotuner and kernel timing are not."""
+def test_unported_options_raise(monkeypatch, tmp_path):
+    """Every option of ``FLConfig`` is ported: the compressed uplink, the
+    version-tracked downlink, cohorts, the drift ratio policy, resync
+    batching, the run monitor with its SLO, the autotuner and kernel timing
+    construct; bad values still raise."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
     params = {"w": torch.zeros(4)}
     for spec in ("topk:0.1", "bf16", "int8"):
         SeaflServer(FLConfig(compression=spec), params, {0: 1}, device="cpu")
@@ -204,10 +206,12 @@ def test_unported_options_raise():
         SeaflServer(FLConfig(dispatch_compression="int8",
                              dispatch_ratio_policy="drift"), params, {0: 1},
                     device="cpu")
-    for kw in ({"monitor": "on"}, {"autotune": "cache"},
-               {"telemetry_kernels": True}):
-        with pytest.raises(NotImplementedError):
-            SeaflServer(FLConfig(**kw), params, {0: 1}, device="cpu")
+    for kw in ({"monitor": "on", "slo": "error,byte_budget"},
+               {"autotune": "cache"},
+               {"telemetry": True, "telemetry_kernels": True}):
+        srv = SeaflServer(FLConfig(**kw), params, {0: 1}, device="cpu")
+        assert (srv.monitor is not None) == ("monitor" in kw)
+        assert (srv.tuning is not None) == ("autotune" in kw)
     with pytest.raises(ValueError):
         SeaflServer(FLConfig(compression="zstd"), params, {0: 1},
                     device="cpu")

@@ -489,11 +489,47 @@ def test_cli_trains_on_the_cpu(monkeypatch, tmp_path, capsys, extra):
                                    ["--telemetry-kernels"],
                                    ["--autotune", "sweep"],
                                    ["--autotune", "cache"]])
-def test_cli_options_the_server_refuses_raise(monkeypatch, flags):
-    """The run monitor, its SLO, kernel timing and the autotuner are not
-    ported (the downlink and cohorts are, ``test_cli_trains_on_the_cpu``)."""
-    monkeypatch.setattr("sys.argv", ["train", "--arch", "mamba2-1.3b",
-                                     "--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError):
-        TT.main()
+def test_cli_options_the_server_refuses_raise(monkeypatch, tmp_path, flags):
+    """The options the port's server once refused (the run monitor, its
+    SLO, kernel timing, the autotuner) now run: the CLI trains one round on
+    the CPU with each and writes the fields it adds: the monitor's ``mem_*``
+    round fields and summary, the ``kernel.*_us`` histograms, the sweep's
+    tuning cache (which ``cache`` reads and never writes)."""
+    from repro_torch.kernels.seafl_agg import ops
+    from repro_torch.runtime import codecs
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    log, metrics = tmp_path / "run.jsonl", tmp_path / "m.json"
+    monkeypatch.setattr("sys.argv", [
+        "train", "--arch", "mamba2-1.3b", "--device", "cpu", "--rounds", "1",
+        "--clients", "4", "--concurrency", "2", "--buffer", "2",
+        "--seq-len", "16", "--log-jsonl", str(log), "--metrics",
+        str(metrics), *flags])
+    TT.main()
+    assert ops._KERNEL_TEL is None and codecs._KERNEL_TEL is None
+    rnd, summary = [json.loads(x) for x in log.read_text().splitlines()]
+    assert rnd["round"] == 1 and summary["rounds"] == 1
+    monitored = flags[0] in ("--monitor", "--slo")
+    assert ("monitor" in summary) == monitored
+    assert (rnd.get("mem_server_array_bytes", 0) > 0) == monitored
+    if monitored:
+        assert summary["monitor"]["slo_breached"] is False
+    hists = json.loads(metrics.read_text())["histograms"]
+    timed = {k: v["count"] for k, v in hists.items()
+             if k.startswith("kernel.")}
+    if flags == ["--telemetry-kernels"]:
+        assert timed["kernel.seafl_aggregate_flat_from_params_us"] == 1
+        assert timed["kernel.encode_f32_us"] >= 2 and \
+            timed["kernel.decode_f32_us"] >= 2
+    else:
+        assert set(timed) <= {"kernel.seafl_aggregate_flat_from_params_us",
+                              "kernel.weighted_aggregate_us",
+                              "kernel.codec_f32_us",
+                              "kernel.ingest_batched_us",
+                              "kernel.ingest_eager_us"}
+    cache = tmp_path / "cache" / "repro_torch_autotune" / "tuning_v1.json"
+    assert cache.exists() == (flags == ["--autotune", "sweep"])
+    if cache.exists():
+        entries = json.loads(cache.read_text())["entries"]
+        assert {e["kind"] for e in entries.values()} == {"agg", "codec",
+                                                        "ingest"}
 
