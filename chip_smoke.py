@@ -21,7 +21,8 @@ Phases, each printing its lines; no phase's failure is caught:
               mma.sync 3xTF32 instance, every other case), the RG-LRU scan
               (on both routes that fill its ring: TMA and cp.async) and the
               SSD forward at the serving path's shapes (recurrentgemma-2b /
-              mamba2-1.3b prefill of 4 x 4096 tokens) and at ragged ones
+              mamba2-1.3b prefill of 4 x 4096 tokens, internvl2-1b's
+              14 / 2 heads of D = 64) and at ragged ones
   4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
               beside the least time the card could take (bound_ms)
@@ -88,9 +89,19 @@ Phases, each printing its lines; no phase's failure is caught:
               equal to the B1/B2 launches, the swept keys active, no SLO
               breach), its JSONL log and trace rendered as the HTML
               report; and the small task's SLO stop, card against CPU
- 11. result   one JSON line of per-kernel numbers (B4 as two rows, one
+ 11. vlm      (h) internvl2-1b at full width (P = 494,807,936):
+              serve() of 4 x (256 image positions + 3840 tokens), 32
+              generated (B4 24 a prefill, all tc, none in decode);
+              make_train_step on 8 x 2048 positions (1792 tokens), M = 1,
+              3 steps (B4 48 a step; its forward's and plain backward's
+              shares of the profiled step); the cohort trainer as in phase
+              c (B1/B2 once an aggregation, B4 as reckoned), then B1/B2
+              timed at that P; the f32 smoke config card against CPU,
+              serving and 3 trainer rounds ([vlm] and the reused phases'
+              lines, each naming internvl2-1b)
+ 12. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance; each row with its training, uplink,
-              downlink and health launches), the nvidia-smi line, and
+              downlink, health and vlm launches), the nvidia-smi line, and
               last the contract line
               {"ok": true, "device": {...}}
 
@@ -490,11 +501,9 @@ def _small_downlink_card_vs_cpu(torch):
 # The slice's shapes: recurrentgemma-2b and mamba2-1.3b prefill of 4 prompts
 # of 4096 tokens (the shape serve() runs below).
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
+VLM_HEADS = (14, 2)                 # internvl2-1b's query and kv heads
 RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
-# per prefill: 8 local-attention and 18 recurrent layers (26 = (rec, rec,
-# attn) x 8 + (rec, rec)); 48 SSD layers
-PER_PREFILL = {"flash_attention": 8, "rglru_scan": 18, "ssd_forward": 48}
 SSD_CASES = [  # B, NH, S, hd, ds, chunk, h0
     (SERVE_BATCH, MB["NH"], SERVE_PROMPT, MB["hd"], MB["ds"], MB["chunk"],
      False),                                             # the slice's shape
@@ -594,6 +603,8 @@ def phase_parity_lm(torch):
         (1, 100, 161, 6, 3, 64, False, None, bf16),      # Skv != Sq
         (1, 100, 161, 6, 3, 32, False, None, bf16),      # bf16 on mma
         (2, 45, 45, 4, 2, 20, True, 16, f32),            # D padded to 24
+        (SERVE_BATCH, S, S, VLM_HEADS[0], VLM_HEADS[1], 64, True, None,
+         bf16),                                          # internvl2-1b's
     ]
     for i, (B, Sq, Skv, H, KVH, D, causal, window, dt) in enumerate(
             flash_cases):
@@ -977,7 +988,18 @@ def _range_device_ms(torch, prof, name):
             sum(e.device_time_total for e in rows) / 1e3)
 
 
-def _profile_serving(torch, arch):
+def _vlm_images(torch, cfg, batch, gen, device):
+    """{"image_embeds": (batch, n_img_tokens, vision_embed_dim) N(0, 1)}
+    drawn from ``gen`` for a vlm config, else {}; and the positions they
+    add."""
+    if cfg.family != "vlm":
+        return {}, 0
+    return {"image_embeds": torch.randn(
+        batch, cfg.n_img_tokens, cfg.vision_embed_dim, generator=gen,
+        device=device)}, cfg.n_img_tokens
+
+
+def _profile_serving(torch, arch, prompt_len):
     """The full config's prefill and one decode step, each under the
     profiler (warm: serve() ran just before): the prefill's device time by
     kernel, and the decode step's wall and device-busy time."""
@@ -988,14 +1010,15 @@ def _profile_serving(torch, arch):
     model = build_model(cfg, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt_len),
                             generator=gen, device="cuda")
-    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+    images, n_img = _vlm_images(torch, cfg, SERVE_BATCH, gen, "cuda")
+    cache = model.init_cache(SERVE_BATCH, prompt_len + SERVE_GEN + n_img)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _profiler(torch) as prof:
-        logits, cache = make_prefill_step(model)(params, {"tokens": prompts},
-                                                 cache)
+        logits, cache = make_prefill_step(model)(
+            params, {"tokens": prompts, **images}, cache)
         torch.cuda.synchronize()
     prefill_wall = time.perf_counter() - t0
     if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
@@ -1022,137 +1045,176 @@ def _profile_serving(torch, arch):
     busy_ms, rows = _kernel_times(torch, prof)
     log(f"[serve] {arch}: decode step kernels by time: " + ", ".join(
         f"{key[:40]} {ms:.3f} ms" for ms, key in rows[:4]))
-    return wall, busy_ms * 1e3
+    return dict(prefill_wall_ms=prefill_wall * 1e3, prefill_busy_ms=total,
+                prefill_idle_share=1 - total / (prefill_wall * 1e3)), \
+        wall, busy_ms * 1e3
 
 
-def phase_serve(torch):
-    """The serving entry point at full width, recurrentgemma-2b then
-    mamba2-1.3b: 4 prompts of 4096 tokens, 32 generated.  The LM kernels'
-    counts are zeroed just before each serve() and read just after: one
-    prefill must launch B4 8 times, all on its bf16 tensor-core instance,
-    and B5 18 times (recurrentgemma), B6 48 times (mamba2), and decode
-    none, so each count equals its per-prefill number exactly."""
+def _serve_full(torch, arch, prompt_len=SERVE_PROMPT):
+    """serve() at ``arch``'s full width: 4 prompts of ``prompt_len`` tokens
+    (after the image positions of a vlm config), 32 generated.  The LM
+    kernels' counts are zeroed just before and read just after: each must
+    equal one prefill's layers (``_per_forward``: recurrentgemma-2b's 8
+    local-attention and 18 recurrent layers, (rec, rec, attn) x 8 + (rec,
+    rec); mamba2-1.3b's 48 SSD layers; internvl2-1b's 24 attention
+    layers), B4 all on its bf16 tensor-core instance, decode none.  Then the prefill and one decode
+    step are profiled.  Returns (the counts, the summary record)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import build_model, tree_leaves
-    counts, summary = {}, {}
-    # start the profiler's tracing once, so the profiled step does not pay
-    # its set-up
+    cfg = get_config(arch)
+    meta = build_model(cfg, "meta").init()
+    n_params = sum(t.numel() for _, t in tree_leaves(meta))
+    n_bytes = sum(t.numel() * t.element_size()
+                  for _, t in tree_leaves(meta))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counts()
+    r = serve(arch, smoke=False, batch=SERVE_BATCH, prompt_len=prompt_len,
+              gen=SERVE_GEN, device="cuda")
+    launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    fa = FK.flash_attention_call
+    launched["flash_attention_tc"] = fa.launches_tc
+    launched["flash_attention_mma"] = fa.launches_mma
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if (fa.launches_tc, fa.launches_mma) != (fa.launches, 0):
+        raise AssertionError(f"{arch}: flash attention ran on the "
+                             f"mma.sync instance: {launched}")
+    per_prefill = _per_forward(cfg)
+    for name in _lm_kernels():
+        want = per_prefill[name]
+        if launched[name] != want:
+            raise AssertionError(f"{arch}: {name} launched "
+                                 f"{launched[name]} times in one serve, "
+                                 f"expected {want}")
+    gen = r["generated"]
+    if gen.shape != (SERVE_BATCH, SERVE_GEN) or not (
+            (gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: generated tokens out of the vocab "
+                             f"or of shape {gen.shape}")
+    prefill, wall, busy_us = _profile_serving(torch, arch, prompt_len)
+    step_s = r["decode_s"] / (SERVE_GEN - 1)      # unprofiled, in serve
+    positions = prompt_len + (cfg.n_img_tokens if cfg.family == "vlm"
+                              else 0)
+    summary = dict(params=n_params, param_bytes=n_bytes, positions=positions,
+                   prefill_ms=r["prefill_s"] * 1e3, tok_per_s=r["tok_per_s"],
+                   cache_mib=r["cache_bytes"] / 2**20, peak_mib=peak,
+                   decode_step_ms=step_s * 1e3,
+                   decode_busy_ms=busy_us / 1e3,
+                   decode_idle_share=1 - busy_us / (step_s * 1e6),
+                   prefill_idle_share_unprofiled=1 - prefill[
+                       "prefill_busy_ms"] / (r["prefill_s"] * 1e3), **prefill)
+    log(f"[serve] {arch}: {n_params} params ({n_bytes / 1e9:.3f} GB), "
+        f"{SERVE_BATCH} x {positions} positions, prefill "
+        f"{r['prefill_s'] * 1e3:.1f} ms, decode {r['tok_per_s']:.1f} "
+        f"tok/s ({r['decode_s'] * 1e3:.1f} ms for {SERVE_GEN - 1} "
+        f"steps), cache {r['cache_bytes'] / 2**20:.1f} MiB, peak "
+        f"{peak:.1f} MiB, launches {launched}")
+    log(f"[serve] {arch}: prefill kernels busy "
+        f"{prefill['prefill_busy_ms']:.2f} ms: idle share "
+        f"{summary['prefill_idle_share_unprofiled']:.4f} of serve's "
+        f"unprofiled prefill")
+    log(f"[serve] {arch}: one profiled decode step {wall * 1e3:.2f} ms "
+        f"wall, kernels busy {busy_us / 1e3:.3f} ms: idle share "
+        f"{1 - busy_us / (wall * 1e6):.4f} of it, "
+        f"{1 - busy_us / (step_s * 1e6):.4f} of serve's unprofiled "
+        f"{step_s * 1e3:.2f} ms step; first tokens "
+        f"{gen[0, :8].tolist()}")
+    return launched, summary
+
+
+def _warm_profiler(torch):
+    """Start the profiler's tracing once, so the profiled steps after it do
+    not pay its set-up."""
     with _profiler(torch):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    for arch, kernels in (("recurrentgemma-2b", ("flash_attention",
-                                                 "rglru_scan")),
-                          ("mamba2-1.3b", ("ssd_forward",))):
-        cfg = get_config(arch)
-        meta = build_model(cfg, "meta").init()
-        n_params = sum(t.numel() for _, t in tree_leaves(meta))
-        n_bytes = sum(t.numel() * t.element_size()
-                      for _, t in tree_leaves(meta))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_lm_counts()
-        r = serve(arch, smoke=False, batch=SERVE_BATCH,
-                  prompt_len=SERVE_PROMPT, gen=SERVE_GEN, device="cuda")
-        launched = {n: fn.launches for n, fn in _lm_kernels().items()}
-        fa = FK.flash_attention_call
-        launched["flash_attention_tc"] = fa.launches_tc
-        launched["flash_attention_mma"] = fa.launches_mma
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        if (fa.launches_tc, fa.launches_mma) != (fa.launches, 0):
-            raise AssertionError(f"{arch}: flash attention ran on the "
-                                 f"mma.sync instance: {launched}")
-        for name, fn in _lm_kernels().items():
-            want = PER_PREFILL[name] if name in kernels else 0
-            if launched[name] != want:
-                raise AssertionError(f"{arch}: {name} launched "
-                                     f"{launched[name]} times in one serve, "
-                                     f"expected {want}")
-        for name in kernels:
+
+
+def phase_serve(torch):
+    """The serving entry point at full width, recurrentgemma-2b then
+    mamba2-1.3b: 4 prompts of 4096 tokens, 32 generated (``_serve_full``:
+    one prefill launches B4 8 times, all on its bf16 tensor-core instance,
+    and B5 18 times (recurrentgemma), B6 48 times (mamba2), and decode
+    none)."""
+    counts, summary = {}, {}
+    _warm_profiler(torch)
+    from repro_torch.configs import get_config
+    for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
+        launched, summary[arch] = _serve_full(torch, arch)
+        used = [n for n, c in _per_forward(get_config(arch)).items() if c]
+        for name in used:
             counts[name] = launched[name]
-        if "flash_attention" in kernels:
-            counts["flash_attention_bf16_tc"] = fa.launches_tc
-            counts["flash_attention_f32_mma"] = fa.launches_mma
-        gen = r["generated"]
-        if gen.shape != (SERVE_BATCH, SERVE_GEN) or not (
-                (gen >= 0) & (gen < cfg.vocab_size)).all():
-            raise AssertionError(f"{arch}: generated tokens out of the vocab "
-                                 f"or of shape {gen.shape}")
-        wall, busy_us = _profile_serving(torch, arch)
-        step_s = r["decode_s"] / (SERVE_GEN - 1)      # unprofiled, in serve
-        summary[arch] = dict(params=n_params, param_bytes=n_bytes,
-                             prefill_ms=r["prefill_s"] * 1e3,
-                             tok_per_s=r["tok_per_s"],
-                             cache_mib=r["cache_bytes"] / 2**20,
-                             peak_mib=peak, decode_step_ms=step_s * 1e3,
-                             decode_busy_ms=busy_us / 1e3,
-                             decode_idle_share=1 - busy_us / (step_s * 1e6))
-        log(f"[serve] {arch}: {n_params} params ({n_bytes / 1e9:.3f} GB), "
-            f"prefill "
-            f"{r['prefill_s'] * 1e3:.1f} ms, decode {r['tok_per_s']:.1f} "
-            f"tok/s ({r['decode_s'] * 1e3:.1f} ms for {SERVE_GEN - 1} "
-            f"steps), cache {r['cache_bytes'] / 2**20:.1f} MiB, peak "
-            f"{peak:.1f} MiB, launches {launched}")
-        log(f"[serve] {arch}: one profiled decode step {wall * 1e3:.2f} ms "
-            f"wall, kernels busy {busy_us / 1e3:.3f} ms: idle share "
-            f"{1 - busy_us / (wall * 1e6):.4f} of it, "
-            f"{1 - busy_us / (step_s * 1e6):.4f} of serve's unprofiled "
-            f"{step_s * 1e3:.2f} ms step; first tokens "
-            f"{gen[0, :8].tolist()}")
+        if "flash_attention" in used:
+            counts["flash_attention_bf16_tc"] = launched["flash_attention_tc"]
+            counts["flash_attention_f32_mma"] = \
+                launched["flash_attention_mma"]
     return counts, summary
 
 
-def phase_card_vs_cpu(torch):
-    """recurrentgemma-2b and mamba2-1.3b smoke configs in f32, weights made
-    once from a seed: the card (kernels) and the CPU (plain versions) give
-    identical greedy tokens and prefill logits within 1e-3.  The prompt (40)
-    is longer than the smoke window (16) and the SSD chunk (16).  This is
-    the path where flash attention's mma.sync instance runs (f32, head dim
-    16): recurrentgemma's prefill must launch it on the card, and no kernel
-    on the CPU."""
+def _serve_card_vs_cpu(torch, arch):
+    """``arch``'s smoke config in f32, weights made once from a seed: the
+    card (kernels) and the CPU (plain versions) give identical greedy
+    tokens and prefill logits within 1e-3.  A model with attention runs
+    flash attention's mma.sync instance here (f32, head dim 16): its
+    prefill must launch it on the card, and no kernel on the CPU.  Returns
+    the card's mma launches."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.specs import make_prefill_step, make_serve_step
     from repro_torch.models.model import build_model, tree_map
+    cfg = smoke_config(arch).replace(param_dtype="float32", dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg, "cpu").init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
+    images, n_img = _vlm_images(torch, cfg, 3, gen, "cpu")
+    attends = _per_forward(cfg)["flash_attention"] > 0
+    toks, logits, mma_launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        _reset_lm_counts()
+        lg, cache = make_prefill_step(model)(
+            p, {"tokens": prompts.to(dev),
+                **{k: v.to(dev) for k, v in images.items()}},
+            model.init_cache(3, 52 + n_img))
+        launched = sum(fn.launches for fn in _lm_kernels().values())
+        mma = FK.flash_attention_call.launches_mma
+        if (launched > 0) != (dev == "cuda"):
+            raise AssertionError(f"{arch} on {dev}: {launched} kernel "
+                                 f"launches in prefill")
+        if attends and (mma > 0) != (dev == "cuda"):
+            raise AssertionError(f"{arch} on {dev}: {mma} launches of "
+                                 f"flash attention's mma.sync instance")
+        mma_launches[dev] = mma
+        nxt = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+        out = [nxt.cpu()]
+        step = make_serve_step(model)
+        for _ in range(11):
+            nxt, cache = step(p, cache, nxt)
+            out.append(nxt.cpu())
+        toks[dev] = torch.cat(out, 1)
+        logits[dev] = lg.cpu()[..., :cfg.vocab_size]
+    d = float((logits["cuda"] - logits["cpu"]).abs().max())
+    if not torch.equal(toks["cuda"], toks["cpu"]) or d > 1e-3:
+        raise AssertionError(f"{arch}: card vs CPU differ: tokens "
+                             f"{toks['cuda'].tolist()} vs "
+                             f"{toks['cpu'].tolist()}, logits {d}")
+    log(f"[card-vs-cpu] {arch} smoke f32: 12 greedy tokens identical, "
+        f"prefill logits max|d| {d:.3e}, flash attention mma.sync "
+        f"launches in prefill {mma_launches}")
+    return mma_launches["cuda"]
+
+
+def phase_card_vs_cpu(torch):
+    """recurrentgemma-2b and mamba2-1.3b smoke configs in f32, card against
+    CPU (``_serve_card_vs_cpu``).  The prompt (40) is longer than the
+    smoke window (16) and the SSD chunk (16).  This is the path where
+    flash attention's mma.sync instance runs: recurrentgemma's prefill must
+    launch it on the card."""
     for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
-        cfg = smoke_config(arch).replace(param_dtype="float32",
-                                         dtype="float32")
-        gen = torch.Generator().manual_seed(0)
-        params = build_model(cfg, "cpu").init(gen)
-        prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
-        toks, logits, mma_launches = {}, {}, {}
-        for dev in ("cuda", "cpu"):
-            model = build_model(cfg, dev)
-            p = tree_map(lambda t: t.to(dev), params)
-            _reset_lm_counts()
-            lg, cache = make_prefill_step(model)(
-                p, {"tokens": prompts.to(dev)}, model.init_cache(3, 52))
-            launched = sum(fn.launches for fn in _lm_kernels().values())
-            mma = FK.flash_attention_call.launches_mma
-            if (launched > 0) != (dev == "cuda"):
-                raise AssertionError(f"{arch} on {dev}: {launched} kernel "
-                                     f"launches in prefill")
-            if arch == "recurrentgemma-2b" and (mma > 0) != (dev == "cuda"):
-                raise AssertionError(f"{arch} on {dev}: {mma} launches of "
-                                     f"flash attention's mma.sync instance")
-            mma_launches[dev] = mma
-            nxt = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
-            out = [nxt.cpu()]
-            step = make_serve_step(model)
-            for _ in range(11):
-                nxt, cache = step(p, cache, nxt)
-                out.append(nxt.cpu())
-            toks[dev] = torch.cat(out, 1)
-            logits[dev] = lg.cpu()[..., :cfg.vocab_size]
-        d = float((logits["cuda"] - logits["cpu"]).abs().max())
-        if not torch.equal(toks["cuda"], toks["cpu"]) or d > 1e-3:
-            raise AssertionError(f"{arch}: card vs CPU differ: tokens "
-                                 f"{toks['cuda'].tolist()} vs "
-                                 f"{toks['cpu'].tolist()}, logits {d}")
-        log(f"[card-vs-cpu] {arch} smoke f32: 12 greedy tokens identical, "
-            f"prefill logits max|d| {d:.3e}, flash attention mma.sync "
-            f"launches in prefill {mma_launches}")
+        _serve_card_vs_cpu(torch, arch)
 
 
 # ---------------------------------------- LM training path (gradients)
@@ -1200,6 +1262,7 @@ def _train_grad_parity(torch):
         (2, 1024, 8, 2, 128, 256, torch.bfloat16),     # tc instance
         (1, 333, 4, 2, 64, None, torch.float32),       # mma instance
         (2, 40, 4, 1, 16, 16, torch.float32),          # the f32 smoke shape
+        (2, TRAIN_SEQ, *VLM_HEADS, 64, None, torch.bfloat16),  # internvl2
     ]
     for i, (B, S, H, KVH, D, window, dt) in enumerate(flash_cases):
         q = _randn(torch, B, S, H, D, seed=70 + i, dtype=dt)
@@ -1281,9 +1344,17 @@ def _train_grad_parity(torch):
     return errs
 
 
-def _ssd_per_forward(cfg):
-    return sum(reps * pattern.count("ssd")
-               for pattern, reps in cfg.scan_groups())
+KERNEL_OF_BLOCK = {"attn_mlp": "flash_attention", "attn": "flash_attention",
+                   "rec": "rglru_scan", "ssd": "ssd_forward"}
+
+
+def _per_forward(cfg):
+    """Each LM kernel's launches in one forward of ``cfg``: its layers."""
+    out = dict.fromkeys(KERNEL_OF_BLOCK.values(), 0)
+    for pattern, reps in cfg.scan_groups():
+        for block in pattern:
+            out[KERNEL_OF_BLOCK[block]] += reps
+    return out
 
 
 def _remat_reruns(cfg):
@@ -1292,25 +1363,42 @@ def _remat_reruns(cfg):
     return 0 if cfg.remat == "none" else 1
 
 
-def _train_step_full(torch):
-    """b. make_train_step at mamba2-1.3b's full width in bf16: batch 8 x
-    2048 tokens in cfg.train_microbatches (2) microbatches, 3 steps; the
-    last runs under the profiler.  B6 must launch 48 x M x (1 + remat
-    reruns) times a step, and only there."""
+def _train_step_full(torch, arch="mamba2-1.3b"):
+    """b. make_train_step at ``arch``'s full width in bf16: batch 8 x 2048
+    positions (for a vlm config 256 image positions, then 1792 tokens, as
+    the JAX ``input_specs`` sets S_txt = S - n_img_tokens) in
+    cfg.train_microbatches microbatches, 3 steps; the last runs under the
+    profiler.  Each LM kernel must launch its layers x M x (1 + remat
+    reruns) times a step (mamba2-1.3b: B6 48 x 2 x 2; internvl2-1b: B4 24 x
+    1 x 2, all on the tensor-core instance), and only there.  The profiled
+    step's device time is split by kind, and the kernel's plain backward is
+    read from its named range."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.specs import make_train_step
+    from repro_torch.models.blocks import SSD_BACKWARD_RANGE
+    from repro_torch.models.layers import FLASH_BACKWARD_RANGE
     from repro_torch.models.model import build_model
     from repro_torch.optim import sgd
-    cfg = get_config("mamba2-1.3b")
+    cfg = get_config(arch)
     M = cfg.train_microbatches
     model = build_model(cfg, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = sgd(0.05).init_state(model.init(gen))
-    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+    n_img = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    n_txt = TRAIN_SEQ - n_img
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, n_txt + 1),
                            generator=gen, device="cuda", dtype=torch.int32)
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    images, _ = _vlm_images(torch, cfg, TRAIN_BATCH, gen, "cuda")
+    batch.update({k: v.to(torch.bfloat16) for k, v in images.items()})
     step = make_train_step(model, lr=0.05)
-    per_step = _ssd_per_forward(cfg) * M * (1 + _remat_reruns(cfg))
+    reruns = _remat_reruns(cfg)
+    layers = _per_forward(cfg)
+    per_step = {n: c * M * (1 + reruns) for n, c in layers.items()}
+    kernel = "ssd_forward" if layers["ssd_forward"] else "flash_attention"
+    short, bwd_range = (("B6", SSD_BACKWARD_RANGE) if kernel == "ssd_forward"
+                        else ("B4", FLASH_BACKWARD_RANGE))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_lm_counts()
@@ -1328,72 +1416,83 @@ def _train_step_full(torch):
             f"{losses[-1]:.4f} ce {float(met['ce']):.4f}"
             + ("  (profiled)" if prof is not None else ""))
     launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    tc = FK.flash_attention_call.launches_tc
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(math.isfinite(x) for x in losses) or int(state.step) != \
             TRAIN_STEPS:
         raise AssertionError(f"train step: losses {losses}, step "
                              f"{int(state.step)}")
-    want = {"flash_attention": 0, "rglru_scan": 0,
-            "ssd_forward": per_step * TRAIN_STEPS}
-    if launched != want:
-        raise AssertionError(f"train step launched {launched}, expected "
-                             f"{want} (B6: {_ssd_per_forward(cfg)} layers x "
-                             f"M={M} x (1 + {_remat_reruns(cfg)} remat "
-                             f"rerun) per step)")
+    want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
+    if launched != want or tc != launched["flash_attention"]:
+        raise AssertionError(f"train step launched {launched} ({tc} on B4's "
+                             f"tc instance), expected {want} ({layers} "
+                             f"layers x M={M} x (1 + {reruns} remat rerun) "
+                             f"per step)")
     busy, rows = _kernel_times(torch, prof)
-    from repro_torch.models.blocks import SSD_BACKWARD_RANGE
-    n_bwd, bwd_step_ms = _range_device_ms(torch, prof, SSD_BACKWARD_RANGE)
-    if n_bwd != per_step // (1 + _remat_reruns(cfg)) or bwd_step_ms <= 0:
-        raise AssertionError(f"the profiled step ran B6's backward {n_bwd} "
-                             f"times with {bwd_step_ms} ms of kernels")
+    n_bwd, bwd_step_ms = _range_device_ms(torch, prof, bwd_range)
+    if n_bwd != per_step[kernel] // (1 + reruns) or bwd_step_ms <= 0:
+        raise AssertionError(f"the profiled step ran {short}'s backward "
+                             f"{n_bwd} times with {bwd_step_ms} ms of "
+                             f"kernels")
     step_ms = walls[-2] * 1e3                 # the last unprofiled step
-    tokens_s = TRAIN_BATCH * TRAIN_SEQ / walls[-2]
+    tokens_s = TRAIN_BATCH * n_txt / walls[-2]
+    positions_s = TRAIN_BATCH * TRAIN_SEQ / walls[-2]
     idle = 1 - busy / step_ms
-    kinds = {"B6 (ssd_*)": 0.0, "GEMM": 0.0, "elementwise/reduce": 0.0,
-             "other": 0.0}
+    kinds = {"B6 (ssd_*)": 0.0, "B4 (flash_*_kernel)": 0.0, "GEMM": 0.0,
+             "elementwise/reduce": 0.0, "other": 0.0}
     for ms, key in rows:
-        kinds["B6 (ssd_*)" if "ssd_" in key else "GEMM"
+        kinds["B6 (ssd_*)" if "ssd_" in key else "B4 (flash_*_kernel)"
+              if re.search(r"flash_(tc|mma)_kernel", key) else "GEMM"
               if re.search(r"gemm|nvjet|cutlass|sm90_", key) else
               "elementwise/reduce" if re.search(r"elementwise|reduce", key)
               else "other"] += ms
-    log(f"[train] mamba2-1.3b full width, bf16, batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ}, M={M}, remat={cfg.remat}: step {step_ms:.1f} ms, "
-        f"{tokens_s:.0f} tokens/s; profiled step {walls[-1] * 1e3:.1f} ms, "
-        f"kernels busy {busy:.1f} ms: idle share {idle:.4f} of the "
-        f"unprofiled step, {1 - busy / (walls[-1] * 1e3):.4f} of the "
-        f"profiled one; peak memory {peak:.2f} GiB; B6 launches "
-        f"{launched['ssd_forward']} ({per_step} a step)")
+    fwd_ms = kinds["B6 (ssd_*)" if short == "B6" else "B4 (flash_*_kernel)"]
+    log(f"[train] {arch} full width, bf16, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} positions ({n_txt} tokens), M={M}, "
+        f"remat={cfg.remat}: step {step_ms:.1f} ms, {tokens_s:.0f} tokens/s, "
+        f"{positions_s:.0f} positions/s; profiled step "
+        f"{walls[-1] * 1e3:.1f} ms, kernels busy {busy:.1f} ms: idle share "
+        f"{idle:.4f} of the unprofiled step, "
+        f"{1 - busy / (walls[-1] * 1e3):.4f} of the profiled one; peak "
+        f"memory {peak:.2f} GiB; {short} launches {launched[kernel]} "
+        f"({per_step[kernel]} a step)")
     log("[train]   device time by kind: " + ", ".join(
         f"{k} {ms:.1f} ms ({ms / busy:.2%})" for k, ms in kinds.items()))
-    log(f"[train]   B6 backward (plain recompute + autograd, the "
-        f"{SSD_BACKWARD_RANGE} range of the profiled step): {n_bwd} ranges, "
-        f"{bwd_step_ms:.1f} ms of kernels, {bwd_step_ms / busy:.2%} of the "
-        f"step's device time")
+    log(f"[train]   {short} forward (its kernels) {fwd_ms:.1f} ms, "
+        f"{fwd_ms / busy:.2%}; {short} backward (plain recompute + "
+        f"autograd, the {bwd_range} range of the profiled step): {n_bwd} "
+        f"ranges, {bwd_step_ms:.1f} ms of kernels, {bwd_step_ms / busy:.2%} "
+        f"of the step's device time")
     for ms, key in rows[:10]:
         log(f"[train]   {ms:9.3f} ms  {ms / busy:7.2%}  {key[:150]}")
+    out = dict(arch=arch, step_ms=step_ms, tokens_per_s=tokens_s,
+               positions_per_s=positions_s, idle_share=idle, peak_gib=peak,
+               losses=losses, walls_ms=[w * 1e3 for w in walls],
+               launches=launched, launches_tc=tc, busy_ms=busy,
+               device_ms_by_kind=kinds, forward_kernel_ms=fwd_ms,
+               forward_kernel_share=fwd_ms / busy,
+               backward_range=bwd_range, backward_step_ms=bwd_step_ms,
+               backward_share=bwd_step_ms / busy)
     del state, batch, model, prof
+    if kernel != "ssd_forward":
+        return out
 
     # B6's backward alone at one microbatch's shape: the plain chunked SSD
     # recomputed and differentiated, as _SSDChunked.backward runs it
-    from repro_torch.models import blocks, layers
+    from repro_torch.models import blocks, layers as L
     NH, hd, ds = cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, \
         cfg.ssm_state
     x, dt, a, Bm, Cm = _ssd_inputs(torch, TRAIN_BATCH // M, NH, TRAIN_SEQ,
                                    hd, ds, 190)
     ins = (x.transpose(1, 2), dt.transpose(1, 2), a, Bm, Cm, None)
     dy = _randn(torch, TRAIN_BATCH // M, TRAIN_SEQ, NH, hd, seed=191)
-    bwd_ms = _time_ms(torch, lambda: layers.plain_vjp(
+    bwd_ms = _time_ms(torch, lambda: L.plain_vjp(
         lambda *t: blocks._ssd_chunked_plain(*t[:5], cfg.ssm_chunk, t[5]),
         ins, (dy, None), (True,) * 5 + (False,)), iters=5, warmup=1)
     log(f"[train]   B6 backward alone (one layer at {TRAIN_BATCH // M} x "
         f"{TRAIN_SEQ}, timed outside the step): {bwd_ms:.3f} ms")
     del x, dt, Bm, Cm, ins, dy
-    return dict(step_ms=step_ms, tokens_per_s=tokens_s, idle_share=idle,
-                peak_gib=peak, losses=losses, walls_ms=[w * 1e3 for w in walls],
-                launches=launched, busy_ms=busy, device_ms_by_kind=kinds,
-                ssd_backward_step_ms=bwd_step_ms,
-                ssd_backward_share=bwd_step_ms / busy,
-                ssd_backward_alone_ms=bwd_ms)
+    return dict(out, ssd_backward_alone_ms=bwd_ms)
 
 
 def _cuda_profiler(torch):
@@ -1412,24 +1511,29 @@ def _count_batches(clients):
     return seen
 
 
-def _train_cohort_full(torch):
+def _train_cohort_full(torch, arch="mamba2-1.3b"):
     """c. The SEAFL cohort trainer (launch/train.py:build_lm_fl) at
-    mamba2-1.3b's full width, run to 2 aggregations of K = 2 cohort models
-    of P = 1.344e9.  Each round runs under a CUDA-only profiler (its wall
-    includes the profiler's cost).  B1/B2 launch once per aggregation; B6
-    once per layer in each forward: (1 + remat reruns) per SGD step and one
-    per held-out evaluation."""
-    from repro_torch.kernels.seafl_agg import kernel as K
+    ``arch``'s full width (mamba2-1.3b: P = 1.344e9), run to 2
+    aggregations of K = 2 cohort models.  Each round runs under a CUDA-only
+    profiler (its wall includes the profiler's cost).  B1/B2 launch once
+    per aggregation; each LM kernel (B6 for mamba2-1.3b, B4 on its
+    tensor-core instance for internvl2-1b) once per layer in each forward:
+    (1 + remat reruns) per SGD step and one per held-out evaluation.  Then
+    B1/B2 are held against their plain versions and timed alone at that
+    P."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.seafl_agg import kernel as K, ref as R
     from repro_torch.launch.train import build_lm_fl
     from repro_torch.runtime.simulator import FLSimulation, SimConfig
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, server, clients, eval_fn = build_lm_fl(
-        "mamba2-1.3b", smoke=False, device="cuda", **COHORT)
+        arch, smoke=False, device="cuda", **COHORT)
     P = server.packer.size
-    log(f"[train] cohort trainer: P={P}, K={server.buffer.capacity}, built "
-        f"in {time.perf_counter() - t0:.2f} s")
+    log(f"[train] cohort trainer {arch}: P={P}, "
+        f"K={server.buffer.capacity}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
     steps = _count_batches(clients)
     sim = FLSimulation(server, clients, SimConfig(seed=0), eval_fn=eval_fn)
     K.reset_launch_counts()
@@ -1461,10 +1565,11 @@ def _train_cohort_full(torch):
             log(f"[train]   {ms:9.3f} ms  {ms / busy:7.2%}  {key[:100]}")
     seafl = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
     launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    tc = FK.flash_attention_call.launches_tc
     evals = sum("acc" in h for h in sim.history)
     cfg = model.cfg
-    want_b6 = _ssd_per_forward(cfg) * (steps[0] * (1 + _remat_reruns(cfg))
-                                       + evals)
+    forwards = steps[0] * (1 + _remat_reruns(cfg)) + evals
+    want = {n: c * forwards for n, c in _per_forward(cfg).items()}
     if server.total_aggregations != COHORT_ROUNDS or server.round != \
             COHORT_ROUNDS or server.buffer.capacity != 2:
         raise AssertionError(f"ran {server.total_aggregations} aggregations")
@@ -1472,11 +1577,12 @@ def _train_cohort_full(torch):
         if seafl[name] != COHORT_ROUNDS:
             raise AssertionError(f"{name} launched {seafl[name]} times in "
                                  f"{COHORT_ROUNDS} aggregations")
-    if launched != {"flash_attention": 0, "rglru_scan": 0,
-                    "ssd_forward": want_b6}:
-        raise AssertionError(f"cohort trainer launched {launched}; B6 "
-                             f"expected {want_b6} = 48 x ({steps[0]} SGD "
-                             f"steps x 2 + {evals} evaluations)")
+    if launched != want or tc != launched["flash_attention"]:
+        raise AssertionError(f"cohort trainer launched {launched} ({tc} on "
+                             f"B4's tc instance); expected {want} = layers x "
+                             f"({steps[0]} SGD steps x "
+                             f"{1 + _remat_reruns(cfg)} + {evals} "
+                             f"evaluations)")
     g = server.global_flat
     if not (all(math.isfinite(r["heldout_ce"]) for r in rounds)
             and bool(torch.isfinite(g).all())):
@@ -1487,46 +1593,55 @@ def _train_cohort_full(torch):
     del model, server, clients, eval_fn, sim, g
     torch.cuda.empty_cache()
 
-    # B1 and B2 alone at this P and K (timing launches, not counted)
+    # B1 and B2 alone at this P and K, held against their plain versions
+    # with phase_parity's tolerances, then timed (launches not counted)
     w, g, wts = _inputs(torch, 2, P, torch.float32, torch.float32, seed=200)
     timing = {}
-    for name, fn, nbytes, flops in (
+    for name, fn, plain, tol, nbytes, flops in (
             ("sim_partials_from_params",
              lambda: K.sim_partials_from_params_call(w, g),
+             lambda: R.similarity_partials_from_params_ref(w, g),
+             dict(rtol=2e-5, atol=2e-5 * math.sqrt(P)),
              2 * P * 4 + P * 4 + 2 * 4 * 4, 5 * 2 * P + 2 * P),
             ("weighted_agg", lambda: K.weighted_agg_call(wts, w, g, THETA),
+             lambda: R.weighted_agg_ref(wts, w, g, THETA),
+             dict(rtol=2e-5, atol=2e-5),
              2 * 4 + 2 * P * 4 + 2 * P * 4, 2 * 2 * P + 3 * P)):
+        err = _max_err(torch, fn(), plain(), **tol)
+        torch.cuda.empty_cache()
         ms = _time_ms(torch, fn, iters=10, warmup=2)
         bound, by = _bound_ms(nbytes, flops)
-        timing[name] = dict(ms=ms, bound_ms=bound, bound_by=by)
-        log(f"[train] {name} at K=2 P={P}: {ms:.4f} ms, bound {bound:.4f} "
-            f"ms ({by}), bound/kernel {bound / ms:.4f}")
+        timing[name] = dict(ms=ms, bound_ms=bound, bound_by=by,
+                            max_abs_err=err)
+        log(f"[train] {name} at K=2 P={P}: max|d| {err:.3e} against the "
+            f"plain version, {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"bound/kernel {bound / ms:.4f}")
     del w, g, wts
     torch.cuda.empty_cache()
-    return dict(P=P, rounds=rounds, seafl_launches=seafl, launches=launched,
-                sgd_steps=steps[0], evals=evals, agg_timing=timing)
+    return dict(arch=arch, P=P, rounds=rounds, seafl_launches=seafl,
+                launches=launched, launches_tc=tc, sgd_steps=steps[0],
+                evals=evals, agg_timing=timing)
 
 
-def _train_card_vs_cpu(torch):
+def _train_card_vs_cpu(torch, archs=("mamba2-1.3b", "recurrentgemma-2b",
+                                      "phi4-mini-3.8b")):
     """d. The f32 smoke configs of mamba2-1.3b (B6), recurrentgemma-2b (B4's
-    mma instance, B5) and phi4-mini-3.8b (B4) each train 3 rounds of the
-    cohort trainer from one set of weights, on the card and on the CPU:
-    identical event times, contributors and staleness; global flat and
-    held-out CE within 1e-3 (the FL e2e's bound); every LM kernel the model
-    uses launched on the card, none on the CPU."""
+    mma instance, B5) and phi4-mini-3.8b (B4), or of ``archs``, each train
+    3 rounds of the cohort trainer from one set of weights, on the card and
+    on the CPU: identical event times, contributors and staleness; global
+    flat and held-out CE within 1e-3 (the FL e2e's bound); every LM kernel
+    the model uses launched on the card, none on the CPU."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.train import build_lm_fl
     from repro_torch.models.model import build_model, tree_map
     from repro_torch.runtime.simulator import FLSimulation, SimConfig
-    uses = {"mamba2-1.3b": ("ssd_forward",),
-            "recurrentgemma-2b": ("flash_attention", "rglru_scan"),
-            "phi4-mini-3.8b": ("flash_attention",)}
     totals = dict.fromkeys([*_lm_kernels(), "flash_attention_tc",
                             "flash_attention_mma"], 0)
-    for arch, kernels in uses.items():
+    for arch in archs:
         cfg = smoke_config(arch).replace(param_dtype="float32",
                                          dtype="float32")
+        kernels = {n for n, c in _per_forward(cfg).items() if c}
         params = tree_map(lambda t: t.numpy(), build_model(cfg, "cpu").init(
             torch.Generator().manual_seed(0)))
         runs = {}
@@ -1711,8 +1826,8 @@ def _uplink_cohort_full(torch):
     peak = torch.cuda.max_memory_allocated() / 2**30
     evals = sum("acc" in h for h in sim.history)
     cfg = model.cfg
-    want_b6 = _ssd_per_forward(cfg) * (steps[0] * (1 + _remat_reruns(cfg))
-                                       + evals)
+    want_b6 = _per_forward(cfg)["ssd_forward"] * (
+        steps[0] * (1 + _remat_reruns(cfg)) + evals)
     if server.total_aggregations != 1 or \
             server.bytes_uploaded != 2 * WIRE_BYTES[UPLINK_SPEC]:
         raise AssertionError(f"{server.total_aggregations} aggregations, "
@@ -1974,8 +2089,8 @@ def _downlink_cohort_full(torch):
     peak = torch.cuda.max_memory_allocated() / 2**30
     evals = sum("acc" in h for h in sim.history)
     cfg = model.cfg
-    want_b6 = _ssd_per_forward(cfg) * (steps[0] * (1 + _remat_reruns(cfg))
-                                       + evals)
+    want_b6 = _per_forward(cfg)["ssd_forward"] * (
+        steps[0] * (1 + _remat_reruns(cfg)) + evals)
     want_down = 2 * WIRE_BYTES["f32"] + 2 * WIRE_BYTES[DOWN_SPEC]
     disp, cs = server.dispatch, server.cohort_stats()
     summary = summary_record(server, sim)
@@ -2192,7 +2307,7 @@ def _health_cohort_full(torch, tmp, phase_c_walls):
     seafl = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
     launched = {n: fn.launches for n, fn in _lm_kernels().items()}
     evals = sum("acc" in h for h in sim.history)
-    want_b6 = _ssd_per_forward(model.cfg) * (
+    want_b6 = _per_forward(model.cfg)["ssd_forward"] * (
         steps[0] * (1 + _remat_reruns(model.cfg)) + evals)
     hists = server.tel.snapshot()["histograms"]
     timed = {k: v["count"] for k, v in hists.items()
@@ -2320,6 +2435,45 @@ def phase_health(torch, phase_c_walls):
     return dict(sweep=sweep, cohort=cohort, slo=slo, phase_s=took)
 
 
+# ------------------------------ phase h: the vlm family (internvl2-1b)
+
+VLM = "internvl2-1b"
+P_VLM = 494_807_936                 # of which patch_proj 1024 x 896
+# 256 image positions + 3840 tokens = the other LMs' 4096 positions
+VLM_PROMPT = SERVE_PROMPT - 256
+
+
+def phase_vlm(torch):
+    """h. internvl2-1b at full width through the port's entry points:
+    (i) serve() with 4 x (256 image positions + 3840 tokens), B4 24 a
+    prefill, all on its tensor-core instance, none in decode, prefill and a
+    decode step profiled; (ii) make_train_step, 8 x 2048 positions (1792
+    tokens), M = 1, remat "full", 3 steps: B4 48 a step (forward and remat
+    rerun), its forward's and plain backward's share of the profiled
+    step's device time; (iii) the cohort trainer as phase c (P =
+    494,807,936, K = 2, 2 aggregations): B1/B2 once an aggregation, B4 24 x
+    (2 x SGD steps + evaluations), then B1/B2 timed alone at that P against
+    their byte bounds; (iv) the f32 smoke config card against CPU, serving
+    (B4's mma instance on the card) and 3 trainer rounds."""
+    t0 = time.perf_counter()
+    _warm_profiler(torch)
+    serve_launches, serving = _serve_full(torch, VLM, VLM_PROMPT)
+    torch.cuda.empty_cache()
+    step = _train_step_full(torch, VLM)
+    torch.cuda.empty_cache()
+    cohort = _train_cohort_full(torch, VLM)
+    if cohort["P"] != P_VLM or serving["params"] != P_VLM:
+        raise AssertionError(f"{VLM}: P {cohort['P']} / {serving['params']},"
+                             f" expected {P_VLM}")
+    smoke_serve_mma = _serve_card_vs_cpu(torch, VLM)
+    smoke = _train_card_vs_cpu(torch, (VLM,))
+    took = time.perf_counter() - t0
+    log(f"[vlm] phase took {took:.1f} s")
+    return dict(serve=serving, serve_launches=serve_launches, step=step,
+                cohort=cohort, smoke_serve_mma=smoke_serve_mma,
+                smoke_train=smoke, phase_s=took)
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -2397,6 +2551,7 @@ def main() -> int:
     uplink = phase_uplink(torch)
     downlink = phase_downlink(torch)
     health = phase_health(torch, [r["wall_s"] for r in cohort["rounds"]])
+    vlm = phase_vlm(torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -2406,18 +2561,27 @@ def main() -> int:
             "downlink_cohorts": down["seafl_launches"][
                 "sim_partials_from_params"],
             "health": health["cohort"]["seafl_launches"][
+                "sim_partials_from_params"],
+            "vlm_cohort": vlm["cohort"]["seafl_launches"][
                 "sim_partials_from_params"]},
         "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"],
                          "uplink_topk": up_seafl["weighted_agg"],
                          "downlink_cohorts": down["seafl_launches"][
                              "weighted_agg"],
                          "health": health["cohort"]["seafl_launches"][
+                             "weighted_agg"],
+                         "vlm_cohort": vlm["cohort"]["seafl_launches"][
                              "weighted_agg"]},
         "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"]},
         "flash_attention_bf16_tc": {
-            "smoke_card_vs_cpu": smoke_launches["flash_attention_tc"]},
+            "smoke_card_vs_cpu": smoke_launches["flash_attention_tc"],
+            "vlm_prefill": vlm["serve_launches"]["flash_attention_tc"],
+            "vlm_step": vlm["step"]["launches_tc"],
+            "vlm_cohort": vlm["cohort"]["launches_tc"]},
         "flash_attention_f32_mma": {
-            "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"]},
+            "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"],
+            "vlm_smoke": vlm["smoke_serve_mma"]
+            + vlm["smoke_train"]["flash_attention_mma"]},
         "rglru_scan": {"smoke_card_vs_cpu": smoke_launches["rglru_scan"]},
         "ssd_forward": {
             "train_step": train_step["launches"]["ssd_forward"],
@@ -2479,6 +2643,7 @@ def main() -> int:
     log(f"[uplink] summary: {json.dumps(uplink)}")
     log(f"[downlink] summary: {json.dumps(downlink)}")
     log(f"[health] summary: {json.dumps(health, default=str)}")
+    log(f"[vlm] summary: {json.dumps(vlm)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

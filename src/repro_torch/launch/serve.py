@@ -27,7 +27,8 @@ from repro_torch.models.model import build_model, tree_leaves
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, int8_kv: bool = False,
           seed: int = 0, device=None):
-    """Serve ``batch`` random prompts of ``prompt_len`` tokens and generate
+    """Serve ``batch`` random prompts of ``prompt_len`` tokens (after
+    ``n_img_tokens`` random image embeddings for a vlm config) and generate
     ``gen`` tokens each.  Returns {generated (B, gen) int32 array,
     prefill_s, decode_s, tok_per_s, cache_bytes}."""
     dev = resolve_device(device)
@@ -39,14 +40,19 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     params = model.init(g)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=g, device=dev)
+    batch_in = {"tokens": prompts}
+    n_img = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    if n_img:
+        batch_in["image_embeds"] = torch.randn(
+            (batch, n_img, cfg.vision_embed_dim), generator=g, device=dev)
 
     prefill_step = make_prefill_step(model)
     serve_step = make_serve_step(model)
 
-    cache = model.init_cache(batch, prompt_len + gen)
+    cache = model.init_cache(batch, prompt_len + gen + n_img)
     sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, {"tokens": prompts}, cache)
+    logits, cache = prefill_step(params, batch_in, cache)
     nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     sync(dev)
     t_prefill = time.perf_counter() - t0

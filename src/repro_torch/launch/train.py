@@ -44,6 +44,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import Checkpointer
@@ -93,8 +94,17 @@ def build_lm_fl(arch, *, smoke: bool = True, n_clients: int = 8,
     else:
         params0 = from_jax_lm_params(params, cfg, dev)
 
-    data = make_lm_dataset(cfg.vocab_size, seq_len, n_clients * shard_seqs,
-                           seed=seed)
+    def add_extras(d, n, rng_seed):
+        # a vlm client's sequences each come with their image embeddings
+        if cfg.family == "vlm":
+            d["image_embeds"] = np.random.default_rng(rng_seed).normal(
+                0, 1, (n, cfg.n_img_tokens,
+                       cfg.vision_embed_dim)).astype(np.float32)
+        return d
+
+    data = add_extras(make_lm_dataset(cfg.vocab_size, seq_len,
+                                      n_clients * shard_seqs, seed=seed),
+                      n_clients * shard_seqs, seed + 17)
 
     def loss_fn(flat_params, batch):
         return model.loss(nest_params(flat_params), batch)[0]
@@ -133,8 +143,9 @@ def build_lm_fl(arch, *, smoke: bool = True, n_clients: int = 8,
 
     # eval: held-out LM perplexity proxy (mean CE on fresh synthetic seqs)
     test = {k: torch.from_numpy(v).to(dev)
-            for k, v in make_lm_dataset(cfg.vocab_size, seq_len, 16,
-                                        seed=seed + 1).items()}
+            for k, v in add_extras(make_lm_dataset(
+                cfg.vocab_size, seq_len, 16, seed=seed + 1), 16,
+                seed + 23).items()}
 
     @torch.no_grad()
     def eval_fn(flat_params):

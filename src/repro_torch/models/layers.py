@@ -395,6 +395,9 @@ def plain_vjp(fn, inputs, out_grads, needs_grad):
     return [next(grads) if n else None for n in needs_grad]
 
 
+FLASH_BACKWARD_RANGE = "flash_attention_backward"
+
+
 class _FlashAttention(torch.autograd.Function):
     """The flash-attention kernel's forward with a gradient: the backward
     recomputes :func:`_attention_plain` from the saved q, k, v and
@@ -410,9 +413,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        grads = plain_vjp(
-            lambda q, k, v: _attention_plain(q, k, v, **ctx.opts),
-            ctx.saved_tensors, (do,), ctx.needs_input_grad[:3])
+        # a named range, so a profile of training reads this backward's
+        # device time
+        with torch.profiler.record_function(FLASH_BACKWARD_RANGE):
+            grads = plain_vjp(
+                lambda q, k, v: _attention_plain(q, k, v, **ctx.opts),
+                ctx.saved_tensors, (do,), ctx.needs_input_grad[:3])
         return (*grads, None, None, None)
 
 

@@ -1,14 +1,18 @@
 """LM assembly: embeddings + block groups + loss/prefill/decode.
 
 Torch translation of the JAX package's ``models/model.py`` for the families
-whose blocks are ported (dense, hybrid, ssm).  The params keep the JAX
-tree, ``groups/g{gi}/b{bi}/...`` with a leading repeats axis per group, so
-a JAX params tree carries over leaf for leaf (:func:`from_jax_lm_params`).
-``lax.scan`` over a group becomes a plain loop over its repeats.  Under
-autograd in train mode (``loss``), each repeat runs under
-``torch.utils.checkpoint`` as ``cfg.remat`` says, as JAX checkpoints each
-scan step: "full" saves nothing inside a repeat, "dots" saves the outputs
-of the matrix products without batch dimensions, "none" does not remat.
+whose blocks are ported (dense, hybrid, ssm, vlm).  A vlm config's model
+projects precomputed image patch embeddings (``batch["image_embeds"]``,
+(B, n_img_tokens, vision_embed_dim)) with ``patch_proj`` and puts them in
+front of the token embeddings; the loss masks those positions.  The params
+keep the JAX tree, ``groups/g{gi}/b{bi}/...`` with a leading repeats axis
+per group, so a JAX params tree carries over leaf for leaf
+(:func:`from_jax_lm_params`).  ``lax.scan`` over a group becomes a plain
+loop over its repeats.  Under autograd in train mode (``loss``), each
+repeat runs under ``torch.utils.checkpoint`` as ``cfg.remat`` says, as JAX
+checkpoints each scan step: "full" saves nothing inside a repeat, "dots"
+saves the outputs of the matrix products without batch dimensions, "none"
+does not remat.
 
 The decode cache is written in place: each block's new cache is copied into
 the stacked buffers of ``init_cache``, and ``pos`` is a Python int, so a
@@ -29,7 +33,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "hybrid", "ssm", "vlm")
 
 
 def nest_params(flat: Mapping) -> dict:
@@ -106,6 +110,9 @@ class LM:
             f"g{gi}": {f"b{bi}": BLOCKS[b][0](gen, cfg, pd, dev, lead=(reps,))
                        for bi, b in enumerate(pattern)}
             for gi, (pattern, reps) in enumerate(cfg.scan_groups())}
+        if cfg.family == "vlm":
+            params["patch_proj"] = L.linear_init(gen, cfg.vision_embed_dim,
+                                                 cfg.d_model, pd, dev)
         return params
 
     # ----------------------------------------------------------------- cache
@@ -169,25 +176,42 @@ class LM:
             logits = logits.masked_fill(~valid, L.NEG_INF)
         return logits
 
+    def _prepend_vision(self, params, x, image_embeds):
+        """The projected image embeddings (cast to the activation dtype
+        before the product) in front of the token embeddings ``x``."""
+        img = L.linear(params["patch_proj"], image_embeds.to(self.adtype))
+        return torch.cat([img, x], dim=1)
+
     # ----------------------------------------------------------- public API
     @torch.no_grad()
     def apply(self, params, batch):
-        """batch: {tokens (B, S)} -> logits (B, S, V), causal, no cache."""
+        """batch: {tokens (B, S)[, image_embeds]} -> logits (B, S', V),
+        causal, no cache; S' counts the image positions."""
         x = self._embed(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            x = self._prepend_vision(params, x, batch["image_embeds"])
         x = self._run_groups(params, x, mode="train", cache=None, pos=None)
         return self._unembed(params, x)
 
     def loss(self, params, batch, loss_chunk: int = 1024):
-        """batch: {tokens, labels (B, S), int, label < 0 masked} -> (ce +
-        aux, {"ce", "aux"}), f32 scalars; aux is 0 for the ported families.
-        Sequence-chunked as the JAX ``LM.loss``: with S % C == 0 (C =
-        min(loss_chunk, S)) the unembed + CE of each chunk of C positions
-        runs under checkpoint (when autograd is on), so the (B, S, V) logits
-        are never live in full; otherwise the full CE."""
+        """batch: {tokens, labels (B, S), int, label < 0 masked[,
+        image_embeds]} -> (ce + aux, {"ce", "aux"}), f32 scalars; aux is 0
+        for the ported families.  A vlm config's image positions get label
+        -1.  Sequence-chunked as the JAX ``LM.loss``: with S % C == 0 (C =
+        min(loss_chunk, S), S counting the image positions) the unembed +
+        CE of each chunk of C positions runs under checkpoint (when
+        autograd is on), so the (B, S, V) logits are never live in full;
+        otherwise the full CE."""
         x = self._embed(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            x = self._prepend_vision(params, x, batch["image_embeds"])
         x = self._run_groups(params, x, mode="train", cache=None, pos=None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         labels = batch["labels"]
+        if self.cfg.family == "vlm":          # no loss on image positions
+            labels = torch.cat([torch.full(
+                (labels.shape[0], self.cfg.n_img_tokens), -1,
+                dtype=labels.dtype, device=labels.device), labels], dim=1)
         mask = (labels >= 0).to(torch.float32)
         labels = torch.clamp(labels, min=0)
         S = x.shape[1]
@@ -212,9 +236,12 @@ class LM:
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):
-        """Run the prompt, fill ``cache`` in place.  Returns (logits of the
-        last position (B, 1, V), cache with ``pos`` = prompt length)."""
+        """Run the prompt (after the image positions of a vlm config), fill
+        ``cache`` in place.  Returns (logits of the last position (B, 1, V),
+        cache with ``pos`` = the positions run)."""
         x = self._embed(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            x = self._prepend_vision(params, x, batch["image_embeds"])
         seq = x.shape[1]
         x = self._run_groups(params, x, mode="prefill", cache=cache, pos=None)
         logits = self._unembed(params, x[:, -1:])
@@ -232,7 +259,7 @@ class LM:
 
 def build_model(cfg, device=None) -> LM:
     """The port's LM for ``cfg`` on ``device`` (``cuda`` by default; raises
-    without a card).  Raises NotImplementedError for the moe, encdec and vlm
+    without a card).  Raises NotImplementedError for the moe and encdec
     families, whose blocks are not ported yet."""
     return LM(cfg, device)
 

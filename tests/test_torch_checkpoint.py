@@ -12,6 +12,9 @@
   times, contributors and staleness identical, weights and globals within
   1e-5 (the slice's gates, PERF.md section 2).  Saved again by the port,
   its manifest and extra state equal the JAX package's.
+* A JAX checkpoint of internvl2-1b's cohort trainer (a vlm: its flat ends
+  with ``patch_proj.w``) restores in the port's trainer, and both go on
+  alike.
 """
 import os
 import warnings
@@ -356,3 +359,71 @@ def _replay_jax_checkpoint(tmp_path, jc):
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
     return js, jsim2, tsim
+
+
+def test_jax_checkpoint_of_a_vlm_trainer_restores_in_the_port(tmp_path,
+                                                              monkeypatch):
+    """internvl2-1b's f32 smoke cohort trainer (image embeddings in every
+    batch): the JAX server after one aggregation, checkpointed to disk,
+    restores into the port's ``build_lm_fl`` server with the same state,
+    the same trees and the same global bit for bit (``patch_proj.w``'s
+    values last in the flat); then both go on for one more aggregation
+    from it: event times, contributors and staleness identical, the global
+    within 1e-4 (the cohort trainer's replay bound)."""
+    import repro.launch.train as JT
+    from repro.configs import smoke_config as j_smoke_config
+    from repro.runtime.simulator import FLSimulation as JSim
+    from repro.runtime.simulator import SimConfig as JSimConfig
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import build_lm_fl
+    from repro_torch.runtime.simulator import FLSimulation, SimConfig
+    f32 = dict(param_dtype="float32", dtype="float32")
+    jc = j_smoke_config("internvl2-1b").replace(**f32)
+    monkeypatch.setattr(JT, "smoke_config", lambda name: jc)
+    kw = dict(n_clients=4, concurrency=2, buffer_size=2, seq_len=16,
+              shard_seqs=8, local_epochs=1, seed=0)
+    jmodel, js, jclients, jeval = JT.build_lm_fl("internvl2-1b", **kw)
+    JSim(js, jclients, JSimConfig(seed=0), eval_fn=jeval).run(max_rounds=1)
+    assert js.round == 1
+    path = str(tmp_path / "jax")
+    J.save_tree(path, js.checkpoint_trees(), js.state_dict())
+
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    sims = []
+    for pkg in ("jax", "port"):
+        if pkg == "jax":
+            _, s2, clients, ev = JT.build_lm_fl("internvl2-1b", **kw)
+            trees, extra = J.load_tree(path)
+            sim = JSim(s2, clients, JSimConfig(seed=0), eval_fn=ev)
+        else:
+            _, s2, clients, ev = build_lm_fl(
+                smoke_config("internvl2-1b").replace(**f32), device="cpu",
+                params=params, **kw)
+            trees, extra = load_tree(path)
+            sim = FLSimulation(s2, clients, SimConfig(seed=0), eval_fn=ev)
+        s2.load_state(extra, trees)
+        sims.append(sim)
+    jsim, tsim = sims
+    ts = tsim.server
+    assert ts.state_dict() == jsim.server.state_dict() == js.state_dict()
+    assert ts.packer.names[-1] == "patch_proj.w"
+    np.testing.assert_array_equal(ts.global_flat.numpy(),
+                                  np.asarray(js.global_flat))
+    want = js.checkpoint_trees()
+    got = ts.checkpoint_trees()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(_as_np(got[k]), np.asarray(want[k]))
+
+    j_events, t_events = _record_events(jsim), _record_events(tsim)
+    j_hist = jsim.run(max_rounds=2)
+    t_hist = tsim.run(max_rounds=2)
+    assert [(h["time"], h["round"]) for h in t_hist] == \
+        [(h["time"], h["round"]) for h in j_hist]
+    assert len(j_events) == len(t_events) == 1
+    for j, t in zip(j_events, t_events):
+        assert t.contributors == j.contributors
+        np.testing.assert_array_equal(t.staleness, j.staleness)
+    np.testing.assert_allclose(ts.global_flat.numpy(),
+                               np.asarray(jsim.server.global_flat),
+                               atol=1e-4)

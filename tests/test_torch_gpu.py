@@ -219,6 +219,7 @@ FLASH_CASES = [  # B, Sq, Skv, H, KVH, D, causal, window
     (1, 513, 513, 8, 2, 64, True, 200),
     (2, 300, 300, 8, 8, 128, True, None),
     (2, 45, 45, 4, 2, 20, True, 16),        # D = 20: padded to 24 (mma)
+    (2, 1000, 1000, 14, 2, 64, True, None),  # internvl2's heads: groups of 7
 ]
 
 
@@ -370,6 +371,7 @@ def _assert_grads_equal(got, want, rtol):
     (2, 300, 8, 2, 128, 128, "bf16"),        # tc instance
     (1, 200, 4, 2, 64, None, "f32"),         # mma instance
     (2, 40, 4, 1, 16, 16, "f32"),            # the f32 smoke shape
+    (2, 2048, 14, 2, 64, None, "bf16"),      # internvl2's training shape
 ])
 def test_flash_attention_route_has_the_plain_gradient(cuda, B, S, H, KVH, D,
                                                       window, dt):
@@ -483,6 +485,62 @@ def test_lm_cohort_round_card_matches_cpu(cuda):
         assert [h["time"] for h in hc] == [h["time"] for h in hh]
         assert abs(hc[0]["acc"] - hh[0]["acc"]) <= 1e-3
         torch.testing.assert_close(gc, gh, rtol=0, atol=1e-3)
+
+
+def test_vlm_smoke_card_matches_cpu(cuda):
+    """internvl2-1b's f32 smoke config from one set of weights: serving
+    (8 image positions, then the prompt) generates the same tokens on the
+    card (flash attention's mma instance) and on the CPU (no kernel), and
+    one round of the cohort trainer gives the same event times and a
+    global within 1e-3."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.specs import make_prefill_step, make_serve_step
+    from repro_torch.launch.train import build_lm_fl
+    from repro_torch.models.model import build_model, tree_map
+    from repro_torch.runtime.simulator import FLSimulation, SimConfig
+    cfg = smoke_config("internvl2-1b").replace(param_dtype="float32",
+                                               dtype="float32")
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=gen),
+             "image_embeds": torch.randn(2, cfg.n_img_tokens,
+                                         cfg.vision_embed_dim, generator=gen)}
+    toks, logits = {}, {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        before = FK.flash_attention_call.launches_mma
+        lg, cache = make_prefill_step(m)(
+            p, {k: v.to(dev) for k, v in batch.items()},
+            m.init_cache(2, 40 + 8 + cfg.n_img_tokens))
+        assert (FK.flash_attention_call.launches_mma > before) == \
+            (dev == "cuda")
+        assert cache["pos"] == 40 + cfg.n_img_tokens
+        nxt = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+        out = [nxt.cpu()]
+        for _ in range(7):
+            nxt, cache = make_serve_step(m)(p, cache, nxt)
+            out.append(nxt.cpu())
+        toks[dev], logits[dev] = torch.cat(out, 1), lg.cpu()
+    assert torch.equal(toks["cuda"], toks["cpu"])
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-3,
+                               atol=1e-3)
+
+    flat = tree_map(lambda t: t.numpy(), params)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _, server, clients, eval_fn = build_lm_fl(
+            cfg, n_clients=4, concurrency=2, buffer_size=2, seq_len=32,
+            device=dev, params=flat)
+        hist = FLSimulation(server, clients, SimConfig(seed=0),
+                            eval_fn=eval_fn).run(max_rounds=1)
+        out[dev] = (hist, server.global_flat.cpu())
+    (hc, gc), (hh, gh) = out["cuda"], out["cpu"]
+    assert [h["time"] for h in hc] == [h["time"] for h in hh]
+    assert abs(hc[0]["acc"] - hh[0]["acc"]) <= 1e-3
+    torch.testing.assert_close(gc, gh, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

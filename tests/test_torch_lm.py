@@ -1,5 +1,6 @@
-"""The port's LM (dense, hybrid, ssm) against the JAX LM: the same params
-(JAX init carried over by ``from_jax_lm_params``), the same prompts.
+"""The port's LM (dense, hybrid, ssm, vlm) against the JAX LM: the same
+params (JAX init carried over by ``from_jax_lm_params``), the same prompts
+and, for the vlm config, the same image embeddings.
 
 Tolerances:
   * f32 configs: prefill and decode logits within 1e-4 absolute, identical
@@ -28,7 +29,8 @@ from repro_torch.configs import get_config, list_configs, smoke_config  # noqa: 
 from repro_torch.models.model import (  # noqa: E402
     build_model, from_jax_lm_params, tree_leaves)
 
-ARCHS = ["recurrentgemma-2b", "mamba2-1.3b", "phi4-mini-3.8b"]
+ARCHS = ["recurrentgemma-2b", "mamba2-1.3b", "phi4-mini-3.8b",
+         "internvl2-1b"]
 F32 = dict(param_dtype="float32", dtype="float32")
 
 
@@ -45,6 +47,17 @@ def _logits(x, vocab):
     return np.asarray(x, np.float32)[..., :vocab]
 
 
+def _images(cfg, B, seed=5):
+    """Seeded f32 image embeddings for a vlm config (as numpy), else
+    nothing; and the positions they add."""
+    if cfg.family != "vlm":
+        return {}, 0
+    rng = np.random.default_rng(seed)
+    return {"image_embeds": rng.normal(size=(
+        B, cfg.n_img_tokens, cfg.vision_embed_dim)).astype(np.float32)}, \
+        cfg.n_img_tokens
+
+
 def _run_both(arch, *, prompt_len=20, gen=6, teacher_forced=False,
               **replace):
     """Prefill + ``gen`` decode steps in both; returns the max |d logits|
@@ -52,12 +65,16 @@ def _run_both(arch, *, prompt_len=20, gen=6, teacher_forced=False,
     jc, jm, params, tm, tp = _pair_models(arch, **replace)
     B, V = 2, jc.vocab_size
     toks = np.random.default_rng(1).integers(0, V, (B, prompt_len))
-    jcache = jm.init_cache(B, prompt_len + gen)
-    tcache = tm.init_cache(B, prompt_len + gen)
-    jl, jcache = jm.prefill(params, {"tokens": jnp.asarray(toks, jnp.int32)},
-                            jcache)
-    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcache)
-    assert tcache["pos"] == prompt_len
+    images, n_img = _images(jc, B)
+    jcache = jm.init_cache(B, prompt_len + gen + n_img)
+    tcache = tm.init_cache(B, prompt_len + gen + n_img)
+    jl, jcache = jm.prefill(
+        params, {"tokens": jnp.asarray(toks, jnp.int32),
+                 **{k: jnp.asarray(v) for k, v in images.items()}}, jcache)
+    tl, tcache = tm.prefill(
+        tp, {"tokens": torch.from_numpy(toks),
+             **{k: torch.from_numpy(v) for k, v in images.items()}}, tcache)
+    assert tcache["pos"] == prompt_len + n_img == int(jcache["pos"])
     diffs, same = [], []
     for _ in range(gen + 1):
         diffs.append(float(np.abs(_logits(jl, V)
@@ -108,6 +125,24 @@ def test_apply_matches_jax():
                                rtol=0)
 
 
+def test_vlm_apply_matches_jax():
+    """The cache-free forward with images: the logits of the image
+    positions and of the tokens after them."""
+    jc, jm, params, tm, tp = _pair_models("internvl2-1b", **F32)
+    toks = np.random.default_rng(2).integers(0, jc.vocab_size, (2, 24))
+    images, n_img = _images(jc, 2)
+    jl, _ = jm.apply(params, {"tokens": jnp.asarray(toks, jnp.int32),
+                              "image_embeds": jnp.asarray(
+                                  images["image_embeds"])})
+    tl = tm.apply(tp, {"tokens": torch.from_numpy(toks),
+                       "image_embeds": torch.from_numpy(
+                           images["image_embeds"])})
+    assert tl.shape[:2] == (2, 24 + n_img) == jl.shape[:2]
+    np.testing.assert_allclose(_logits(tl, jc.vocab_size),
+                               _logits(jl, jc.vocab_size), atol=1e-4,
+                               rtol=0)
+
+
 def test_bf16_weights_carry_over_bit_for_bit():
     jc, jm, params, tm, tp = _pair_models("recurrentgemma-2b")
     jw = np.asarray(params["groups"]["g0"]["b0"]["in_proj"]["w"])
@@ -146,13 +181,16 @@ def test_full_config_param_shapes_match_jax(arch):
     got = {k: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
            for k, t in tree_leaves(params)}
     assert got == want
-    assert sum(t.numel() for _, t in tree_leaves(params)) == \
-        sum(int(np.prod(s)) for s, _ in want.values())
+    n = sum(t.numel() for _, t in tree_leaves(params))
+    assert n == sum(int(np.prod(s)) for s, _ in want.values())
+    if arch == "internvl2-1b":
+        assert n == 494_807_936 and got["patch_proj/w"] == ((1024, 896),
+                                                             "bfloat16")
 
 
 def test_unported_families_raise():
     fams = {get_config(n).family: n for n in list_configs()}
-    for family in ("moe", "encdec", "vlm"):
+    for family in ("moe", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_config(fams[family]), "cpu")
 

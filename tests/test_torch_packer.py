@@ -93,3 +93,26 @@ def test_layout_errors_raise():
         packer.pack({k: v for k, v in tt.items() if k != "s"})
     with pytest.raises(ValueError, match="expected shape"):
         packer.unpack(torch.zeros(packer.size + 1))
+
+
+def test_vlm_tree_packs_like_jax():
+    """internvl2-1b's smoke tree (bf16 leaves): the same leaf order, shapes
+    and offsets as JAX's packer, ``patch_proj.w`` last (it sorts after
+    ``groups``, as in ``jax.tree.flatten``), and the same flat vector."""
+    from repro.configs import smoke_config as j_smoke_config
+    from repro.models import build_model as j_build_model
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import from_jax_lm_params
+    jp = jax.tree.map(np.asarray, j_build_model(
+        j_smoke_config("internvl2-1b")).init(jax.random.PRNGKey(0)))
+    jpk = JaxPacker(jp)
+    tp = from_jax_lm_params(jp, smoke_config("internvl2-1b"), "cpu")
+    packer = ParamPacker(tp)
+    jnames = tuple(".".join(k.key for k in path) for path, _ in
+                   jax.tree_util.tree_flatten_with_path(jp)[0])
+    assert packer.names == jnames and jnames[-1] == "patch_proj.w"
+    assert (packer._shapes, packer._offsets, packer.size) == \
+        (jpk._shapes, jpk._offsets, jpk.size)
+    want = np.asarray(jpk.pack(jp))
+    np.testing.assert_array_equal(packer.pack(tp).numpy().view(np.uint32),
+                                  want.view(np.uint32))

@@ -17,12 +17,16 @@ from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.launch.specs import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models.model import build_model, from_jax_lm_params  # noqa: E402
+from test_torch_lm import _images  # noqa: E402
 
 F32 = dict(param_dtype="float32", dtype="float32")
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-1.3b",
+                                  "internvl2-1b"])
 def test_steps_generate_the_jax_tokens(arch):
+    """internvl2-1b's prompts come after seeded image embeddings, and both
+    caches hold the image positions too."""
     jc = j_smoke_config(arch).replace(**F32)
     jm = j_build_model(jc)
     params = jm.init(jax.random.PRNGKey(3))
@@ -30,10 +34,13 @@ def test_steps_generate_the_jax_tokens(arch):
     tp = from_jax_lm_params(jax.tree.map(np.asarray, params), tm.cfg, "cpu")
     B, S, gen = 3, 24, 8
     prompts = np.random.default_rng(4).integers(0, jc.vocab_size, (B, S))
+    images, n_img = _images(jc, B)
 
     jl, jcache = jax.jit(j_prefill_step(jm))(
-        params, {"tokens": jnp.asarray(prompts, jnp.int32)},
-        jm.init_cache(B, S + gen))
+        params, {"tokens": jnp.asarray(prompts, jnp.int32),
+                 **{k: jnp.asarray(v) for k, v in images.items()}},
+        jm.init_cache(B, S + gen + n_img))
+    j_pos = int(jcache["pos"])
     jn = jnp.argmax(jl[:, -1], -1).astype(jnp.int32)[:, None]
     j_step = jax.jit(j_serve_step(jm))
     j_out = [np.asarray(jn)]
@@ -42,7 +49,10 @@ def test_steps_generate_the_jax_tokens(arch):
         j_out.append(np.asarray(jn))
 
     tl, tcache = make_prefill_step(tm)(
-        tp, {"tokens": torch.from_numpy(prompts)}, tm.init_cache(B, S + gen))
+        tp, {"tokens": torch.from_numpy(prompts),
+             **{k: torch.from_numpy(v) for k, v in images.items()}},
+        tm.init_cache(B, S + gen + n_img))
+    assert tcache["pos"] == S + n_img == j_pos
     tn = torch.argmax(tl[:, -1], -1).to(torch.int32)[:, None]
     t_step = make_serve_step(tm)
     t_out = [tn.numpy()]
@@ -56,7 +66,8 @@ def test_steps_generate_the_jax_tokens(arch):
 
 @pytest.mark.parametrize("arch,int8_kv", [("recurrentgemma-2b", False),
                                           ("recurrentgemma-2b", True),
-                                          ("phi4-mini-3.8b", False)])
+                                          ("phi4-mini-3.8b", False),
+                                          ("internvl2-1b", False)])
 def test_serve_returns_the_jax_drivers_result(arch, int8_kv):
     kw = dict(smoke=True, batch=2, prompt_len=20, gen=5, int8_kv=int8_kv,
               seed=0)

@@ -40,8 +40,10 @@ from repro_torch.launch import train as TT  # noqa: E402
 from repro_torch.models.blocks import rg_lru_scan_backward  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model, from_jax_lm_params, nest_params, tree_leaves)
+from test_torch_lm import _images  # noqa: E402
 
-ARCHS = ["mamba2-1.3b", "recurrentgemma-2b", "phi4-mini-3.8b"]
+ARCHS = ["mamba2-1.3b", "recurrentgemma-2b", "phi4-mini-3.8b",
+         "internvl2-1b"]
 F32 = dict(param_dtype="float32", dtype="float32")
 
 
@@ -62,6 +64,22 @@ def _batch(vocab, B, S, seed=1):
     return toks, labels
 
 
+def _lm_batch(cfg, B, S, seed=1):
+    """``_batch``'s tokens and labels as a numpy batch of S positions: for a
+    vlm config S - n_img_tokens tokens after seeded f32 image embeddings."""
+    images, n_img = _images(cfg, B, seed + 100)
+    toks, labels = _batch(cfg.vocab_size, B, S - n_img, seed)
+    return {"tokens": toks, "labels": labels, **images}
+
+
+def _jnp(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _pt(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
 def _torch_grads(tm, tp, batch, **kw):
     leaves = [t.requires_grad_(True) for _, t in tree_leaves(tp)]
     loss, metrics = tm.loss(tp, batch, **kw)
@@ -78,18 +96,16 @@ def _jax_leaves(tree):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("S", [32, 24], ids=["S%C==0", "S%C!=0"])
 def test_loss_and_gradients_match_jax(arch, S):
-    """loss_chunk 16: S = 32 runs the chunked CE (two chunks under
-    checkpoint), S = 24 the full CE.  recurrentgemma's S exceeds its window
-    (16).  Every parameter leaf's gradient is compared."""
+    """loss_chunk 16: S = 32 positions run the chunked CE (two chunks under
+    checkpoint), S = 24 the full CE; internvl2's S counts its 8 image
+    positions (24 or 16 tokens after them).  recurrentgemma's S exceeds its
+    window (16).  Every parameter leaf's gradient is compared."""
     jc, jm, params, tm, tp = _pair(arch)
-    toks, labels = _batch(jc.vocab_size, 2, S)
+    batch = _lm_batch(jc, 2, S)
     (jl, jmet), jg = jax.value_and_grad(
-        lambda p: jm.loss(p, {"tokens": jnp.asarray(toks),
-                              "labels": jnp.asarray(labels)}, loss_chunk=16),
+        lambda p: jm.loss(p, _jnp(batch), loss_chunk=16),
         has_aux=True)(params)
-    tl, tmet, tg = _torch_grads(
-        tm, tp, {"tokens": torch.from_numpy(toks),
-                 "labels": torch.from_numpy(labels)}, loss_chunk=16)
+    tl, tmet, tg = _torch_grads(tm, tp, _pt(batch), loss_chunk=16)
     assert abs(float(tl) - float(jl)) <= 1e-5
     assert abs(float(tmet["ce"].detach()) - float(jmet["ce"])) <= 1e-5
     assert float(tmet["aux"]) == 0.0 == float(jmet["aux"])
@@ -138,6 +154,26 @@ def test_loss_without_autograd_matches_with_it():
     with torch.no_grad():
         plain, _ = tm.loss(tp, batch, loss_chunk=16)
     assert torch.equal(plain, _torch_grads(tm, tp, batch, loss_chunk=16)[0])
+
+
+@pytest.mark.parametrize("S", [32, 24], ids=["S%C==0", "S%C!=0"])
+def test_vlm_loss_ignores_image_positions(S):
+    """internvl2's CE is the mean CE over the text positions of ``apply``'s
+    logits (the image positions carry no label), and equals JAX's."""
+    jc, jm, params, tm, tp = _pair("internvl2-1b")
+    batch = _lm_batch(jc, 2, S)
+    n_img = jc.n_img_tokens
+    with torch.no_grad():
+        _, met = tm.loss(tp, _pt(batch), loss_chunk=16)
+    logits = tm.apply(tp, _pt(batch))[:, n_img:, :jc.vocab_size].double()
+    labels = torch.from_numpy(batch["labels"]).long()
+    mask = labels >= 0
+    nll = torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    want = float(nll[mask].mean())
+    assert abs(float(met["ce"]) - want) <= 1e-5
+    _, jmet = jm.loss(params, _jnp(batch), loss_chunk=16)
+    assert abs(float(met["ce"]) - float(jmet["ce"])) <= 1e-5
 
 
 def test_nest_params_rebuilds_the_tree_from_the_servers_leaves():
@@ -449,20 +485,26 @@ def test_cli_ckpt_dir_saves_and_restores(monkeypatch, tmp_path, capsys,
     assert manifest["extra"]["ef_clients"]
 
 
-@pytest.mark.parametrize("extra", [
-    [], ["--availability", "diurnal", "--scheduler", "rate_staleness"],
-    ["--dispatch-compression", "topk:0.2", "--dispatch-history", "4",
-     "--dispatch-ratio-policy", "drift", "--dispatch-resync", "0.5",
-     "--dispatch-resync-mode", "bytes", "--cohorts", "on",
-     "--resync-batching"]],
-    ids=["default", "diurnal-rate_staleness", "downlink-cohorts"])
-def test_cli_trains_on_the_cpu(monkeypatch, tmp_path, capsys, extra):
+@pytest.mark.parametrize("arch,extra", [
+    ("mamba2-1.3b", []),
+    ("mamba2-1.3b", ["--availability", "diurnal", "--scheduler",
+                     "rate_staleness"]),
+    ("mamba2-1.3b", ["--dispatch-compression", "topk:0.2",
+                     "--dispatch-history", "4", "--dispatch-ratio-policy",
+                     "drift", "--dispatch-resync", "0.5",
+                     "--dispatch-resync-mode", "bytes", "--cohorts", "on",
+                     "--resync-batching"]),
+    (None, [])],
+    ids=["default", "diurnal-rate_staleness", "downlink-cohorts", "no-arch"])
+def test_cli_trains_on_the_cpu(monkeypatch, tmp_path, capsys, arch, extra):
     """The README's command, with the JSONL log, trace and metrics on, and
     with the availability model and a ranked scheduler, or the top-k
-    downlink under the drift policy with cohorts and resync batching."""
+    downlink under the drift policy with cohorts and resync batching; and
+    with no ``--arch``, the default internvl2-1b."""
     log = tmp_path / "run.jsonl"
     monkeypatch.setattr("sys.argv", [
-        "train", "--arch", "mamba2-1.3b", "--device", "cpu", "--rounds", "2",
+        "train", *(["--arch", arch] if arch else []), "--device", "cpu",
+        "--rounds", "2",
         "--clients", "4", "--concurrency", "2", "--buffer", "2",
         "--seq-len", "16", "--log-jsonl", str(log), "--trace",
         str(tmp_path / "t.json"), "--metrics", str(tmp_path / "m.json"),

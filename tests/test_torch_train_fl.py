@@ -34,7 +34,9 @@ from repro_torch.models.model import (  # noqa: E402
     build_model, from_jax_lm_params, tree_leaves)
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.runtime.simulator import FLSimulation, SimConfig  # noqa: E402
-from test_torch_train import ARCHS, _batch, _torch_grads  # noqa: E402
+from test_torch_lm import _images  # noqa: E402
+from test_torch_train import (  # noqa: E402
+    ARCHS, _jnp, _lm_batch, _pt, _torch_grads)
 
 F32 = dict(param_dtype="float32", dtype="float32")
 
@@ -66,14 +68,11 @@ def test_bf16_loss_and_gradients_match_jax_loosely(arch):
     params = jm.init(jax.random.PRNGKey(0))
     tm = build_model(tc, "cpu")
     tp = from_jax_lm_params(jax.tree.map(np.asarray, params), tc, "cpu")
-    toks, labels = _batch(jc.vocab_size, 2, 32)
+    batch = _lm_batch(jc, 2, 32)
     (jl, _), jg = jax.value_and_grad(
-        lambda p: jm.loss(p, {"tokens": jnp.asarray(toks),
-                              "labels": jnp.asarray(labels)}, loss_chunk=16),
+        lambda p: jm.loss(p, _jnp(batch), loss_chunk=16),
         has_aux=True)(params)
-    tl, _, tg = _torch_grads(
-        tm, tp, {"tokens": torch.from_numpy(toks),
-                 "labels": torch.from_numpy(labels)}, loss_chunk=16)
+    tl, _, tg = _torch_grads(tm, tp, _pt(batch), loss_chunk=16)
     jg = _jax_leaves(jg)
     rel = {}
     for name, g in tg.items():
@@ -90,11 +89,14 @@ def test_bf16_loss_and_gradients_match_jax_loosely(arch):
     assert all(r <= 0.015 for n, r in rel.items() if n not in conv), rel
 
 
-@pytest.mark.parametrize("M", [1, 2])
-def test_train_step_matches_jax(M):
+@pytest.mark.parametrize("arch,M", [("mamba2-1.3b", 1), ("mamba2-1.3b", 2),
+                                    ("internvl2-1b", 2)],
+                         ids=["1", "2", "internvl2-1b-2"])
+def test_train_step_matches_jax(arch, M):
     """mamba2 smoke in f32, a batch of 4 x 32 tokens (two loss chunks of
-    16), split into M microbatches whose f32 gradients are averaged."""
-    arch = "mamba2-1.3b"
+    16), split into M microbatches whose f32 gradients are averaged.
+    internvl2's 32 positions are 8 image positions and 24 tokens: its
+    image embeddings split into the microbatches with the tokens."""
     jc = j_smoke_config(arch).replace(**F32)
     tc = smoke_config(arch).replace(**F32)
     jm = j_build_model(jc)
@@ -102,8 +104,9 @@ def test_train_step_matches_jax(M):
     tm = build_model(tc, "cpu")
     tp = from_jax_lm_params(jax.tree.map(np.asarray, params), tc, "cpu")
     rng = np.random.default_rng(3)
-    toks = rng.integers(0, jc.vocab_size, (4, 32)).astype(np.int32)
-    labels = np.roll(toks, -1, axis=1)
+    images, n_img = _images(jc, 4, seed=4)
+    toks = rng.integers(0, jc.vocab_size, (4, 32 - n_img)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1), **images}
 
     class Chunked:          # loss_chunk 16 on both sides
         def __init__(self, m):
@@ -113,11 +116,9 @@ def test_train_step_matches_jax(M):
             return self.m.loss(p, b, loss_chunk=16)
 
     js, jmet = j_make_train_step(Chunked(jm), lr=0.05, microbatches=M)(
-        j_sgd(0.05).init_state(params),
-        {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+        j_sgd(0.05).init_state(params), _jnp(batch))
     ts, tmet = make_train_step(Chunked(tm), lr=0.05, microbatches=M)(
-        sgd(0.05).init_state(tp),
-        {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)})
+        sgd(0.05).init_state(tp), _pt(batch))
     assert int(ts.step) == int(js.step) == 1
     assert tmet.keys() == jmet.keys() == {"loss", "ce", "aux"}
     for k in ("loss", "ce"):
@@ -165,14 +166,18 @@ def _kept(server):
 @pytest.mark.parametrize("arch,fl_kw", [
     ("mamba2-1.3b", {}), ("recurrentgemma-2b", {}),
     ("mamba2-1.3b", {"dispatch_compression": "topk:0.2", "cohorts": "on"}),
-], ids=["mamba2-1.3b", "recurrentgemma-2b", "mamba2-1.3b-down-topk-cohorts"])
+    ("internvl2-1b", {}),
+], ids=["mamba2-1.3b", "recurrentgemma-2b", "mamba2-1.3b-down-topk-cohorts",
+        "internvl2-1b"])
 def test_cohort_trainer_replays_jax(arch, fl_kw, monkeypatch):
     """3 rounds of SEAFL over 4 LM cohorts (2 in flight, K = 2, E = 2,
     batches of 4 x 32 int32 tokens) on the f32 smoke config.  The JAX
     trainer builds its smoke config by name, so the test hands it the f32
-    variant; the port takes the config itself.  The last case runs the
+    variant; the port takes the config itself.  The third case runs the
     top-k downlink with cohorts: clients train from the delivered
-    reconstruction, and same-version uploads merge at the edge tier."""
+    reconstruction, and same-version uploads merge at the edge tier.
+    internvl2-1b's shards and held-out set carry 8 image positions a
+    sequence, drawn as the JAX trainer draws them (seeds + 17 and + 23)."""
     rounds = 3
     jc = j_smoke_config(arch).replace(**F32)
     monkeypatch.setattr(JT, "smoke_config", lambda name: jc)
