@@ -22,7 +22,9 @@ Phases, each printing its lines; no phase's failure is caught:
               (on both routes that fill its ring: TMA and cp.async) and the
               SSD forward at the serving path's shapes (recurrentgemma-2b /
               mamba2-1.3b prefill of 4 x 4096 tokens, internvl2-1b's
-              14 / 2 heads of D = 64) and at ragged ones
+              14 / 2 heads of D = 64, whisper-tiny's non-causal encoder
+              (1500 x 1500) and cross (448 x 1500) shapes) and at ragged
+              ones
   4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
               beside the least time the card could take (bound_ms)
@@ -99,11 +101,24 @@ Phases, each printing its lines; no phase's failure is caught:
               timed at that P; the f32 smoke config card against CPU,
               serving and 3 trainer rounds ([vlm] and the reused phases'
               lines, each naming internvl2-1b)
- 12. result   one JSON line of per-kernel numbers (B4 as two rows, one
-              per instance; each row with its training, uplink,
-              downlink, health and vlm launches), the nvidia-smi line, and
-              last the contract line
-              {"ok": true, "device": {...}}
+ 12. encdec   (i) whisper-tiny at full width (P = 56,437,248; its decoder
+              blocks are attn_mlp, as in the reference, so the encoder's
+              output reaches none): serve() of 4 x (1500 frames + 416
+              tokens), 32 generated (B4 8 a prefill: 4 non-causal encoder
+              + 4 causal decoder, all tc, none in decode);
+              make_train_step on 8 x 448 tokens, M = 1, 3 steps (B4 12 a
+              step: the encoder runs without a checkpoint); the cohort
+              trainer as phase c with seq_len 448 (B1/B2 once an
+              aggregation, B4 as reckoned), then B1/B2 timed at that P;
+              the pytree aggregation path against the flat engine on the
+              card (SEAFL, FedAvg, FedBuff, FedAsync within 1e-5); the f32
+              smoke config card against CPU ([encdec] and the reused
+              phases' lines, each naming whisper-tiny)
+ 13. result   one JSON line of per-kernel numbers (B4 as two rows, one
+              per instance, the bf16 row with whisper's two shapes; each
+              row with its training, uplink, downlink, health, vlm and
+              encdec launches), the nvidia-smi line, and last the contract
+              line {"ok": true, "device": {...}}
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
 why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
@@ -502,6 +517,9 @@ def _small_downlink_card_vs_cpu(torch):
 # of 4096 tokens (the shape serve() runs below).
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
 VLM_HEADS = (14, 2)                 # internvl2-1b's query and kv heads
+# whisper-tiny's attention: 6 heads of 64 (no GQA) over 1500 encoder frames
+# and 448 decoder positions, its published text context
+WHISPER = dict(H=6, D=64, frames=1500, text=448)
 RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 SSD_CASES = [  # B, NH, S, hd, ds, chunk, h0
@@ -605,6 +623,10 @@ def phase_parity_lm(torch):
         (2, 45, 45, 4, 2, 20, True, 16, f32),            # D padded to 24
         (SERVE_BATCH, S, S, VLM_HEADS[0], VLM_HEADS[1], 64, True, None,
          bf16),                                          # internvl2-1b's
+        (SERVE_BATCH, WHISPER["frames"], WHISPER["frames"], WHISPER["H"],
+         WHISPER["H"], WHISPER["D"], False, None, bf16),  # whisper encoder
+        (SERVE_BATCH, WHISPER["text"], WHISPER["frames"], WHISPER["H"],
+         WHISPER["H"], WHISPER["D"], False, None, bf16),  # whisper cross
     ]
     for i, (B, Sq, Skv, H, KVH, D, causal, window, dt) in enumerate(
             flash_cases):
@@ -878,9 +900,11 @@ def phase_timing_lm(torch):
     one PyTorch call computing the same function -- SDPA with a boolean
     causal+window band mask and enable_gqa, a yardstick the port never
     calls.  B4 is timed per instance: bf16 on its wgmma instance, f32 on
-    its mma.sync (3xTF32) instance.  Bounds count each input read once and
-    each output written once; operations are those the unmasked band needs (B4: 4 D flops per
-    (query, key) pair in the band; at the bf16 tensor-core rate for bf16
+    its mma.sync (3xTF32) instance, and bf16 also at whisper-tiny's two
+    non-causal shapes (SDPA with no mask there).  Bounds count each input
+    read once and each output written once; operations are those the
+    unmasked band needs (B4: 4 D flops per (query, key) pair in the band,
+    every pair where non-causal; at the bf16 tensor-core rate for bf16
     inputs, at the rate of f32-accurate (3xTF32) tensor-core products for
     f32) or the chunk products (B6, at the 3xTF32 rate, for a chunk of L
     steps: hd L (L + 1) + 4 L hd ds per (b, head, chunk) for the causal W X,
@@ -916,6 +940,27 @@ def phase_timing_lm(torch):
             nbytes=nbytes, flops=4 * D * pairs * B * H, peak=peak)
         del q, k, v, qt, kt, vt
     del band
+
+    # whisper-tiny's two non-causal shapes on the tc instance: the
+    # encoder's self-attention over 1500 frames, and cross-attention of the
+    # 448 text positions against them (every (query, key) pair counts)
+    Hw, Dw, Skv = WHISPER["H"], WHISPER["D"], WHISPER["frames"]
+    for name, Sq in (("flash_attention_bf16_tc_whisper_encoder", Skv),
+                     ("flash_attention_bf16_tc_whisper_cross",
+                      WHISPER["text"])):
+        q, k, v = _flash_inputs(torch, B, Sq, Skv, Hw, Hw, Dw,
+                                torch.bfloat16, 63)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        rows[name] = dict(
+            ms=_time_ms(torch, lambda: FK.flash_attention_call(
+                q, k, v, causal=False), iters=20, warmup=2),
+            plain_ms=_time_ms(torch, lambda: FR.attention_ref(
+                qt, kt, vt, causal=False), iters=3, warmup=1),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt), iters=10, warmup=2),
+            nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
+            flops=4 * Dw * Sq * Skv * B * Hw, peak=BF16_FLOPS_PER_S)
+        del q, k, v, qt, kt, vt
 
     C = RG["C"]
     log_a, b = _rglru_inputs(torch, B, S, C, torch.float32, 61)
@@ -988,10 +1033,14 @@ def _range_device_ms(torch, prof, name):
             sum(e.device_time_total for e in rows) / 1e3)
 
 
-def _vlm_images(torch, cfg, batch, gen, device):
-    """{"image_embeds": (batch, n_img_tokens, vision_embed_dim) N(0, 1)}
-    drawn from ``gen`` for a vlm config, else {}; and the positions they
-    add."""
+def _extras(torch, cfg, batch, gen, device):
+    """The inputs besides the tokens, N(0, 1) drawn from ``gen``: a vlm
+    config's {"image_embeds": (batch, n_img_tokens, vision_embed_dim)}, an
+    encdec config's {"frames": (batch, enc_seq, d_model)}, else {}; and the
+    decoder positions they add."""
+    if cfg.family == "encdec":
+        return {"frames": torch.randn(batch, cfg.enc_seq, cfg.d_model,
+                                      generator=gen, device=device)}, 0
     if cfg.family != "vlm":
         return {}, 0
     return {"image_embeds": torch.randn(
@@ -1012,7 +1061,7 @@ def _profile_serving(torch, arch, prompt_len):
     params = model.init(gen)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt_len),
                             generator=gen, device="cuda")
-    images, n_img = _vlm_images(torch, cfg, SERVE_BATCH, gen, "cuda")
+    images, n_img = _extras(torch, cfg, SERVE_BATCH, gen, "cuda")
     cache = model.init_cache(SERVE_BATCH, prompt_len + SERVE_GEN + n_img)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1168,7 +1217,7 @@ def _serve_card_vs_cpu(torch, arch):
     gen = torch.Generator().manual_seed(0)
     params = build_model(cfg, "cpu").init(gen)
     prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
-    images, n_img = _vlm_images(torch, cfg, 3, gen, "cpu")
+    images, n_img = _extras(torch, cfg, 3, gen, "cpu")
     attends = _per_forward(cfg)["flash_attention"] > 0
     toks, logits, mma_launches = {}, {}, {}
     for dev in ("cuda", "cpu"):
@@ -1348,8 +1397,9 @@ KERNEL_OF_BLOCK = {"attn_mlp": "flash_attention", "attn": "flash_attention",
                    "rec": "rglru_scan", "ssd": "ssd_forward"}
 
 
-def _per_forward(cfg):
-    """Each LM kernel's launches in one forward of ``cfg``: its layers."""
+def _decoder_layers(cfg):
+    """Each LM kernel's launches in one pass over the block groups of
+    ``cfg`` (the decoder of an encdec config): its layers."""
     out = dict.fromkeys(KERNEL_OF_BLOCK.values(), 0)
     for pattern, reps in cfg.scan_groups():
         for block in pattern:
@@ -1357,22 +1407,50 @@ def _per_forward(cfg):
     return out
 
 
+def _per_forward(cfg):
+    """Each LM kernel's launches in one forward of ``cfg``: the decoder's
+    layers, and an encdec config's encoder layers (B4 non-causal over the
+    frames, run in apply, loss and prefill; decode runs none)."""
+    out = _decoder_layers(cfg)
+    if cfg.family == "encdec":
+        out["flash_attention"] += cfg.n_enc_layers
+    return out
+
+
 def _remat_reruns(cfg):
-    """Forwards of a block that training runs besides the first: the
-    recompute of a checkpointed repeat in the backward pass."""
+    """Forwards of a decoder block that training runs besides the first:
+    the recompute of a checkpointed repeat in the backward pass.  The
+    encoder runs without a checkpoint, as the reference's."""
     return 0 if cfg.remat == "none" else 1
 
 
-def _train_step_full(torch, arch="mamba2-1.3b"):
-    """b. make_train_step at ``arch``'s full width in bf16: batch 8 x 2048
-    positions (for a vlm config 256 image positions, then 1792 tokens, as
-    the JAX ``input_specs`` sets S_txt = S - n_img_tokens) in
-    cfg.train_microbatches microbatches, 3 steps; the last runs under the
-    profiler.  Each LM kernel must launch its layers x M x (1 + remat
-    reruns) times a step (mamba2-1.3b: B6 48 x 2 x 2; internvl2-1b: B4 24 x
-    1 x 2, all on the tensor-core instance), and only there.  The profiled
-    step's device time is split by kind, and the kernel's plain backward is
-    read from its named range."""
+def _per_step(cfg):
+    """Each LM kernel's launches in one SGD step on one microbatch: a
+    forward, and the decoder's remat reruns."""
+    dec = _decoder_layers(cfg)
+    return {n: c + _remat_reruns(cfg) * dec[n]
+            for n, c in _per_forward(cfg).items()}
+
+
+def _trainer_launches(cfg, sgd_steps, evals):
+    """Each LM kernel's launches in a cohort-trainer run of ``sgd_steps``
+    SGD steps and ``evals`` held-out evaluations (one forward each)."""
+    step, fwd = _per_step(cfg), _per_forward(cfg)
+    return {n: step[n] * sgd_steps + fwd[n] * evals for n in step}
+
+
+def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
+    """b. make_train_step at ``arch``'s full width in bf16: batch 8 x
+    ``seq`` positions (for a vlm config 256 image positions, then 1792
+    tokens, as the JAX ``input_specs`` sets S_txt = S - n_img_tokens; an
+    encdec config's tokens with their frames) in cfg.train_microbatches
+    microbatches, 3 steps; the last runs under the profiler.  Each LM
+    kernel must launch ``_per_step`` x M times a step (mamba2-1.3b: B6 48
+    x 2 x 2; internvl2-1b: B4 24 x 1 x 2; whisper-tiny: B4 4 encoder + 4 x
+    2 decoder, all on the tensor-core instance), and only there.  The
+    profiled step's device time is split by kind, and the kernel's plain
+    backward is read from its named range (the decoder's layers x M: an
+    encoder whose output no block reads has no backward)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.specs import make_train_step
@@ -1386,16 +1464,16 @@ def _train_step_full(torch, arch="mamba2-1.3b"):
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = sgd(0.05).init_state(model.init(gen))
     n_img = cfg.n_img_tokens if cfg.family == "vlm" else 0
-    n_txt = TRAIN_SEQ - n_img
+    n_txt = seq - n_img
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, n_txt + 1),
                            generator=gen, device="cuda", dtype=torch.int32)
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-    images, _ = _vlm_images(torch, cfg, TRAIN_BATCH, gen, "cuda")
+    images, _ = _extras(torch, cfg, TRAIN_BATCH, gen, "cuda")
     batch.update({k: v.to(torch.bfloat16) for k, v in images.items()})
     step = make_train_step(model, lr=0.05)
     reruns = _remat_reruns(cfg)
     layers = _per_forward(cfg)
-    per_step = {n: c * M * (1 + reruns) for n, c in layers.items()}
+    per_step = {n: c * M for n, c in _per_step(cfg).items()}
     kernel = "ssd_forward" if layers["ssd_forward"] else "flash_attention"
     short, bwd_range = (("B6", SSD_BACKWARD_RANGE) if kernel == "ssd_forward"
                         else ("B4", FLASH_BACKWARD_RANGE))
@@ -1426,17 +1504,17 @@ def _train_step_full(torch, arch="mamba2-1.3b"):
     if launched != want or tc != launched["flash_attention"]:
         raise AssertionError(f"train step launched {launched} ({tc} on B4's "
                              f"tc instance), expected {want} ({layers} "
-                             f"layers x M={M} x (1 + {reruns} remat rerun) "
-                             f"per step)")
+                             f"layers a forward, {reruns} remat rerun of "
+                             f"the decoder's, x M={M} per step)")
     busy, rows = _kernel_times(torch, prof)
     n_bwd, bwd_step_ms = _range_device_ms(torch, prof, bwd_range)
-    if n_bwd != per_step[kernel] // (1 + reruns) or bwd_step_ms <= 0:
+    if n_bwd != _decoder_layers(cfg)[kernel] * M or bwd_step_ms <= 0:
         raise AssertionError(f"the profiled step ran {short}'s backward "
                              f"{n_bwd} times with {bwd_step_ms} ms of "
                              f"kernels")
     step_ms = walls[-2] * 1e3                 # the last unprofiled step
     tokens_s = TRAIN_BATCH * n_txt / walls[-2]
-    positions_s = TRAIN_BATCH * TRAIN_SEQ / walls[-2]
+    positions_s = TRAIN_BATCH * seq / walls[-2]
     idle = 1 - busy / step_ms
     kinds = {"B6 (ssd_*)": 0.0, "B4 (flash_*_kernel)": 0.0, "GEMM": 0.0,
              "elementwise/reduce": 0.0, "other": 0.0}
@@ -1448,7 +1526,7 @@ def _train_step_full(torch, arch="mamba2-1.3b"):
               else "other"] += ms
     fwd_ms = kinds["B6 (ssd_*)" if short == "B6" else "B4 (flash_*_kernel)"]
     log(f"[train] {arch} full width, bf16, batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} positions ({n_txt} tokens), M={M}, "
+        f"{seq} positions ({n_txt} tokens), M={M}, "
         f"remat={cfg.remat}: step {step_ms:.1f} ms, {tokens_s:.0f} tokens/s, "
         f"{positions_s:.0f} positions/s; profiled step "
         f"{walls[-1] * 1e3:.1f} ms, kernels busy {busy:.1f} ms: idle share "
@@ -1511,7 +1589,7 @@ def _count_batches(clients):
     return seen
 
 
-def _train_cohort_full(torch, arch="mamba2-1.3b"):
+def _train_cohort_full(torch, arch="mamba2-1.3b", seq_len=COHORT["seq_len"]):
     """c. The SEAFL cohort trainer (launch/train.py:build_lm_fl) at
     ``arch``'s full width (mamba2-1.3b: P = 1.344e9), run to 2
     aggregations of K = 2 cohort models.  Each round runs under a CUDA-only
@@ -1529,7 +1607,7 @@ def _train_cohort_full(torch, arch="mamba2-1.3b"):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, server, clients, eval_fn = build_lm_fl(
-        arch, smoke=False, device="cuda", **COHORT)
+        arch, smoke=False, device="cuda", **dict(COHORT, seq_len=seq_len))
     P = server.packer.size
     log(f"[train] cohort trainer {arch}: P={P}, "
         f"K={server.buffer.capacity}, built in "
@@ -1568,8 +1646,7 @@ def _train_cohort_full(torch, arch="mamba2-1.3b"):
     tc = FK.flash_attention_call.launches_tc
     evals = sum("acc" in h for h in sim.history)
     cfg = model.cfg
-    forwards = steps[0] * (1 + _remat_reruns(cfg)) + evals
-    want = {n: c * forwards for n, c in _per_forward(cfg).items()}
+    want = _trainer_launches(cfg, steps[0], evals)
     if server.total_aggregations != COHORT_ROUNDS or server.round != \
             COHORT_ROUNDS or server.buffer.capacity != 2:
         raise AssertionError(f"ran {server.total_aggregations} aggregations")
@@ -1579,10 +1656,9 @@ def _train_cohort_full(torch, arch="mamba2-1.3b"):
                                  f"{COHORT_ROUNDS} aggregations")
     if launched != want or tc != launched["flash_attention"]:
         raise AssertionError(f"cohort trainer launched {launched} ({tc} on "
-                             f"B4's tc instance); expected {want} = layers x "
-                             f"({steps[0]} SGD steps x "
-                             f"{1 + _remat_reruns(cfg)} + {evals} "
-                             f"evaluations)")
+                             f"B4's tc instance); expected {want} = "
+                             f"{steps[0]} SGD steps x {_per_step(cfg)} + "
+                             f"{evals} evaluations x {_per_forward(cfg)}")
     g = server.global_flat
     if not (all(math.isfinite(r["heldout_ce"]) for r in rounds)
             and bool(torch.isfinite(g).all())):
@@ -1826,8 +1902,7 @@ def _uplink_cohort_full(torch):
     peak = torch.cuda.max_memory_allocated() / 2**30
     evals = sum("acc" in h for h in sim.history)
     cfg = model.cfg
-    want_b6 = _per_forward(cfg)["ssd_forward"] * (
-        steps[0] * (1 + _remat_reruns(cfg)) + evals)
+    want_b6 = _trainer_launches(cfg, steps[0], evals)["ssd_forward"]
     if server.total_aggregations != 1 or \
             server.bytes_uploaded != 2 * WIRE_BYTES[UPLINK_SPEC]:
         raise AssertionError(f"{server.total_aggregations} aggregations, "
@@ -2089,8 +2164,7 @@ def _downlink_cohort_full(torch):
     peak = torch.cuda.max_memory_allocated() / 2**30
     evals = sum("acc" in h for h in sim.history)
     cfg = model.cfg
-    want_b6 = _per_forward(cfg)["ssd_forward"] * (
-        steps[0] * (1 + _remat_reruns(cfg)) + evals)
+    want_b6 = _trainer_launches(cfg, steps[0], evals)["ssd_forward"]
     want_down = 2 * WIRE_BYTES["f32"] + 2 * WIRE_BYTES[DOWN_SPEC]
     disp, cs = server.dispatch, server.cohort_stats()
     summary = summary_record(server, sim)
@@ -2307,8 +2381,7 @@ def _health_cohort_full(torch, tmp, phase_c_walls):
     seafl = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
     launched = {n: fn.launches for n, fn in _lm_kernels().items()}
     evals = sum("acc" in h for h in sim.history)
-    want_b6 = _per_forward(model.cfg)["ssd_forward"] * (
-        steps[0] * (1 + _remat_reruns(model.cfg)) + evals)
+    want_b6 = _trainer_launches(model.cfg, steps[0], evals)["ssd_forward"]
     hists = server.tel.snapshot()["histograms"]
     timed = {k: v["count"] for k, v in hists.items()
              if k.startswith("kernel.")}
@@ -2474,6 +2547,119 @@ def phase_vlm(torch):
                 smoke_train=smoke, phase_s=took)
 
 
+# ---------------------------- phase i: the encdec family (whisper-tiny)
+
+ENCDEC = "whisper-tiny"
+P_ENCDEC = 56_437_248               # JAX eval_shape of whisper-tiny's init
+# 416 prompt tokens + 32 generated = 448, whisper's published text context
+ENCDEC_PROMPT = WHISPER["text"] - SERVE_GEN
+
+
+def _pytree_vs_flat(torch, cfg):
+    """iv. The pytree aggregation path (core/aggregation.py, plain torch)
+    against the flat engine (B1 + B2) on the card, over ``cfg``'s tree in
+    f32 (the server's flat dtype): a seeded global and K = 2 clients at
+    0.01 N(0, 1) from it.  SEAFL's delta-free rule (weights, cos, new
+    global), FedAvg, FedBuff (eta 0.7) and FedAsync (staleness 3), each
+    within 1e-5 (tests/test_flat_engine.py's bounds).  The pytree path
+    launches no kernel; the flat SEAFL entry launches B1 and B2 once
+    each."""
+    from repro_torch.core import aggregation as A
+    from repro_torch.core.packer import ParamPacker
+    from repro_torch.kernels.seafl_agg import kernel as K, ops
+    from repro_torch.models.model import build_model, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = tree_map(lambda t: t.float(), build_model(cfg, "cuda").init(gen))
+    clients = [tree_map(lambda t: t + 0.01 * torch.randn(
+        t.shape, generator=gen, device="cuda"), g) for _ in range(2)]
+    stacked = tree_map(lambda *ts: torch.stack(ts), *clients)
+    pk = ParamPacker(g)
+    g_flat = pk.pack(g)
+    rows = torch.stack([pk.pack(c) for c in clients])
+    sizes, stale, hyper = [8.0, 12.0], [0.0, 2.0], A.SeaflHyper()
+    errs = {}
+
+    def gap(name, a, b):
+        errs[name] = float((a.float() - b.float()).abs().max())
+
+    K.reset_launch_counts()
+    tree_out, diag = A.seafl_aggregate_from_params(g, stacked, sizes, stale,
+                                                   hyper)
+    torch.cuda.synchronize()
+    if any(fn.launches for fn in K.KERNELS):
+        raise AssertionError("the pytree aggregation path launched a kernel")
+    flat_out, p = ops.seafl_aggregate_flat_from_params(
+        g_flat, rows, sizes, stale, hyper.alpha, hyper.mu, hyper.beta,
+        hyper.theta)
+    launched = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
+    if (launched["sim_partials_from_params"], launched["weighted_agg"]) != \
+            (1, 1):
+        raise AssertionError(f"the flat SEAFL entry launched {launched}")
+    part = ops.similarity_partials_from_params(rows, g_flat)
+    gap("seafl weights", p, diag["weights"])
+    gap("seafl cos", A.cosine_from_partials(part[:, 0], part[:, 1],
+                                            part[:, 2]), diag["cos"])
+    gap("seafl global", flat_out, pk.pack(tree_out))
+    del tree_out, flat_out
+    gap("fedavg global", ops.fedavg_aggregate_flat(g_flat, rows, sizes)[0],
+        pk.pack(A.fedavg_aggregate(stacked, sizes)))
+    deltas = tree_map(lambda c, b: c - b, stacked, g)
+    gap("fedbuff global", ops.fedbuff_aggregate_flat(g_flat, rows, 0.7)[0],
+        pk.pack(A.fedbuff_aggregate(g, deltas, 0.7)))
+    del deltas
+    gap("fedasync global", ops.fedasync_aggregate_flat(g_flat, rows[0], 3.0),
+        pk.pack(A.fedasync_aggregate(g, clients[0], 3.0)))
+    bad = {k: e for k, e in errs.items() if not e <= 1e-5}
+    if bad:
+        raise AssertionError(f"pytree vs flat engine beyond 1e-5: {bad}")
+    log(f"[{cfg.name}] pytree vs flat engine at K=2, P={pk.size} (f32): "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f"; flat SEAFL launches {launched}")
+    del g, clients, stacked, g_flat, rows
+    torch.cuda.empty_cache()
+    return dict(P=pk.size, max_abs_err=errs, launches=launched)
+
+
+def phase_encdec(torch):
+    """i. whisper-tiny at full width (P = 56,437,248) through the port's
+    entry points.  Its decoder blocks are attn_mlp, as in the reference
+    (configs/base.py:scan_groups), so the encoder's output reaches no
+    block: B4 runs the encoder's non-causal self-attention over the 1500
+    frames (4 a forward) and the decoder's causal self-attention (4).
+    (i) serve() with 4 x (1500 frames, 416 prompt tokens), 32 generated:
+    448 decoder positions; B4 8 a prefill, all tc, none in decode; the
+    prefill and a decode step profiled.  (ii) make_train_step, 8 x 448
+    tokens with their frames, M = 1, remat "full", 3 steps: B4 12 a step
+    (4 encoder + 4 x 2 decoder), its forward's and plain backward's share
+    of the profiled step.  (iii) the cohort trainer as phase c with
+    seq_len 448 (K = 2, 2 aggregations): B1/B2 once an aggregation, B4 12
+    an SGD step and 8 an evaluation; then B1/B2 held against their plain
+    versions and timed at that P.  (iv) the pytree aggregation path
+    against the flat engine (``_pytree_vs_flat``).  (v) the f32 smoke
+    config card against CPU, serving (B4's mma instance on the card) and
+    3 trainer rounds."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    _warm_profiler(torch)
+    serve_launches, serving = _serve_full(torch, ENCDEC, ENCDEC_PROMPT)
+    torch.cuda.empty_cache()
+    step = _train_step_full(torch, ENCDEC, WHISPER["text"])
+    torch.cuda.empty_cache()
+    cohort = _train_cohort_full(torch, ENCDEC, WHISPER["text"])
+    if cohort["P"] != P_ENCDEC or serving["params"] != P_ENCDEC:
+        raise AssertionError(f"{ENCDEC}: P {cohort['P']} / "
+                             f"{serving['params']}, expected {P_ENCDEC}")
+    agg = _pytree_vs_flat(torch, get_config(ENCDEC))
+    smoke_serve_mma = _serve_card_vs_cpu(torch, ENCDEC)
+    smoke = _train_card_vs_cpu(torch, (ENCDEC,))
+    took = time.perf_counter() - t0
+    log(f"[encdec] phase took {took:.1f} s")
+    return dict(serve=serving, serve_launches=serve_launches, step=step,
+                cohort=cohort, pytree_vs_flat=agg,
+                smoke_serve_mma=smoke_serve_mma, smoke_train=smoke,
+                phase_s=took)
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -2552,6 +2738,7 @@ def main() -> int:
     downlink = phase_downlink(torch)
     health = phase_health(torch, [r["wall_s"] for r in cohort["rounds"]])
     vlm = phase_vlm(torch)
+    encdec = phase_encdec(torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -2563,6 +2750,8 @@ def main() -> int:
             "health": health["cohort"]["seafl_launches"][
                 "sim_partials_from_params"],
             "vlm_cohort": vlm["cohort"]["seafl_launches"][
+                "sim_partials_from_params"],
+            "encdec_cohort": encdec["cohort"]["seafl_launches"][
                 "sim_partials_from_params"]},
         "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"],
                          "uplink_topk": up_seafl["weighted_agg"],
@@ -2571,17 +2760,24 @@ def main() -> int:
                          "health": health["cohort"]["seafl_launches"][
                              "weighted_agg"],
                          "vlm_cohort": vlm["cohort"]["seafl_launches"][
+                             "weighted_agg"],
+                         "encdec_cohort": encdec["cohort"]["seafl_launches"][
                              "weighted_agg"]},
         "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"]},
         "flash_attention_bf16_tc": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_tc"],
             "vlm_prefill": vlm["serve_launches"]["flash_attention_tc"],
             "vlm_step": vlm["step"]["launches_tc"],
-            "vlm_cohort": vlm["cohort"]["launches_tc"]},
+            "vlm_cohort": vlm["cohort"]["launches_tc"],
+            "encdec_prefill": encdec["serve_launches"]["flash_attention_tc"],
+            "encdec_step": encdec["step"]["launches_tc"],
+            "encdec_cohort": encdec["cohort"]["launches_tc"]},
         "flash_attention_f32_mma": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"],
             "vlm_smoke": vlm["smoke_serve_mma"]
-            + vlm["smoke_train"]["flash_attention_mma"]},
+            + vlm["smoke_train"]["flash_attention_mma"],
+            "encdec_smoke": encdec["smoke_serve_mma"]
+            + encdec["smoke_train"]["flash_attention_mma"]},
         "rglru_scan": {"smoke_card_vs_cpu": smoke_launches["rglru_scan"]},
         "ssd_forward": {
             "train_step": train_step["launches"]["ssd_forward"],
@@ -2623,6 +2819,8 @@ def main() -> int:
           "ssd_forward": ("kernels/ssd/csrc/ssd.cu",
                           "src/repro/kernels/ssd/kernel.py:24",
                           "ssd_forward")}
+    whisper = {k.rsplit("_", 1)[-1]: lm_timing[k] for k in lm_timing
+               if k.startswith("flash_attention_bf16_tc_whisper_")}
     for kname, (source, replaced, err_key) in lm.items():
         t = lm_timing[kname]
         kernels.append({
@@ -2635,6 +2833,8 @@ def main() -> int:
             "on_main_path": kname != "flash_attention_f32_mma",
             "train_launches": train_launches[kname],
             "grad_max_abs_err": grad_errs.get(err_key),
+            **({"whisper_shapes": whisper}
+               if kname == "flash_attention_bf16_tc" else {}),
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
         f"memory MiB: {peak:.1f}")
@@ -2644,6 +2844,7 @@ def main() -> int:
     log(f"[downlink] summary: {json.dumps(downlink)}")
     log(f"[health] summary: {json.dumps(health, default=str)}")
     log(f"[vlm] summary: {json.dumps(vlm)}")
+    log(f"[encdec] summary: {json.dumps(encdec)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,9 @@ def make_epoch_fn(loss_fn: Callable, lr: float | None = None):
             batch = {k: v[b] for k, v in data.items()}
             leaves = [t.requires_grad_(True) for t in p]
             loss = loss_fn(dict(zip(names, leaves)), batch)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not read (whisper's encoder) gets zeros,
+            # as jax.grad gives
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
             with torch.no_grad():
                 p = [w - lrs[w.dtype] * g.to(w.dtype)
                      for w, g in zip(leaves, grads)]

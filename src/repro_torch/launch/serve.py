@@ -28,9 +28,11 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, int8_kv: bool = False,
           seed: int = 0, device=None):
     """Serve ``batch`` random prompts of ``prompt_len`` tokens (after
-    ``n_img_tokens`` random image embeddings for a vlm config) and generate
-    ``gen`` tokens each.  Returns {generated (B, gen) int32 array,
-    prefill_s, decode_s, tok_per_s, cache_bytes}."""
+    ``n_img_tokens`` random image embeddings for a vlm config; with
+    ``enc_seq`` random frame embeddings for an encdec config, which the
+    cache does not hold) and generate ``gen`` tokens each.  Returns
+    {generated (B, gen) int32 array, prefill_s, decode_s, tok_per_s,
+    cache_bytes}."""
     dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     if int8_kv:
@@ -41,6 +43,9 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=g, device=dev)
     batch_in = {"tokens": prompts}
+    if cfg.family == "encdec":
+        batch_in["frames"] = torch.randn(
+            (batch, cfg.enc_seq, cfg.d_model), generator=g, device=dev)
     n_img = cfg.n_img_tokens if cfg.family == "vlm" else 0
     if n_img:
         batch_in["image_embeds"] = torch.randn(

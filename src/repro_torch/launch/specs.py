@@ -26,7 +26,9 @@ def make_train_step(model, lr: float = 0.05, microbatches: int | None = None):
     def grad_fn(params, batch):
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
         loss, metrics = model.loss(leaves, batch)
-        grads = torch.autograd.grad(loss, [t for _, t in tree_leaves(leaves)])
+        # a leaf the loss does not read (whisper's encoder) gets zeros
+        grads = torch.autograd.grad(loss, [t for _, t in tree_leaves(leaves)],
+                                    materialize_grads=True)
         it = iter(grads)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             tree_map(lambda _: next(it), leaves)

@@ -95,9 +95,14 @@ def build_lm_fl(arch, *, smoke: bool = True, n_clients: int = 8,
         params0 = from_jax_lm_params(params, cfg, dev)
 
     def add_extras(d, n, rng_seed):
-        # a vlm client's sequences each come with their image embeddings
+        # each sequence comes with an encdec config's frame embeddings or
+        # a vlm config's image embeddings, drawn as the JAX trainer draws
+        rng = np.random.default_rng(rng_seed)
+        if cfg.family == "encdec":
+            d["frames"] = rng.normal(
+                0, 1, (n, cfg.enc_seq, cfg.d_model)).astype(np.float32)
         if cfg.family == "vlm":
-            d["image_embeds"] = np.random.default_rng(rng_seed).normal(
+            d["image_embeds"] = rng.normal(
                 0, 1, (n, cfg.n_img_tokens,
                        cfg.vision_embed_dim)).astype(np.float32)
         return d

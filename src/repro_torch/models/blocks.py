@@ -1,19 +1,23 @@
-"""Blocks of the ported LM families: dense/local attention, RG-LRU, SSD.
+"""Blocks of the ported LM families: dense/local attention, RG-LRU, SSD,
+and the encoder / decoder blocks.
 
 Torch translation of the parts of the JAX package's ``models/blocks.py`` that
-the serving path of the dense, hybrid (RecurrentGemma) and ssm (Mamba-2)
-families runs.  Every block type exposes
+the dense, hybrid (RecurrentGemma), ssm (Mamba-2), vlm and encdec (whisper)
+families run.  Every block type exposes
 
   <name>_init(gen, cfg, dtype, device, lead)   -> params (leading ``lead`` axes)
   <name>_cache(cfg, batch, max_len, dtype, device, lead) -> decode cache
-  <name>_apply(p, x, cfg, *, mode, cache, pos) -> (x, new_cache)
+  <name>_apply(p, x, cfg, *, mode, cache, pos, enc_out) -> (x, new_cache)
 
 An apply takes ``x`` in the activation dtype or in f32 and returns its
 residual sum in f32, unrounded (:func:`layers.block_input`,
 :func:`layers.unrounded`): the model rounds it at the end of each repeat.
+``enc_out`` is the encoder's output, which only the ``dec`` block reads
+(as in the reference, whisper's decoder groups are ``attn_mlp`` blocks,
+``configs/base.py:scan_groups``, so no model path runs ``dec``).
 
-``BLOCKS`` lists only ported block types; the MoE, MLA and encoder-decoder
-blocks are still to port (ROADMAP.md, Queue A).
+``BLOCKS`` lists only ported block types; the MoE and MLA blocks are still
+to port (ROADMAP.md, Queue A).
 
 Kernel routes: on CUDA tensors ``rg_lru_scan`` launches the RG-LRU kernel
 (``kernels/rglru``) and ``ssd_chunked`` the SSD kernel (``kernels/ssd``);
@@ -87,7 +91,8 @@ def attn_mlp_cache(cfg, batch, max_len, dtype, device, lead=()):
                                       lead=lead)}
 
 
-def attn_mlp_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
+def attn_mlp_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
+                   enc_out=None):
     s = _res_scale(cfg)
     x, x_in = L.block_input(x, cfg)
     a, new_c = L.attn_apply(p["attn"],
@@ -211,7 +216,8 @@ def rg_lru_scan(log_a, b, h0=None):
     return rglru_scan_ref(torch.exp(log_a.to(torch.float32)), b, h0)
 
 
-def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
+def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
+              enc_out=None):
     x, x_in = L.block_input(x, cfg)
     u = L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype)
     xz = L.linear(p["in_proj"], u)
@@ -382,7 +388,8 @@ class _SSDChunked(torch.autograd.Function):
         return (*grads[:5], None, grads[5])
 
 
-def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
+def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
+              enc_out=None):
     B, S, _ = x.shape
     din, ds = cfg.d_inner, cfg.ssm_state
     nh, hd = din // cfg.ssm_head_dim, cfg.ssm_head_dim
@@ -430,9 +437,104 @@ def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None):
     return L.unrounded(x, out), new_cache
 
 
+# ---------------------------------------------------------------------------
+# encoder / decoder blocks (whisper backbone; LayerNorm + ungated GeLU MLP)
+# ---------------------------------------------------------------------------
+
+def enc_init(gen, cfg, dtype, device, lead=()):
+    return {
+        "ln1": L.norm_init(cfg.d_model, device, bias=True, lead=lead),
+        "attn": L.attn_init(gen, cfg, dtype, device, lead=lead),
+        "ln2": L.norm_init(cfg.d_model, device, bias=True, lead=lead),
+        "mlp": L.mlp_init(gen, cfg, dtype, device, gated=False, lead=lead),
+    }
+
+
+def enc_cache(cfg, batch, max_len, dtype, device, lead=()):
+    return {}
+
+
+def enc_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
+              enc_out=None):
+    """Encoder self-attention (rope, ``cfg.enc_causal``: non-causal for
+    whisper) and MLP over the frames; no cache."""
+    B, S, _ = x.shape
+    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x, x_in = L.block_input(x, cfg)
+    uq, uk, uv = L.fan_out(L.layernorm(p["ln1"], x_in, cfg.norm_eps,
+                                       torch.float32), x.dtype, 3)
+    q = L.linear(p["attn"]["wq"], uq).reshape(B, S, H, Dh)
+    k = L.linear(p["attn"]["wk"], uk).reshape(B, S, KVH, Dh)
+    v = L.linear(p["attn"]["wv"], uv).reshape(B, S, KVH, Dh)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = L.chunked_attention(q, k, v, causal=cfg.enc_causal)
+    a = L.linear(p["attn"]["wo"], o.reshape(B, S, H * Dh))
+    # ln2 reads the residual sum unrounded, the residual stream rounded
+    x, mid = L.rounded_pair(L.unrounded(x, a), x.dtype)
+    m = L.mlp_apply(p["mlp"], L.layernorm(p["ln2"], mid, cfg.norm_eps,
+                                          torch.float32), cfg, x.dtype)
+    return L.unrounded(x, m), cache
+
+
+def dec_init(gen, cfg, dtype, device, lead=()):
+    return {
+        "ln1": L.norm_init(cfg.d_model, device, bias=True, lead=lead),
+        "attn": L.attn_init(gen, cfg, dtype, device, lead=lead),
+        "ln_x": L.norm_init(cfg.d_model, device, bias=True, lead=lead),
+        "xattn": L.attn_init(gen, cfg, dtype, device, lead=lead),
+        "ln2": L.norm_init(cfg.d_model, device, bias=True, lead=lead),
+        "mlp": L.mlp_init(gen, cfg, dtype, device, gated=False, lead=lead),
+    }
+
+
+def dec_cache(cfg, batch, max_len, dtype, device, lead=()):
+    shape = (*lead, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"attn": L.attn_cache_init(cfg, batch, max_len, dtype, device,
+                                      lead=lead),
+            "xk": torch.zeros(shape, dtype=dtype, device=device),
+            "xv": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def dec_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
+              enc_out=None):
+    """Causal self-attention, cross-attention to ``enc_out`` (its k/v
+    projected here and, with a cache, written to ``xk``/``xv`` in place;
+    decode reads them back), then the MLP.  The cross-attention runs in
+    mode "train" whatever ``mode`` is, as the reference's does."""
+    B = x.shape[0]
+    KVH, Dh = cfg.n_kv_heads, cfg.head_dim
+    x, x_in = L.block_input(x, cfg)
+    a, new_attn = L.attn_apply(
+        p["attn"], L.layernorm(p["ln1"], x_in, cfg.norm_eps, torch.float32),
+        cfg, mode=mode, cache=None if cache is None else cache["attn"],
+        pos=pos, dtype=x.dtype)
+    x, mid = L.rounded_pair(L.unrounded(x, a), x.dtype)
+    if mode == "decode":
+        xk, xv = cache["xk"], cache["xv"]
+    else:
+        xk = L.linear(p["xattn"]["wk"], enc_out).reshape(B, -1, KVH, Dh)
+        xv = L.linear(p["xattn"]["wv"], enc_out).reshape(B, -1, KVH, Dh)
+        if cache is not None:
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
+    ca, _ = L.attn_apply(
+        p["xattn"], L.layernorm(p["ln_x"], mid, cfg.norm_eps, torch.float32),
+        cfg, mode="train", dtype=x.dtype, cross_kv=(xk, xv))
+    x, mid = L.rounded_pair(L.unrounded(x, ca), x.dtype)
+    m = L.mlp_apply(p["mlp"], L.layernorm(p["ln2"], mid, cfg.norm_eps,
+                                          torch.float32), cfg, x.dtype)
+    new_cache = None if cache is None else {
+        "attn": new_attn, "xk": cache["xk"], "xv": cache["xv"]}
+    return L.unrounded(x, m), new_cache
+
+
 BLOCKS = {
     "attn_mlp": (attn_mlp_init, attn_mlp_cache, attn_mlp_apply),
     "rec": (rec_init, rec_cache, rec_apply),
     "attn": (attn_mlp_init, attn_mlp_cache, attn_mlp_apply),  # hybrid local-attn
     "ssd": (ssd_init, ssd_cache, ssd_apply),
+    "enc": (enc_init, enc_cache, enc_apply),
+    "dec": (dec_init, dec_cache, dec_apply),
 }

@@ -73,14 +73,16 @@ def rmsnorm(p, x, eps=1e-6, dtype=None):
     return out.to(dtype or x.dtype)
 
 
-def layernorm(p, x, eps=1e-6):
+def layernorm(p, x, eps=1e-6, dtype=None):
+    """LayerNorm in f32 (with a bias where ``p`` has ``b``), returned in
+    ``dtype`` (default ``x.dtype``), as :func:`rmsnorm`."""
     xf = x.to(torch.float32)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
     if "b" in p:
         out = out + p["b"].to(torch.float32)
-    return out.to(x.dtype)
+    return out.to(dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -560,14 +562,26 @@ def _cache_read(cfg, cache, dtype):
     return cache["k"], cache["v"]
 
 
-def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None):
+def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None,
+               cross_kv=None):
     """mode: train | prefill | decode.  pos: int absolute position (decode).
     The cache is written in place (see ``_cache_write``) and returned.
     ``x`` in the activation dtype, or in f32 with ``dtype`` the one the
-    q/k/v projections read it in (a cast for each, :func:`fan_out`)."""
+    q/k/v projections read it in (a cast for each, :func:`fan_out`).
+    ``cross_kv``: the (k, v) of encoder-decoder cross-attention: q comes
+    from ``x`` alone, no rope, non-causal whatever ``mode`` is, and the
+    cache is neither read nor written."""
     B, S, _ = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dtype = dtype or x.dtype
+    if cross_kv is not None:
+        xq, = fan_out(x, dtype, 1)
+        q = linear(p["wq"], xq).reshape(B, S, H, Dh)
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        o = chunked_attention(q, *cross_kv, causal=False,
+                              softcap=cfg.attn_softcap)
+        return linear(p["wo"], o.reshape(B, S, H * Dh)), cache
     xq, xk, xv = fan_out(x, dtype, 3)
 
     q = linear(p["wq"], xq).reshape(B, S, H, Dh)

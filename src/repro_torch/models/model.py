@@ -1,10 +1,16 @@
 """LM assembly: embeddings + block groups + loss/prefill/decode.
 
 Torch translation of the JAX package's ``models/model.py`` for the families
-whose blocks are ported (dense, hybrid, ssm, vlm).  A vlm config's model
-projects precomputed image patch embeddings (``batch["image_embeds"]``,
+whose blocks are ported (dense, hybrid, ssm, vlm, encdec).  A vlm config's
+model projects precomputed image patch embeddings (``batch["image_embeds"]``,
 (B, n_img_tokens, vision_embed_dim)) with ``patch_proj`` and puts them in
-front of the token embeddings; the loss masks those positions.  The params
+front of the token embeddings; the loss masks those positions.  An encdec
+config's model (whisper) runs its encoder over precomputed frame embeddings
+(``batch["frames"]``, (B, enc_seq, d_model); the conv frontend is a stub,
+as in the reference) in ``apply``, ``loss`` and ``prefill``, without a
+checkpoint, and hands its output to every decoder block.  The reference's
+decoder blocks are ``attn_mlp`` (``configs/base.py:scan_groups``), which do
+not read it: its parameters get zero gradients.  The params
 keep the JAX tree, ``groups/g{gi}/b{bi}/...`` with a leading repeats axis
 per group, so a JAX params tree carries over leaf for leaf
 (:func:`from_jax_lm_params`).  ``lax.scan`` over a group becomes a plain
@@ -33,7 +39,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm", "vlm")
+PORTED_FAMILIES = ("dense", "hybrid", "ssm", "vlm", "encdec")
 
 
 def nest_params(flat: Mapping) -> dict:
@@ -105,11 +111,17 @@ class LM:
         if not cfg.tie_embeddings:
             params["unembed"] = L.linear_init(gen, cfg.d_model,
                                               cfg.padded_vocab, pd, dev)
-        params["final_norm"] = L.norm_init(cfg.d_model, dev)
+        params["final_norm"] = L.norm_init(cfg.d_model, dev,
+                                           bias=cfg.family == "encdec")
         params["groups"] = {
             f"g{gi}": {f"b{bi}": BLOCKS[b][0](gen, cfg, pd, dev, lead=(reps,))
                        for bi, b in enumerate(pattern)}
             for gi, (pattern, reps) in enumerate(cfg.scan_groups())}
+        if cfg.family == "encdec":
+            params["encoder"] = {
+                "blocks": {"b0": BLOCKS["enc"][0](
+                    gen, cfg, pd, dev, lead=(cfg.n_enc_layers,))},
+                "final_norm": L.norm_init(cfg.d_model, dev, bias=True)}
         if cfg.family == "vlm":
             params["patch_proj"] = L.linear_init(gen, cfg.vision_embed_dim,
                                                  cfg.d_model, pd, dev)
@@ -127,22 +139,25 @@ class LM:
         return {"groups": groups, "pos": 0}
 
     # ------------------------------------------------------------ block loop
-    def _run_groups(self, params, x, *, mode, cache, pos):
+    def _run_groups(self, params, x, *, mode, cache, pos, enc_out=None):
         cfg = self.cfg
         if cache is None:
-            def repeat(x, rp, pattern):
+            def repeat(x, rp, enc_out, pattern):
                 for bi, bname in enumerate(pattern):
                     x, _ = BLOCKS[bname][2](rp[f"b{bi}"], x, cfg, mode=mode,
-                                            cache=None, pos=pos)
+                                            cache=None, pos=pos,
+                                            enc_out=enc_out)
                 return x.to(self.adtype)
             if mode == "train" and torch.is_grad_enabled():
+                # enc_out is an argument: its gradient flows from each rerun
                 repeat = _remat(repeat, cfg.remat)
             for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
                 # unbind once: its backward stacks the repeats' gradients
                 rows = tree_map(lambda t: t.unbind(0),
                                 params["groups"][f"g{gi}"])
                 for r in range(reps):
-                    x = repeat(x, tree_map(lambda t: t[r], rows), pattern)
+                    x = repeat(x, tree_map(lambda t: t[r], rows), enc_out,
+                               pattern)
             return x
         for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
             gp = params["groups"][f"g{gi}"]
@@ -152,7 +167,8 @@ class LM:
                     bp = tree_map(lambda t: t[r], gp[f"b{bi}"])
                     bc = tree_map(lambda t: t[r], gc[f"b{bi}"])
                     x, c_new = BLOCKS[bname][2](bp, x, cfg, mode=mode,
-                                                cache=bc, pos=pos)
+                                                cache=bc, pos=pos,
+                                                enc_out=enc_out)
                     _copy_into(bc, c_new)
                 x = x.to(self.adtype)
         return x
@@ -164,7 +180,8 @@ class LM:
 
     def _unembed(self, params, x):
         cfg = self.cfg
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        norm = L.layernorm if cfg.family == "encdec" else L.rmsnorm
+        x = norm(params["final_norm"], x, cfg.norm_eps)
         if cfg.tie_embeddings:
             logits = x @ params["embed"]["w"].to(x.dtype).T
         else:
@@ -176,36 +193,59 @@ class LM:
             logits = logits.masked_fill(~valid, L.NEG_INF)
         return logits
 
+    def _encode(self, params, frames):
+        """The encoder over the frame embeddings, in mode "train", no
+        cache and no checkpoint (the reference's encoder scan has none),
+        then its LayerNorm."""
+        cfg = self.cfg
+        x = frames.to(self.adtype)
+        rows = tree_map(lambda t: t.unbind(0), params["encoder"]["blocks"])
+        for r in range(cfg.n_enc_layers):
+            x, _ = BLOCKS["enc"][2](tree_map(lambda t: t[r], rows)["b0"], x,
+                                    cfg, mode="train")
+            x = x.to(self.adtype)
+        return L.layernorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
     def _prepend_vision(self, params, x, image_embeds):
         """The projected image embeddings (cast to the activation dtype
         before the product) in front of the token embeddings ``x``."""
         img = L.linear(params["patch_proj"], image_embeds.to(self.adtype))
         return torch.cat([img, x], dim=1)
 
+    def _stream(self, params, batch):
+        """(the decoder's input stream, the encoder's output or None): the
+        token embeddings, after the image positions of a vlm config; an
+        encdec config's encoder run over ``batch["frames"]``."""
+        x = self._embed(params, batch["tokens"])
+        enc_out = None
+        if self.cfg.family == "encdec":
+            enc_out = self._encode(params, batch["frames"])
+        if self.cfg.family == "vlm":
+            x = self._prepend_vision(params, x, batch["image_embeds"])
+        return x, enc_out
+
     # ----------------------------------------------------------- public API
     @torch.no_grad()
     def apply(self, params, batch):
-        """batch: {tokens (B, S)[, image_embeds]} -> logits (B, S', V),
-        causal, no cache; S' counts the image positions."""
-        x = self._embed(params, batch["tokens"])
-        if self.cfg.family == "vlm":
-            x = self._prepend_vision(params, x, batch["image_embeds"])
-        x = self._run_groups(params, x, mode="train", cache=None, pos=None)
+        """batch: {tokens (B, S)[, image_embeds | frames]} -> logits (B,
+        S', V), causal, no cache; S' counts the image positions."""
+        x, enc_out = self._stream(params, batch)
+        x = self._run_groups(params, x, mode="train", cache=None, pos=None,
+                             enc_out=enc_out)
         return self._unembed(params, x)
 
     def loss(self, params, batch, loss_chunk: int = 1024):
         """batch: {tokens, labels (B, S), int, label < 0 masked[,
-        image_embeds]} -> (ce + aux, {"ce", "aux"}), f32 scalars; aux is 0
+        image_embeds | frames]} -> (ce + aux, {"ce", "aux"}), f32 scalars; aux is 0
         for the ported families.  A vlm config's image positions get label
         -1.  Sequence-chunked as the JAX ``LM.loss``: with S % C == 0 (C =
         min(loss_chunk, S), S counting the image positions) the unembed +
         CE of each chunk of C positions runs under checkpoint (when
         autograd is on), so the (B, S, V) logits are never live in full;
         otherwise the full CE."""
-        x = self._embed(params, batch["tokens"])
-        if self.cfg.family == "vlm":
-            x = self._prepend_vision(params, x, batch["image_embeds"])
-        x = self._run_groups(params, x, mode="train", cache=None, pos=None)
+        x, enc_out = self._stream(params, batch)
+        x = self._run_groups(params, x, mode="train", cache=None, pos=None,
+                             enc_out=enc_out)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         labels = batch["labels"]
         if self.cfg.family == "vlm":          # no loss on image positions
@@ -236,14 +276,14 @@ class LM:
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):
-        """Run the prompt (after the image positions of a vlm config), fill
-        ``cache`` in place.  Returns (logits of the last position (B, 1, V),
-        cache with ``pos`` = the positions run)."""
-        x = self._embed(params, batch["tokens"])
-        if self.cfg.family == "vlm":
-            x = self._prepend_vision(params, x, batch["image_embeds"])
+        """Run the prompt (after the image positions of a vlm config; with
+        an encdec config's frames), fill ``cache`` in place.  Returns
+        (logits of the last position (B, 1, V), cache with ``pos`` = the
+        positions run)."""
+        x, enc_out = self._stream(params, batch)
         seq = x.shape[1]
-        x = self._run_groups(params, x, mode="prefill", cache=cache, pos=None)
+        x = self._run_groups(params, x, mode="prefill", cache=cache, pos=None,
+                             enc_out=enc_out)
         logits = self._unembed(params, x[:, -1:])
         return logits, {"groups": cache["groups"], "pos": seq}
 
@@ -259,8 +299,8 @@ class LM:
 
 def build_model(cfg, device=None) -> LM:
     """The port's LM for ``cfg`` on ``device`` (``cuda`` by default; raises
-    without a card).  Raises NotImplementedError for the moe and encdec
-    families, whose blocks are not ported yet."""
+    without a card).  Raises NotImplementedError for the moe family, whose
+    blocks are not ported yet."""
     return LM(cfg, device)
 
 

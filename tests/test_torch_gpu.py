@@ -220,6 +220,12 @@ FLASH_CASES = [  # B, Sq, Skv, H, KVH, D, causal, window
     (2, 300, 300, 8, 8, 128, True, None),
     (2, 45, 45, 4, 2, 20, True, 16),        # D = 20: padded to 24 (mma)
     (2, 1000, 1000, 14, 2, 64, True, None),  # internvl2's heads: groups of 7
+    # whisper-tiny's: encoder self-attention over 1500 frames (11 x 128 +
+    # 92 keys), cross-attention of 448 text positions (3.5 x 128) and of a
+    # short prompt's 5 against them; all non-causal
+    (2, 1500, 1500, 6, 6, 64, False, None),
+    (2, 448, 1500, 6, 6, 64, False, None),
+    (2, 5, 1500, 6, 6, 64, False, None),
 ]
 
 
@@ -367,14 +373,17 @@ def _assert_grads_equal(got, want, rtol):
         assert float((g.float() - w.float()).abs().max()) <= rtol * scale
 
 
-@pytest.mark.parametrize("B,S,H,KVH,D,window,dt", [
-    (2, 300, 8, 2, 128, 128, "bf16"),        # tc instance
-    (1, 200, 4, 2, 64, None, "f32"),         # mma instance
-    (2, 40, 4, 1, 16, 16, "f32"),            # the f32 smoke shape
-    (2, 2048, 14, 2, 64, None, "bf16"),      # internvl2's training shape
+@pytest.mark.parametrize("B,S,Skv,H,KVH,D,causal,window,dt", [
+    (2, 300, 300, 8, 2, 128, True, 128, "bf16"),     # tc instance
+    (1, 200, 200, 4, 2, 64, True, None, "f32"),      # mma instance
+    (2, 40, 40, 4, 1, 16, True, 16, "f32"),          # the f32 smoke shape
+    (2, 2048, 2048, 14, 2, 64, True, None, "bf16"),  # internvl2's training
+    (1, 448, 1500, 6, 6, 64, False, None, "bf16"),   # whisper's cross shape
+    (1, 1500, 1500, 6, 6, 64, False, None, "bf16"),  # whisper's encoder
 ])
-def test_flash_attention_route_has_the_plain_gradient(cuda, B, S, H, KVH, D,
-                                                      window, dt):
+def test_flash_attention_route_has_the_plain_gradient(cuda, B, S, Skv, H,
+                                                      KVH, D, causal, window,
+                                                      dt):
     """The kernel route of chunked_attention returns a tensor with a
     gradient, and it is autograd's through the plain translation (the
     backward recomputes it): expected bit-identical, 1e-6 allowed."""
@@ -382,17 +391,17 @@ def test_flash_attention_route_has_the_plain_gradient(cuda, B, S, H, KVH, D,
     from repro_torch.models import layers
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     q, k, v, do = (_randn(cuda, *s, seed=i, dtype=dtype) for i, s in
-                   enumerate([(B, S, H, D), (B, S, KVH, D), (B, S, KVH, D),
-                              (B, S, H, D)]))
+                   enumerate([(B, S, H, D), (B, Skv, KVH, D),
+                              (B, Skv, KVH, D), (B, S, H, D)]))
     ins = _leaves(q, k, v)
     before = FK.flash_attention_call.launches
-    o = layers.chunked_attention(*ins, causal=True, window=window)
+    o = layers.chunked_attention(*ins, causal=causal, window=window)
     assert o.grad_fn is not None
     assert FK.flash_attention_call.launches == before + 1
     got = torch.autograd.grad(o, ins, do)
     ref = _leaves(q, k, v)
     want = torch.autograd.grad(layers._attention_plain(
-        *ref, causal=True, window=window), ref, do)
+        *ref, causal=causal, window=window), ref, do)
     _assert_grads_equal(got, want, 1e-6)
 
 

@@ -116,3 +116,32 @@ def test_vlm_tree_packs_like_jax():
     want = np.asarray(jpk.pack(jp))
     np.testing.assert_array_equal(packer.pack(tp).numpy().view(np.uint32),
                                   want.view(np.uint32))
+
+
+def test_encdec_tree_packs_like_jax():
+    """whisper-tiny's smoke tree: the same leaf order, shapes and offsets
+    as JAX's packer -- ``encoder`` between ``embed`` and ``final_norm``,
+    each LayerNorm's bias ``b`` before its ``scale`` -- and the same flat
+    vector."""
+    from repro.configs import smoke_config as j_smoke_config
+    from repro.models import build_model as j_build_model
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import from_jax_lm_params
+    jp = jax.tree.map(np.asarray, j_build_model(
+        j_smoke_config("whisper-tiny")).init(jax.random.PRNGKey(0)))
+    jpk = JaxPacker(jp)
+    tp = from_jax_lm_params(jp, smoke_config("whisper-tiny"), "cpu")
+    packer = ParamPacker(tp)
+    jnames = tuple(".".join(k.key for k in path) for path, _ in
+                   jax.tree_util.tree_flatten_with_path(jp)[0])
+    assert packer.names == jnames
+    tops = list(dict.fromkeys(n.split(".")[0] for n in jnames))
+    assert tops == ["embed", "encoder", "final_norm", "groups", "unembed"]
+    assert jnames.index("final_norm.b") + 1 == jnames.index(
+        "final_norm.scale")
+    assert "encoder.blocks.b0.ln1.b" in jnames
+    assert (packer._shapes, packer._offsets, packer.size) == \
+        (jpk._shapes, jpk._offsets, jpk.size)
+    want = np.asarray(jpk.pack(jp))
+    np.testing.assert_array_equal(packer.pack(tp).numpy().view(np.uint32),
+                                  want.view(np.uint32))

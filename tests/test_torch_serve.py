@@ -17,16 +17,17 @@ from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.launch.specs import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models.model import build_model, from_jax_lm_params  # noqa: E402
-from test_torch_lm import _images  # noqa: E402
+from test_torch_lm import _extras  # noqa: E402
 
 F32 = dict(param_dtype="float32", dtype="float32")
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-1.3b",
-                                  "internvl2-1b"])
+                                  "internvl2-1b", "whisper-tiny"])
 def test_steps_generate_the_jax_tokens(arch):
     """internvl2-1b's prompts come after seeded image embeddings, and both
-    caches hold the image positions too."""
+    caches hold the image positions too; whisper-tiny's prefill takes
+    seeded frame embeddings, and its decode steps take none."""
     jc = j_smoke_config(arch).replace(**F32)
     jm = j_build_model(jc)
     params = jm.init(jax.random.PRNGKey(3))
@@ -34,7 +35,7 @@ def test_steps_generate_the_jax_tokens(arch):
     tp = from_jax_lm_params(jax.tree.map(np.asarray, params), tm.cfg, "cpu")
     B, S, gen = 3, 24, 8
     prompts = np.random.default_rng(4).integers(0, jc.vocab_size, (B, S))
-    images, n_img = _images(jc, B)
+    images, n_img = _extras(jc, B)
 
     jl, jcache = jax.jit(j_prefill_step(jm))(
         params, {"tokens": jnp.asarray(prompts, jnp.int32),
@@ -67,7 +68,8 @@ def test_steps_generate_the_jax_tokens(arch):
 @pytest.mark.parametrize("arch,int8_kv", [("recurrentgemma-2b", False),
                                           ("recurrentgemma-2b", True),
                                           ("phi4-mini-3.8b", False),
-                                          ("internvl2-1b", False)])
+                                          ("internvl2-1b", False),
+                                          ("whisper-tiny", False)])
 def test_serve_returns_the_jax_drivers_result(arch, int8_kv):
     kw = dict(smoke=True, batch=2, prompt_len=20, gen=5, int8_kv=int8_kv,
               seed=0)

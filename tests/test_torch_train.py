@@ -40,10 +40,10 @@ from repro_torch.launch import train as TT  # noqa: E402
 from repro_torch.models.blocks import rg_lru_scan_backward  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model, from_jax_lm_params, nest_params, tree_leaves)
-from test_torch_lm import _images  # noqa: E402
+from test_torch_lm import _extras  # noqa: E402
 
 ARCHS = ["mamba2-1.3b", "recurrentgemma-2b", "phi4-mini-3.8b",
-         "internvl2-1b"]
+         "internvl2-1b", "whisper-tiny"]
 F32 = dict(param_dtype="float32", dtype="float32")
 
 
@@ -66,8 +66,9 @@ def _batch(vocab, B, S, seed=1):
 
 def _lm_batch(cfg, B, S, seed=1):
     """``_batch``'s tokens and labels as a numpy batch of S positions: for a
-    vlm config S - n_img_tokens tokens after seeded f32 image embeddings."""
-    images, n_img = _images(cfg, B, seed + 100)
+    vlm config S - n_img_tokens tokens after seeded f32 image embeddings,
+    for an encdec config S tokens with seeded f32 frame embeddings."""
+    images, n_img = _extras(cfg, B, seed + 100)
     toks, labels = _batch(cfg.vocab_size, B, S - n_img, seed)
     return {"tokens": toks, "labels": labels, **images}
 
@@ -83,7 +84,8 @@ def _pt(batch):
 def _torch_grads(tm, tp, batch, **kw):
     leaves = [t.requires_grad_(True) for _, t in tree_leaves(tp)]
     loss, metrics = tm.loss(tp, batch, **kw)
-    grads = torch.autograd.grad(loss, leaves)
+    # zeros where the loss reads no leaf (whisper's encoder), as jax.grad
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return loss.detach(), metrics, dict(zip((n for n, _ in tree_leaves(tp)),
                                             grads))
 
@@ -494,13 +496,16 @@ def test_cli_ckpt_dir_saves_and_restores(monkeypatch, tmp_path, capsys,
                      "drift", "--dispatch-resync", "0.5",
                      "--dispatch-resync-mode", "bytes", "--cohorts", "on",
                      "--resync-batching"]),
+    ("whisper-tiny", []),
     (None, [])],
-    ids=["default", "diurnal-rate_staleness", "downlink-cohorts", "no-arch"])
+    ids=["default", "diurnal-rate_staleness", "downlink-cohorts",
+         "whisper-tiny", "no-arch"])
 def test_cli_trains_on_the_cpu(monkeypatch, tmp_path, capsys, arch, extra):
     """The README's command, with the JSONL log, trace and metrics on, and
     with the availability model and a ranked scheduler, or the top-k
-    downlink under the drift policy with cohorts and resync batching; and
-    with no ``--arch``, the default internvl2-1b."""
+    downlink under the drift policy with cohorts and resync batching; the
+    verify recipe's whisper-tiny (frames in every batch); and with no
+    ``--arch``, the default internvl2-1b."""
     log = tmp_path / "run.jsonl"
     monkeypatch.setattr("sys.argv", [
         "train", *(["--arch", arch] if arch else []), "--device", "cpu",

