@@ -23,7 +23,9 @@ Phases, each printing its lines; no phase's failure is caught:
               SSD forward at the serving path's shapes (recurrentgemma-2b /
               mamba2-1.3b prefill of 4 x 4096 tokens, internvl2-1b's
               14 / 2 heads of D = 64, whisper-tiny's non-causal encoder
-              (1500 x 1500) and cross (448 x 1500) shapes) and at ragged
+              (1500 x 1500) and cross (448 x 1500) shapes, mixtral-8x22b's
+              prefill of 4 x 8192 positions, 48 / 8 heads of 128, window
+              4096, its plain version a batch row at a time) and at ragged
               ones
   4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
@@ -114,11 +116,21 @@ Phases, each printing its lines; no phase's failure is caught:
               card (SEAFL, FedAvg, FedBuff, FedAsync within 1e-5); the f32
               smoke config card against CPU ([encdec] and the reused
               phases' lines, each naming whisper-tiny)
- 13. result   one JSON line of per-kernel numbers (B4 as two rows, one
-              per instance, the bf16 row with whisper's two shapes; each
-              row with its training, uplink, downlink, health, vlm and
-              encdec launches), the nvidia-smi line, and last the contract
-              line {"ok": true, "device": {...}}
+ 13. moe      (j) mixtral-8x22b (the moe family's attn_moe blocks) at its
+              published widths, depth cut to fit the card: the step
+              builders serve() uses (make_prefill_step, make_serve_step)
+              at 8 layers (P = 20,435,146,752), 4 x 8192 prompts (twice the
+              window), 32 generated (B4 8 a prefill, all tc, none in
+              decode; the warm prefill bit-identical to the first);
+              make_train_step at 2 layers, 8 x 2048 tokens, M = 8, 3 steps
+              (B4 32 a step; loss and aux finite); the f32 smoke config
+              card against CPU, serving and 3 trainer rounds, with the
+              same top-2 routing ([moe] and the reused phases' lines)
+ 14. result   one JSON line of per-kernel numbers (B4 as two rows, one
+              per instance, the bf16 row with whisper's two shapes and
+              mixtral's; each row with its training, uplink, downlink,
+              health, vlm, encdec and moe launches), the nvidia-smi line,
+              and last the contract line {"ok": true, "device": {...}}
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
 why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
@@ -520,6 +532,9 @@ VLM_HEADS = (14, 2)                 # internvl2-1b's query and kv heads
 # whisper-tiny's attention: 6 heads of 64 (no GQA) over 1500 encoder frames
 # and 448 decoder positions, its published text context
 WHISPER = dict(H=6, D=64, frames=1500, text=448)
+# mixtral-8x22b's attention: 48 query heads of 128 on 8 kv heads, a sliding
+# window of 4096; its prefill runs prompts of twice the window
+MIXTRAL = dict(H=48, KVH=8, D=128, window=4096, prompt=8192)
 RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 SSD_CASES = [  # B, NH, S, hd, ds, chunk, h0
@@ -584,6 +599,18 @@ def _ssd_inputs(torch, B, NH, S, hd, ds, seed):
             bc[..., ds:2 * ds])
 
 
+def _flash_plain(q, k, v, causal, window):
+    """B4's plain version (``ref.attention_ref``) in the kernel's (B, S, H,
+    D) layout, one batch row at a time: its (B, H, Sq, Skv) f32 scores at
+    mixtral's prefill shape would be 51.5 GB, a row's 12.9."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    return torch.cat([attention_ref(
+        q[b:b + 1].transpose(1, 2), k[b:b + 1].transpose(1, 2),
+        v[b:b + 1].transpose(1, 2), causal=causal,
+        window=window).transpose(1, 2) for b in range(q.shape[0])])
+
+
 def phase_parity_lm(torch):
     """B4-B6 against their plain versions, at the slice's shapes and at
     ragged ones, each launched twice and required bit-identical.
@@ -594,7 +621,7 @@ def phase_parity_lm(torch):
     RG-LRU scan 1e-5 (one FMA a step against a multiply and an add); SSD
     1e-4 relative to the output's largest value (sums of Q*ds terms in
     another order than the sequential SSM)."""
-    from repro_torch.kernels.flash_attention import kernel as FK, ref as FR
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.rglru import kernel as RK, ref as RR
     from repro_torch.kernels.ssd import kernel as SK, ref as SR
     f32, bf16 = torch.float32, torch.bfloat16
@@ -627,6 +654,9 @@ def phase_parity_lm(torch):
          WHISPER["H"], WHISPER["D"], False, None, bf16),  # whisper encoder
         (SERVE_BATCH, WHISPER["text"], WHISPER["frames"], WHISPER["H"],
          WHISPER["H"], WHISPER["D"], False, None, bf16),  # whisper cross
+        (SERVE_BATCH, MIXTRAL["prompt"], MIXTRAL["prompt"], MIXTRAL["H"],
+         MIXTRAL["KVH"], MIXTRAL["D"], True, MIXTRAL["window"],
+         bf16),                                          # mixtral's prefill
     ]
     for i, (B, Sq, Skv, H, KVH, D, causal, window, dt) in enumerate(
             flash_cases):
@@ -638,9 +668,7 @@ def phase_parity_lm(torch):
         if getattr(FK.flash_attention_call, f"launches_{inst}") != 2:
             raise AssertionError(f"flash_attention {dt} D={D} did not run "
                                  f"on its {inst} instance")
-        want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal,
-                                window=window).transpose(1, 2)
+        want = _flash_plain(q, k, v, causal, window)
         tol = dict(rtol=2 ** -7, atol=1e-5) if dt == bf16 else \
             dict(rtol=1e-4, atol=1e-4)
         e = _max_err(torch, o, want, **tol)
@@ -901,7 +929,9 @@ def phase_timing_lm(torch):
     causal+window band mask and enable_gqa, a yardstick the port never
     calls.  B4 is timed per instance: bf16 on its wgmma instance, f32 on
     its mma.sync (3xTF32) instance, and bf16 also at whisper-tiny's two
-    non-causal shapes (SDPA with no mask there).  Bounds count each input
+    non-causal shapes (SDPA with no mask there) and at mixtral-8x22b's
+    prefill (SDPA on its memory-efficient backend with the band mask; the
+    plain version a batch row at a time).  Bounds count each input
     read once and each output written once; operations are those the
     unmasked band needs (B4: 4 D flops per (query, key) pair in the band,
     every pair where non-causal; at the bf16 tensor-core rate for bf16
@@ -961,6 +991,34 @@ def phase_timing_lm(torch):
             nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
             flops=4 * Dw * Sq * Skv * B * Hw, peak=BF16_FLOPS_PER_S)
         del q, k, v, qt, kt, vt
+
+    # mixtral-8x22b's prefill: 48 / 8 heads of 128, window 4096 over 8192
+    # positions.  The plain version runs one batch row at a time
+    # (_flash_plain), and SDPA on the memory-efficient backend, named, with
+    # k/v expanded to 48 heads outside the timed region: its math fallback
+    # would materialise the 51.5 GB of scores
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    Hm, KVm, Dm, Wm, Sm = (MIXTRAL[n] for n in ("H", "KVH", "D", "window",
+                                                 "prompt"))
+    q, k, v = _flash_inputs(torch, B, Sm, Sm, Hm, KVm, Dm, torch.bfloat16, 64)
+    band = _band_mask(torch, Sm, Wm)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(Hm // KVm, dim=1)
+              for t in (k, v))
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+
+    rows["flash_attention_bf16_tc_mixtral"] = dict(
+        ms=_time_ms(torch, lambda: FK.flash_attention_call(
+            q, k, v, causal=True, window=Wm), iters=20, warmup=2),
+        plain_ms=_time_ms(torch, lambda: _flash_plain(q, k, v, True, Wm),
+                          iters=1, warmup=1),
+        library_ms=_time_ms(torch, sdpa, iters=5, warmup=1),
+        nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
+        flops=4 * Dm * int(band.sum()) * B * Hm, peak=BF16_FLOPS_PER_S)
+    del q, k, v, qt, kt, vt, band
 
     C = RG["C"]
     log_a, b = _rglru_inputs(torch, B, S, C, torch.float32, 61)
@@ -1394,7 +1452,8 @@ def _train_grad_parity(torch):
 
 
 KERNEL_OF_BLOCK = {"attn_mlp": "flash_attention", "attn": "flash_attention",
-                   "rec": "rglru_scan", "ssd": "ssd_forward"}
+                   "attn_moe": "flash_attention", "rec": "rglru_scan",
+                   "ssd": "ssd_forward"}
 
 
 def _decoder_layers(cfg):
@@ -1440,17 +1499,21 @@ def _trainer_launches(cfg, sgd_steps, evals):
 
 
 def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
-    """b. make_train_step at ``arch``'s full width in bf16: batch 8 x
+    """b. make_train_step at ``arch``'s full width in bf16 (``arch`` a
+    name, or a config such as a depth-cut one): batch 8 x
     ``seq`` positions (for a vlm config 256 image positions, then 1792
     tokens, as the JAX ``input_specs`` sets S_txt = S - n_img_tokens; an
     encdec config's tokens with their frames) in cfg.train_microbatches
     microbatches, 3 steps; the last runs under the profiler.  Each LM
     kernel must launch ``_per_step`` x M times a step (mamba2-1.3b: B6 48
     x 2 x 2; internvl2-1b: B4 24 x 1 x 2; whisper-tiny: B4 4 encoder + 4 x
-    2 decoder, all on the tensor-core instance), and only there.  The
-    profiled step's device time is split by kind, and the kernel's plain
-    backward is read from its named range (the decoder's layers x M: an
-    encoder whose output no block reads has no backward)."""
+    2 decoder, all on the tensor-core instance; mixtral-8x22b at 2 layers:
+    B4 2 x 2 x 8), and only there.  The profiled step's device time is
+    split by kind (the gathers, sorts and scatter-adds apart: the MoE
+    dispatch, and the embedding's), and the kernel's plain backward is read
+    from its named range (the decoder's layers x M: an encoder whose output
+    no block reads has no backward).  Each step's loss, CE and aux must be
+    finite."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.specs import make_train_step
@@ -1458,7 +1521,8 @@ def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
     from repro_torch.models.layers import FLASH_BACKWARD_RANGE
     from repro_torch.models.model import build_model
     from repro_torch.optim import sgd
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    arch = cfg.name
     M = cfg.train_microbatches
     model = build_model(cfg, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1480,7 +1544,7 @@ def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_lm_counts()
-    walls, losses = [], []
+    walls, losses, auxes = [], [], []
     for i in range(TRAIN_STEPS):
         ctx = (_profiler(torch) if i == TRAIN_STEPS - 1
                else contextlib.nullcontext())
@@ -1490,16 +1554,17 @@ def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
             torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         losses.append(float(met["loss"]))
+        auxes.append(float(met["aux"]))
         log(f"[train] step {i + 1}: wall {walls[-1] * 1e3:.1f} ms loss "
-            f"{losses[-1]:.4f} ce {float(met['ce']):.4f}"
-            + ("  (profiled)" if prof is not None else ""))
+            f"{losses[-1]:.4f} ce {float(met['ce']):.4f} aux "
+            f"{auxes[-1]:.6f}" + ("  (profiled)" if prof is not None else ""))
     launched = {n: fn.launches for n, fn in _lm_kernels().items()}
     tc = FK.flash_attention_call.launches_tc
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if not all(math.isfinite(x) for x in losses) or int(state.step) != \
-            TRAIN_STEPS:
-        raise AssertionError(f"train step: losses {losses}, step "
-                             f"{int(state.step)}")
+    if not all(math.isfinite(x) for x in losses + auxes) or \
+            int(state.step) != TRAIN_STEPS:
+        raise AssertionError(f"train step: losses {losses}, aux {auxes}, "
+                             f"step {int(state.step)}")
     want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
     if launched != want or tc != launched["flash_attention"]:
         raise AssertionError(f"train step launched {launched} ({tc} on B4's "
@@ -1517,15 +1582,19 @@ def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
     positions_s = TRAIN_BATCH * seq / walls[-2]
     idle = 1 - busy / step_ms
     kinds = {"B6 (ssd_*)": 0.0, "B4 (flash_*_kernel)": 0.0, "GEMM": 0.0,
-             "elementwise/reduce": 0.0, "other": 0.0}
+             "gather/sort/scatter": 0.0, "elementwise/reduce": 0.0,
+             "other": 0.0}
     for ms, key in rows:
         kinds["B6 (ssd_*)" if "ssd_" in key else "B4 (flash_*_kernel)"
               if re.search(r"flash_(tc|mma)_kernel", key) else "GEMM"
               if re.search(r"gemm|nvjet|cutlass|sm90_", key) else
+              "gather/sort/scatter"
+              if re.search(r"index|gather|scatter|[sS]ort", key) else
               "elementwise/reduce" if re.search(r"elementwise|reduce", key)
               else "other"] += ms
     fwd_ms = kinds["B6 (ssd_*)" if short == "B6" else "B4 (flash_*_kernel)"]
-    log(f"[train] {arch} full width, bf16, batch {TRAIN_BATCH} x "
+    log(f"[train] {arch} full width ({cfg.n_layers} layers), bf16, batch "
+        f"{TRAIN_BATCH} x "
         f"{seq} positions ({n_txt} tokens), M={M}, "
         f"remat={cfg.remat}: step {step_ms:.1f} ms, {tokens_s:.0f} tokens/s, "
         f"{positions_s:.0f} positions/s; profiled step "
@@ -1545,7 +1614,7 @@ def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
         log(f"[train]   {ms:9.3f} ms  {ms / busy:7.2%}  {key[:150]}")
     out = dict(arch=arch, step_ms=step_ms, tokens_per_s=tokens_s,
                positions_per_s=positions_s, idle_share=idle, peak_gib=peak,
-               losses=losses, walls_ms=[w * 1e3 for w in walls],
+               losses=losses, aux=auxes, walls_ms=[w * 1e3 for w in walls],
                launches=launched, launches_tc=tc, busy_ms=busy,
                device_ms_by_kind=kinds, forward_kernel_ms=fwd_ms,
                forward_kernel_share=fwd_ms / busy,
@@ -2660,6 +2729,226 @@ def phase_encdec(torch):
                 phase_s=took)
 
 
+# ------------------- phase j: the moe family's attn_moe path (mixtral-8x22b)
+
+MOE = "mixtral-8x22b"
+# Published widths; one card holds 8 of the 56 layers for serving (40.9 GB
+# of bf16 weights) and 2 for the train step (10.8 GB beside its 21.6 GB f32
+# gradient sum at M = 8).  P from JAX's eval_shape of the reference's init.
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
+P_MOE = {8: 20_435_146_752, 2: 5_410_781_184}
+# a routing flip card vs CPU in training is allowed only where the k-th and
+# (k+1)-th router probabilities lie this close (f32 drift of the weights)
+MOE_FLIP_MARGIN = 1e-5
+
+
+def _serve_moe(torch, cfg, full_layers, prompt_len=MIXTRAL["prompt"]):
+    """(i) Serving ``cfg`` (mixtral-8x22b cut to 8 layers) through the step
+    builders ``serve()`` runs (``make_prefill_step``, ``make_serve_step``),
+    as it runs them: 4 random prompts of ``prompt_len`` = 8192 tokens,
+    twice the window, so B4 runs windowed and the prefill's ring cache
+    keeps the last 4096 positions; 32 tokens generated.  The LM kernels'
+    counts are zeroed just before and read just after: B4 once a layer in
+    the prefill, all on the tensor-core instance, none in decode.  Then
+    the prefill again, warm: its logits bit-identical to the first call's
+    (the combine's index_add, GEMMs and B4 run to run), and once more under
+    the profiler; and one profiled decode step."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.specs import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model, tree_leaves
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt_len),
+                            generator=gen, device="cuda")
+    batch = {"tokens": prompts}
+    prefill, step = make_prefill_step(model), make_serve_step(model)
+    cache = model.init_cache(SERVE_BATCH, prompt_len + SERVE_GEN)
+    cache_mib = sum(t.numel() * t.element_size()
+                    for _, t in tree_leaves(cache["groups"])) / 2**20
+    torch.cuda.synchronize()
+    _reset_lm_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, cache)
+    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = [nxt]
+    t0 = time.perf_counter()
+    for _ in range(SERVE_GEN - 1):
+        nxt, cache = step(params, cache, nxt)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    fa = FK.flash_attention_call
+    launched = {n: fn.launches for n, fn in _lm_kernels().items()}
+    launched.update(flash_attention_tc=fa.launches_tc,
+                    flash_attention_mma=fa.launches_mma)
+    want = _per_forward(cfg)
+    if any(launched[n] != want[n] for n in _lm_kernels()) or \
+            (fa.launches_tc, fa.launches_mma) != (want["flash_attention"], 0):
+        raise AssertionError(f"{cfg.name} serving launched {launched}, "
+                             f"expected {want} in the prefill (all tc) and "
+                             f"none in decode")
+    toks = torch.cat(out, 1)
+    if toks.shape != (SERVE_BATCH, SERVE_GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits or tokens "
+                             f"{toks.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    warm, cache = prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if not torch.equal(warm, logits):
+        raise AssertionError(f"{cfg.name}: the prefill is not run-to-run "
+                             f"bit-identical: max|d| "
+                             f"{float((warm - logits).abs().max())}")
+    t0 = time.perf_counter()
+    with _profiler(torch) as prof:
+        _, cache = prefill(params, batch, cache)
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t0
+    busy, rows = _kernel_times(torch, prof)
+    for ms, key in rows[:8]:
+        log(f"[moe]   {ms:9.3f} ms  {ms / busy:7.2%}  {key[:100]}")
+    nxt = torch.argmax(warm[:, -1], dim=-1).to(torch.int32)[:, None]
+    step(params, cache, nxt)                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _profiler(torch) as prof:
+        step(params, cache, nxt)
+        torch.cuda.synchronize()
+    step_wall = time.perf_counter() - t0
+    step_busy, _ = _kernel_times(torch, prof)
+    step_ms = decode_s / (SERVE_GEN - 1) * 1e3
+    rec = dict(layers=cfg.n_layers, params=n_params, param_bytes=n_bytes,
+               positions=prompt_len, prefill_ms=prefill_s * 1e3,
+               prefill_warm_ms=warm_s * 1e3, prefill_profiled_ms=prof_s * 1e3,
+               prefill_busy_ms=busy,
+               prefill_idle_share=1 - busy / (prof_s * 1e3),
+               prefill_idle_share_warm=1 - busy / (warm_s * 1e3),
+               decode_step_ms=step_ms,
+               tok_per_s=SERVE_BATCH * (SERVE_GEN - 1) / decode_s,
+               decode_busy_ms=step_busy,
+               decode_idle_share=1 - step_busy / step_ms,
+               cache_mib=cache_mib, peak_gib=peak)
+    log(f"[moe] serve {cfg.name} at {cfg.n_layers} of {full_layers} layers: "
+        f"{n_params} params ({n_bytes / 1e9:.3f} GB), {SERVE_BATCH} x "
+        f"{prompt_len} positions: prefill {prefill_s * 1e3:.1f} ms (first "
+        f"call), {warm_s * 1e3:.1f} ms (warm, logits bit-identical), "
+        f"{prof_s * 1e3:.1f} ms profiled with {busy:.1f} ms of kernels "
+        f"(idle share {rec['prefill_idle_share']:.4f} of the profiled call, "
+        f"{rec['prefill_idle_share_warm']:.4f} of the warm one: below 0 "
+        f"where the profiled kernels outlast the unprofiled call); "
+        f"decode {step_ms:.2f} ms a step ({rec['tok_per_s']:.1f} tok/s), one "
+        f"profiled step {step_wall * 1e3:.2f} ms with {step_busy:.3f} ms of "
+        f"kernels (idle share {rec['decode_idle_share']:.4f} of the "
+        f"unprofiled step); cache {cache_mib:.1f} MiB, peak {peak:.2f} GiB; "
+        f"launches {launched}; first tokens {toks[0, :8].tolist()}")
+    return launched, rec
+
+
+@contextlib.contextmanager
+def _recorded_routes(torch):
+    """Every ``blocks.moe_route`` call's expert ids and sorted router
+    probabilities (on the CPU), in call order."""
+    from repro_torch.models import blocks
+    route, calls = blocks.moe_route, []
+
+    def recording(xr, w, k):
+        probs, gates, idx = route(xr, w, k)
+        calls.append((idx.cpu(), torch.sort(probs.detach(), dim=-1,
+                                            descending=True).values.cpu()))
+        return probs, gates, idx
+
+    blocks.moe_route = recording
+    try:
+        yield calls
+    finally:
+        blocks.moe_route = route
+
+
+def _same_routes(torch, calls, what, margin=0.0):
+    """The first half of ``calls`` (the card's run) against the second (the
+    CPU's): the same calls, and the same experts for every token but those
+    whose k-th and (k+1)-th probabilities lie within ``margin`` on either
+    side.  Returns (flips, the smallest such gap seen)."""
+    n = len(calls) // 2
+    if n == 0 or len(calls) != 2 * n:
+        raise AssertionError(f"{what}: {len(calls)} routing calls")
+    flips, smallest = 0, math.inf
+    for (ic, pc), (ih, ph) in zip(calls[:n], calls[n:]):
+        k = ic.shape[-1]
+        gap = torch.minimum(pc[..., k - 1] - pc[..., k],
+                            ph[..., k - 1] - ph[..., k])
+        smallest = min(smallest, float(gap.min()))
+        if ic.shape != ih.shape:
+            raise AssertionError(f"{what}: routing shapes differ")
+        differ = (ic != ih).any(-1)
+        flips += int(differ.sum())
+        if bool((differ & (gap >= margin)).any()):
+            raise AssertionError(f"{what}: card and CPU route tokens to "
+                                 f"other experts where the top-{k} gap is "
+                                 f"{float(gap[differ].max()):.3e}")
+    return flips, smallest
+
+
+def phase_moe(torch):
+    """j. The moe family's attn_moe path at mixtral-8x22b's published
+    widths (d 6144, 48 / 8 heads of 128, window 4096, 8 experts of d_ff
+    16384, top-2, capacity factor 1.25), depth cut to fit one card:
+    (i) serving at 8 layers (``_serve_moe``: B4 8 a prefill, all tc, 0 in
+    decode); (ii) make_train_step at 2 layers, batch 8 x 2048, M = 8, remat
+    "full", 3 steps (``_train_step_full``: B4 2 x 2 x 8 = 32 a step; the
+    shares of B4's forward, its plain backward, the GEMMs and the
+    dispatch's gathers, sorts and scatter-adds); (iii) the f32 smoke config
+    card against CPU, serving (B4's mma instance on the card) and 3 cohort
+    trainer rounds, with the same routing on both (a flip in training only
+    within ``MOE_FLIP_MARGIN``), printing the smallest top-2 gap.  The
+    cohort trainer at full width needs ~28 B a parameter (phase c), ~81 GB
+    at one layer: it waits for a sharded buffer (ROADMAP A19)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    _warm_profiler(torch)
+    full = get_config(MOE)
+    serve_cfg = full.replace(n_layers=MOE_SERVE_LAYERS)
+    serve_launches, serving = _serve_moe(torch, serve_cfg, full.n_layers)
+    torch.cuda.empty_cache()
+    step = _train_step_full(torch, full.replace(n_layers=MOE_TRAIN_LAYERS))
+    torch.cuda.empty_cache()
+    if serving["params"] != P_MOE[MOE_SERVE_LAYERS]:
+        raise AssertionError(f"{MOE}: P {serving['params']}, expected "
+                             f"{P_MOE[MOE_SERVE_LAYERS]}")
+    if not all(a > 0 for a in step["aux"]):
+        raise AssertionError(f"{MOE}: train step aux {step['aux']}")
+    with _recorded_routes(torch) as calls:
+        smoke_serve_mma = _serve_card_vs_cpu(torch, MOE)
+    serve_flips, serve_gap = _same_routes(torch, calls, f"{MOE} serving")
+    with _recorded_routes(torch) as calls:
+        smoke = _train_card_vs_cpu(torch, (MOE,))
+    train_flips, train_gap = _same_routes(torch, calls, f"{MOE} training",
+                                          MOE_FLIP_MARGIN)
+    log(f"[moe] {MOE} smoke f32 routing card vs CPU: serving identical over "
+        f"its calls (smallest top-2 gap {serve_gap:.3e}); training "
+        f"{train_flips} tokens routed apart (allowed within "
+        f"{MOE_FLIP_MARGIN:g}; smallest top-2 gap {train_gap:.3e})")
+    took = time.perf_counter() - t0
+    log(f"[moe] phase took {took:.1f} s")
+    return dict(serve=serving, serve_launches=serve_launches, step=step,
+                smoke_serve_mma=smoke_serve_mma, smoke_train=smoke,
+                smoke_routing=dict(serve_flips=serve_flips,
+                                   serve_min_gap=serve_gap,
+                                   train_flips=train_flips,
+                                   train_min_gap=train_gap), phase_s=took)
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -2739,6 +3028,7 @@ def main() -> int:
     health = phase_health(torch, [r["wall_s"] for r in cohort["rounds"]])
     vlm = phase_vlm(torch)
     encdec = phase_encdec(torch)
+    moe = phase_moe(torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -2771,13 +3061,17 @@ def main() -> int:
             "vlm_cohort": vlm["cohort"]["launches_tc"],
             "encdec_prefill": encdec["serve_launches"]["flash_attention_tc"],
             "encdec_step": encdec["step"]["launches_tc"],
-            "encdec_cohort": encdec["cohort"]["launches_tc"]},
+            "encdec_cohort": encdec["cohort"]["launches_tc"],
+            "moe_prefill": moe["serve_launches"]["flash_attention_tc"],
+            "moe_step": moe["step"]["launches_tc"]},
         "flash_attention_f32_mma": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"],
             "vlm_smoke": vlm["smoke_serve_mma"]
             + vlm["smoke_train"]["flash_attention_mma"],
             "encdec_smoke": encdec["smoke_serve_mma"]
-            + encdec["smoke_train"]["flash_attention_mma"]},
+            + encdec["smoke_train"]["flash_attention_mma"],
+            "moe_smoke": moe["smoke_serve_mma"]
+            + moe["smoke_train"]["flash_attention_mma"]},
         "rglru_scan": {"smoke_card_vs_cpu": smoke_launches["rglru_scan"]},
         "ssd_forward": {
             "train_step": train_step["launches"]["ssd_forward"],
@@ -2833,7 +3127,8 @@ def main() -> int:
             "on_main_path": kname != "flash_attention_f32_mma",
             "train_launches": train_launches[kname],
             "grad_max_abs_err": grad_errs.get(err_key),
-            **({"whisper_shapes": whisper}
+            **({"whisper_shapes": whisper,
+                "mixtral_shape": lm_timing["flash_attention_bf16_tc_mixtral"]}
                if kname == "flash_attention_bf16_tc" else {}),
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
@@ -2845,6 +3140,7 @@ def main() -> int:
     log(f"[health] summary: {json.dumps(health, default=str)}")
     log(f"[vlm] summary: {json.dumps(vlm)}")
     log(f"[encdec] summary: {json.dumps(encdec)}")
+    log(f"[moe] summary: {json.dumps(moe)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -45,8 +45,11 @@ def make_train_step(model, lr: float = 0.05, microbatches: int | None = None):
             for i in range(M):
                 loss, m, g = grad_fn(state.params,
                                      {k: v[i] for k, v in micro.items()})
-                grads = tree_map(lambda a, gi: a + gi.to(torch.float32) / M,
-                                 grads, g)
+                # in place, so no second f32 copy of the gradients is live
+                for (_, a), (_, gi) in zip(tree_leaves(grads),
+                                           tree_leaves(g)):
+                    a.add_(gi.to(torch.float32) / M)
+                del g
                 losses.append(loss)
                 ms.append(m)
             loss = torch.mean(torch.stack(losses))

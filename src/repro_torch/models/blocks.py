@@ -1,13 +1,15 @@
-"""Blocks of the ported LM families: dense/local attention, RG-LRU, SSD,
-and the encoder / decoder blocks.
+"""Blocks of the ported LM families: dense/local attention, attention +
+MoE, RG-LRU, SSD, and the encoder / decoder blocks.
 
 Torch translation of the parts of the JAX package's ``models/blocks.py`` that
-the dense, hybrid (RecurrentGemma), ssm (Mamba-2), vlm and encdec (whisper)
-families run.  Every block type exposes
+the dense, moe (mixtral's ``attn_moe``), hybrid (RecurrentGemma), ssm
+(Mamba-2), vlm and encdec (whisper) families run.  Every block type exposes
 
   <name>_init(gen, cfg, dtype, device, lead)   -> params (leading ``lead`` axes)
   <name>_cache(cfg, batch, max_len, dtype, device, lead) -> decode cache
-  <name>_apply(p, x, cfg, *, mode, cache, pos, enc_out) -> (x, new_cache)
+  <name>_apply(p, x, cfg, *, mode, cache, pos, enc_out) -> (x, new_cache, aux)
+
+``aux`` is the block's f32 load-balance loss, 0 but for ``attn_moe``.
 
 An apply takes ``x`` in the activation dtype or in f32 and returns its
 residual sum in f32, unrounded (:func:`layers.block_input`,
@@ -16,8 +18,8 @@ residual sum in f32, unrounded (:func:`layers.block_input`,
 (as in the reference, whisper's decoder groups are ``attn_mlp`` blocks,
 ``configs/base.py:scan_groups``, so no model path runs ``dec``).
 
-``BLOCKS`` lists only ported block types; the MoE and MLA blocks are still
-to port (ROADMAP.md, Queue A).
+``BLOCKS`` lists only ported block types; the MLA blocks (``mla_moe``,
+deepseek-v2-lite-16b) are still to port (ROADMAP.md, Queue A).
 
 Kernel routes: on CUDA tensors ``rg_lru_scan`` launches the RG-LRU kernel
 (``kernels/rglru``) and ``ssd_chunked`` the SSD kernel (``kernels/ssd``);
@@ -107,7 +109,146 @@ def attn_mlp_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
                     L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
                     cfg, x.dtype)
     return (L.unrounded(x, m * L.const(s, m)),
-            None if cache is None else {"attn": new_c})
+            None if cache is None else {"attn": new_c}, L.no_aux(x))
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, sort-based dispatch with per-row capacity)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen, cfg, dtype, device, lead=()):
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {
+        "router": {"w": L._normal(gen, (*lead, d, E), 1.0 / math.sqrt(d),
+                                  torch.float32, device)},
+        "experts": {
+            "w1": L._normal(gen, (*lead, E, d, f), 1.0 / math.sqrt(d), dtype,
+                            device),
+            "w3": L._normal(gen, (*lead, E, d, f), 1.0 / math.sqrt(d), dtype,
+                            device),
+            "w2": L._normal(gen, (*lead, E, f, d), 1.0 / math.sqrt(f), dtype,
+                            device),
+        },
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = L.mlp_init(gen, cfg, dtype, device,
+                                 d_ff=cfg.d_ff * cfg.n_shared_experts,
+                                 lead=lead)
+    return p
+
+
+def moe_capacity(cfg, S):
+    """Slots per expert and batch row for a call over S tokens: ceil(S k
+    capacity_factor / E), at least 1 and at most S k, as the reference
+    computes it from each call's own S."""
+    Tk = S * cfg.top_k
+    return min(max(1, math.ceil(Tk * cfg.capacity_factor / cfg.n_experts)),
+               Tk)
+
+
+def moe_route(xr, w, k):
+    """The f32 router on ``xr``: (probs (B, S, E), gates (B, S, k)
+    renormalised to sum 1, expert ids (B, S, k)).  The top k come from a
+    stable descending sort, so of two equal probabilities the lower expert
+    id is taken first, as ``lax.top_k`` takes it."""
+    probs = torch.softmax(xr.to(torch.float32) @ w, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = top.values[..., :k], top.indices[..., :k]
+    return probs, gates / torch.sum(gates, dim=-1, keepdim=True), idx
+
+
+def moe_apply(p, x, cfg, dtype=None):
+    """Token-choice top-k routing, sort-based dispatch, per-row capacity
+    (the reference's ``moe_apply``).  Returns (out (B, S, D) in ``dtype``,
+    the f32 load-balance aux loss).
+
+    Per batch row the (token, expert) pairs are sorted by expert id
+    (stable), each expert's segment found with ``searchsorted``, and its
+    first C pairs fill its C slots; a slot past the segment's end is
+    clipped to the last pair and gets gate 0, a pair past C is dropped.
+    The slots are laid out (E, B, C), so each expert's three products are
+    one batched matrix product over its B C slots.  The combine adds each
+    slot's gated output to its token's row with ``index_add_``: a token
+    has at most k non-zero terms and a clipped slot adds an exact zero,
+    so with k = 2 every order of the adds gives the same bits.
+
+    ``x`` in the activation dtype, or in f32 with ``dtype`` the one the
+    router, the gathers and the shared MLP read it in
+    (:func:`layers.fan_out`): the router widens that rounded value to f32,
+    as XLA computes the reference's ``x.astype(float32)`` of the bf16 norm
+    output (tests/test_torch_moe.py traces it)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    Tk, C = S * k, moe_capacity(cfg, S)
+    dtype = dtype or x.dtype
+    xr, xd, *xs = L.fan_out(x, dtype, 3 if "shared" in p else 2)
+    dev = x.device
+
+    probs, gates, idx = moe_route(xr, p["router"]["w"], k)
+    e_flat = idx.reshape(B, Tk)
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    e_sorted = torch.gather(e_flat, 1, order)
+    g_sorted = torch.gather(gates.reshape(B, Tk), 1, order)
+    tok_sorted = order // k
+    seg = torch.searchsorted(e_sorted, torch.arange(
+        E + 1, device=dev).expand(B, E + 1).contiguous())       # (B, E + 1)
+    slots = seg[:, :E, None] + torch.arange(C, device=dev)      # (B, E, C)
+    valid = slots < seg[:, 1:, None]
+    slots_c = torch.clamp(slots, 0, Tk - 1).reshape(B, E * C)
+    slot_tok = torch.gather(tok_sorted, 1, slots_c).reshape(B, E, C)
+    slot_gate = torch.where(valid, torch.gather(g_sorted, 1, slots_c)
+                            .reshape(B, E, C), 0.0)
+
+    # rows of the flattened (B S, D) input, in (E, B, C) order
+    rows = (torch.arange(B, device=dev)[:, None, None] * S
+            + slot_tok).transpose(0, 1).reshape(-1)
+    xe = xd.reshape(B * S, D).index_select(0, rows).reshape(E, B * C, D)
+    w1, w3, w2 = (p["experts"][n].to(dtype) for n in ("w1", "w3", "w2"))
+    h = L.act_fn(cfg.act)(torch.bmm(xe, w1))
+    h = h * torch.bmm(xe, w3)
+    ye = torch.bmm(h, w2)                                        # (E, B C, D)
+    ye = L.product(ye, slot_gate.transpose(0, 1).reshape(E, B * C, 1), dtype)
+    out = torch.zeros((B * S, D), dtype=dtype, device=dev).index_add(
+        0, rows, ye.reshape(E * B * C, D)).reshape(B, S, D)
+
+    if "shared" in p:
+        out = out + L.mlp_apply(p["shared"], xs[0], cfg)
+
+    # load-balance aux loss (Switch-style): E * sum_e f_e * P_e
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(torch.sum(F.one_hot(idx, E).to(torch.float32), dim=2),
+                    dim=(0, 1))
+    return out, cfg.router_aux_coef * E * torch.sum(me * ce)
+
+
+def attn_moe_init(gen, cfg, dtype, device, lead=()):
+    return {
+        "ln1": L.norm_init(cfg.d_model, device, lead=lead),
+        "attn": L.attn_init(gen, cfg, dtype, device, lead=lead),
+        "ln2": L.norm_init(cfg.d_model, device, lead=lead),
+        "moe": moe_init(gen, cfg, dtype, device, lead=lead),
+    }
+
+
+attn_moe_cache = attn_mlp_cache
+
+
+def attn_moe_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
+                   enc_out=None):
+    x, x_in = L.block_input(x, cfg)
+    a, new_c = L.attn_apply(p["attn"],
+                            L.rmsnorm(p["ln1"], x_in, cfg.norm_eps,
+                                      torch.float32),
+                            cfg, mode=mode,
+                            cache=None if cache is None else cache["attn"],
+                            pos=pos, dtype=x.dtype)
+    # ln2 reads the residual sum unrounded, the residual stream rounded
+    x, mid = L.rounded_pair(L.unrounded(x, a), x.dtype)
+    m, aux = moe_apply(p["moe"],
+                       L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
+                       cfg, x.dtype)
+    return (L.unrounded(x, m), None if cache is None else {"attn": new_c},
+            aux)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +385,7 @@ def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
     m = L.mlp_apply(p["mlp"],
                     L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
                     cfg, x.dtype)
-    return L.unrounded(x, m), new_cache
+    return L.unrounded(x, m), new_cache, L.no_aux(x)
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +575,7 @@ def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
     y = L.product(y, L.silu(z), x.dtype, unrounded=True)
     y = L.rmsnorm(p["out_norm"], y, cfg.norm_eps, x.dtype)
     out = L.linear(p["out_proj"], y)
-    return L.unrounded(x, out), new_cache
+    return L.unrounded(x, out), new_cache, L.no_aux(x)
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +616,7 @@ def enc_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
     x, mid = L.rounded_pair(L.unrounded(x, a), x.dtype)
     m = L.mlp_apply(p["mlp"], L.layernorm(p["ln2"], mid, cfg.norm_eps,
                                           torch.float32), cfg, x.dtype)
-    return L.unrounded(x, m), cache
+    return L.unrounded(x, m), cache, L.no_aux(x)
 
 
 def dec_init(gen, cfg, dtype, device, lead=()):
@@ -527,13 +668,14 @@ def dec_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
                                           torch.float32), cfg, x.dtype)
     new_cache = None if cache is None else {
         "attn": new_attn, "xk": cache["xk"], "xv": cache["xv"]}
-    return L.unrounded(x, m), new_cache
+    return L.unrounded(x, m), new_cache, L.no_aux(x)
 
 
 BLOCKS = {
     "attn_mlp": (attn_mlp_init, attn_mlp_cache, attn_mlp_apply),
     "rec": (rec_init, rec_cache, rec_apply),
     "attn": (attn_mlp_init, attn_mlp_cache, attn_mlp_apply),  # hybrid local-attn
+    "attn_moe": (attn_moe_init, attn_moe_cache, attn_moe_apply),
     "ssd": (ssd_init, ssd_cache, ssd_apply),
     "enc": (enc_init, enc_cache, enc_apply),
     "dec": (dec_init, dec_cache, dec_apply),

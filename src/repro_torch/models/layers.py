@@ -43,7 +43,9 @@ def _normal(gen, shape, scale, dtype, device):
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    # scaled in place: one f32 copy of a leaf is live, not two (a mixtral
+    # expert stack of 8 layers is 25.8 GB in f32)
+    return x.mul_(scale).to(dtype)
 
 
 def linear_init(gen, d_in, d_out, dtype, device, scale=None, lead=()):
@@ -164,6 +166,12 @@ def unrounded(x, y):
     the next block's first norm inside one repeat of a group (one
     ``lax.scan`` step); the scan's carry between repeats is rounded."""
     return x.to(torch.float32) + y          # y widens exactly in the add
+
+
+def no_aux(x):
+    """The auxiliary loss of a block that has none: an f32 zero on ``x``'s
+    device (the reference's ``jnp.float32(0.0)``)."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 class _FanOut(torch.autograd.Function):

@@ -1,7 +1,8 @@
 """LM assembly: embeddings + block groups + loss/prefill/decode.
 
 Torch translation of the JAX package's ``models/model.py`` for the families
-whose blocks are ported (dense, hybrid, ssm, vlm, encdec).  A vlm config's
+whose blocks are ported (dense, hybrid, ssm, vlm, encdec, and the moe
+family's ``attn_moe`` configs; an ``mla_moe`` config raises).  A vlm config's
 model projects precomputed image patch embeddings (``batch["image_embeds"]``,
 (B, n_img_tokens, vision_embed_dim)) with ``patch_proj`` and puts them in
 front of the token embeddings; the loss masks those positions.  An encdec
@@ -39,7 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm", "vlm", "encdec")
+PORTED_FAMILIES = ("dense", "hybrid", "ssm", "vlm", "encdec", "moe")
 
 
 def nest_params(flat: Mapping) -> dict:
@@ -93,6 +94,12 @@ class LM:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
                 f"(its blocks are in ROADMAP.md, Queue A)")
+        missing = sorted({b for pattern, _ in cfg.scan_groups()
+                          for b in pattern} - set(BLOCKS))
+        if missing:
+            raise NotImplementedError(
+                f"{cfg.name}: its {missing} blocks are not ported yet "
+                f"(ROADMAP.md, Queue A)")
         self.cfg = cfg
         self.device = (torch.device("meta") if str(device) == "meta"
                        else resolve_device(device))
@@ -140,25 +147,33 @@ class LM:
 
     # ------------------------------------------------------------ block loop
     def _run_groups(self, params, x, *, mode, cache, pos, enc_out=None):
+        """Runs the block groups.  Without a cache returns (x, the f32 sum
+        of the blocks' aux losses, in the reference's scan order); with one
+        returns x, the cache written in place (the aux is the reference's
+        too, and prefill and decode drop it as it does)."""
         cfg = self.cfg
         if cache is None:
             def repeat(x, rp, enc_out, pattern):
+                aux = None
                 for bi, bname in enumerate(pattern):
-                    x, _ = BLOCKS[bname][2](rp[f"b{bi}"], x, cfg, mode=mode,
-                                            cache=None, pos=pos,
-                                            enc_out=enc_out)
-                return x.to(self.adtype)
+                    x, _, a = BLOCKS[bname][2](rp[f"b{bi}"], x, cfg,
+                                               mode=mode, cache=None,
+                                               pos=pos, enc_out=enc_out)
+                    aux = a if aux is None else aux + a
+                return x.to(self.adtype), aux
             if mode == "train" and torch.is_grad_enabled():
                 # enc_out is an argument: its gradient flows from each rerun
                 repeat = _remat(repeat, cfg.remat)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
                 # unbind once: its backward stacks the repeats' gradients
                 rows = tree_map(lambda t: t.unbind(0),
                                 params["groups"][f"g{gi}"])
                 for r in range(reps):
-                    x = repeat(x, tree_map(lambda t: t[r], rows), enc_out,
-                               pattern)
-            return x
+                    x, a = repeat(x, tree_map(lambda t: t[r], rows), enc_out,
+                                  pattern)
+                    aux = aux + a
+            return x, aux
         for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
             gp = params["groups"][f"g{gi}"]
             gc = cache["groups"][f"g{gi}"]
@@ -166,9 +181,9 @@ class LM:
                 for bi, bname in enumerate(pattern):
                     bp = tree_map(lambda t: t[r], gp[f"b{bi}"])
                     bc = tree_map(lambda t: t[r], gc[f"b{bi}"])
-                    x, c_new = BLOCKS[bname][2](bp, x, cfg, mode=mode,
-                                                cache=bc, pos=pos,
-                                                enc_out=enc_out)
+                    x, c_new, _ = BLOCKS[bname][2](bp, x, cfg, mode=mode,
+                                                   cache=bc, pos=pos,
+                                                   enc_out=enc_out)
                     _copy_into(bc, c_new)
                 x = x.to(self.adtype)
         return x
@@ -201,8 +216,8 @@ class LM:
         x = frames.to(self.adtype)
         rows = tree_map(lambda t: t.unbind(0), params["encoder"]["blocks"])
         for r in range(cfg.n_enc_layers):
-            x, _ = BLOCKS["enc"][2](tree_map(lambda t: t[r], rows)["b0"], x,
-                                    cfg, mode="train")
+            x, _, _ = BLOCKS["enc"][2](tree_map(lambda t: t[r], rows)["b0"],
+                                       x, cfg, mode="train")
             x = x.to(self.adtype)
         return L.layernorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
@@ -230,23 +245,23 @@ class LM:
         """batch: {tokens (B, S)[, image_embeds | frames]} -> logits (B,
         S', V), causal, no cache; S' counts the image positions."""
         x, enc_out = self._stream(params, batch)
-        x = self._run_groups(params, x, mode="train", cache=None, pos=None,
-                             enc_out=enc_out)
+        x, _ = self._run_groups(params, x, mode="train", cache=None,
+                                pos=None, enc_out=enc_out)
         return self._unembed(params, x)
 
     def loss(self, params, batch, loss_chunk: int = 1024):
         """batch: {tokens, labels (B, S), int, label < 0 masked[,
-        image_embeds | frames]} -> (ce + aux, {"ce", "aux"}), f32 scalars; aux is 0
-        for the ported families.  A vlm config's image positions get label
-        -1.  Sequence-chunked as the JAX ``LM.loss``: with S % C == 0 (C =
+        image_embeds | frames]} -> (ce + aux, {"ce", "aux"}), f32 scalars;
+        aux is the blocks' summed load-balance loss (0 but for the moe
+        family).  A vlm config's image positions get label -1.
+        Sequence-chunked as the JAX ``LM.loss``: with S % C == 0 (C =
         min(loss_chunk, S), S counting the image positions) the unembed +
         CE of each chunk of C positions runs under checkpoint (when
         autograd is on), so the (B, S, V) logits are never live in full;
         otherwise the full CE."""
         x, enc_out = self._stream(params, batch)
-        x = self._run_groups(params, x, mode="train", cache=None, pos=None,
-                             enc_out=enc_out)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = self._run_groups(params, x, mode="train", cache=None,
+                                  pos=None, enc_out=enc_out)
         labels = batch["labels"]
         if self.cfg.family == "vlm":          # no loss on image positions
             labels = torch.cat([torch.full(
@@ -299,8 +314,8 @@ class LM:
 
 def build_model(cfg, device=None) -> LM:
     """The port's LM for ``cfg`` on ``device`` (``cuda`` by default; raises
-    without a card).  Raises NotImplementedError for the moe family, whose
-    blocks are not ported yet."""
+    without a card).  Raises NotImplementedError for a config whose blocks
+    are not all ported yet (deepseek-v2-lite-16b's ``mla_moe``)."""
     return LM(cfg, device)
 
 

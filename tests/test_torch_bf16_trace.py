@@ -110,8 +110,8 @@ def _trace_blocks(arch):
                 tpb = tree_map(lambda t: t[r], tp["groups"][f"g{gi}"][f"b{bi}"])
                 jy = jax.jit(lambda p, h, b=bname: JB.BLOCKS[b][2](
                     p, h, jc, mode="train")[0])(jp, x)
-                ty, _ = TB.BLOCKS[bname][2](tpb, _to_torch(x), tc,
-                                            mode="train")
+                ty, _, _ = TB.BLOCKS[bname][2](tpb, _to_torch(x), tc,
+                                               mode="train")
                 d, st = _steps(jy, ty.to(torch.bfloat16))
                 out.append((f"g{gi}/r{r}/b{bi} {bname}", d, st, x, jp, tpb))
                 x = jy

@@ -226,6 +226,7 @@ FLASH_CASES = [  # B, Sq, Skv, H, KVH, D, causal, window
     (2, 1500, 1500, 6, 6, 64, False, None),
     (2, 448, 1500, 6, 6, 64, False, None),
     (2, 5, 1500, 6, 6, 64, False, None),
+    (1, 1024, 1024, 48, 8, 128, True, 512),  # mixtral's heads, window < S
 ]
 
 
@@ -380,6 +381,7 @@ def _assert_grads_equal(got, want, rtol):
     (2, 2048, 2048, 14, 2, 64, True, None, "bf16"),  # internvl2's training
     (1, 448, 1500, 6, 6, 64, False, None, "bf16"),   # whisper's cross shape
     (1, 1500, 1500, 6, 6, 64, False, None, "bf16"),  # whisper's encoder
+    (1, 1024, 1024, 48, 8, 128, True, 512, "bf16"),  # mixtral's heads
 ])
 def test_flash_attention_route_has_the_plain_gradient(cuda, B, S, Skv, H,
                                                       KVH, D, causal, window,
@@ -690,3 +692,48 @@ def test_dispatch_on_the_card_equals_the_cpu(cuda, spec):
     assert card.table.stats() == host.table.stats()
     assert card.cache_hits > 0
     assert (card.delta_dispatches > 0) == fmt.delta_coded
+
+
+# ------------------------------------------- the moe family's dispatch (A17b c)
+
+def _moe_setup(device, dtype, B=2, S=64, **replace):
+    """mixtral's smoke config (E = 4, top-2) in ``dtype``, its MoE params
+    drawn on the CPU, and a seeded (B, S, d) input: (cfg, params, x)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import blocks
+    from repro_torch.models.model import tree_map
+    name = str(dtype)[6:]
+    cfg = smoke_config("mixtral-8x22b").replace(
+        param_dtype=name, dtype=name, **replace)
+    gen = torch.Generator().manual_seed(0)
+    p = blocks.moe_init(gen, cfg, dtype, "cpu")
+    x = torch.randn(B, S, cfg.d_model, generator=gen).to(dtype)
+    return cfg, tree_map(lambda t: t.to(device), p), x.to(device)
+
+
+@pytest.mark.parametrize("cf", [1.5, 0.5], ids=["no-drops", "drops"])
+def test_moe_apply_card_matches_cpu(cuda, cf):
+    """``moe_apply`` in f32 on the card against the CPU on the same
+    weights and input: the same experts for every token, the output within
+    1e-5, the aux within 1e-6."""
+    from repro_torch.models import blocks
+    from repro_torch.models.model import tree_map
+    cfg, p, x = _moe_setup(cuda, torch.float32, capacity_factor=cf)
+    out, aux = blocks.moe_apply(p, x, cfg)
+    pc, xc = tree_map(lambda t: t.cpu(), p), x.cpu()
+    out_c, aux_c = blocks.moe_apply(pc, xc, cfg)
+    idx = blocks.moe_route(x, p["router"]["w"], cfg.top_k)[2]
+    idx_c = blocks.moe_route(xc, pc["router"]["w"], cfg.top_k)[2]
+    assert torch.equal(idx.cpu(), idx_c)
+    assert float((out.cpu() - out_c).abs().max()) <= 1e-5
+    assert abs(float(aux) - float(aux_c)) <= 1e-6
+
+
+def test_moe_combine_is_run_to_run_bit_identical(cuda):
+    """bf16 at a wider shape: the combine's index_add (atomic adds of at
+    most two non-zero terms a token) gives the same bits every run."""
+    from repro_torch.models import blocks
+    cfg, p, x = _moe_setup(cuda, torch.bfloat16, B=4, S=1024)
+    first = blocks.moe_apply(p, x, cfg)[0]
+    for _ in range(3):
+        assert torch.equal(blocks.moe_apply(p, x, cfg)[0], first)

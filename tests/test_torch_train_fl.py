@@ -173,9 +173,9 @@ def _kept(server):
 @pytest.mark.parametrize("arch,fl_kw", [
     ("mamba2-1.3b", {}), ("recurrentgemma-2b", {}),
     ("mamba2-1.3b", {"dispatch_compression": "topk:0.2", "cohorts": "on"}),
-    ("internvl2-1b", {}), ("whisper-tiny", {}),
+    ("internvl2-1b", {}), ("whisper-tiny", {}), ("mixtral-8x22b", {}),
 ], ids=["mamba2-1.3b", "recurrentgemma-2b", "mamba2-1.3b-down-topk-cohorts",
-        "internvl2-1b", "whisper-tiny"])
+        "internvl2-1b", "whisper-tiny", "mixtral-8x22b"])
 def test_cohort_trainer_replays_jax(arch, fl_kw, monkeypatch):
     """3 rounds of SEAFL over 4 LM cohorts (2 in flight, K = 2, E = 2,
     batches of 4 x 32 int32 tokens) on the f32 smoke config.  The JAX
