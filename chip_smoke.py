@@ -25,8 +25,10 @@ Phases, each printing its lines; no phase's failure is caught:
               14 / 2 heads of D = 64, whisper-tiny's non-causal encoder
               (1500 x 1500) and cross (448 x 1500) shapes, mixtral-8x22b's
               prefill of 4 x 8192 positions, 48 / 8 heads of 128, window
-              4096, its plain version a batch row at a time) and at ragged
-              ones
+              4096, its plain version a batch row at a time,
+              deepseek-v2-lite-16b's MLA prefill of 4 x 4096 positions, 16
+              heads, q/k head dim 192 and v 128 on the wgmma instance, and
+              v narrower than q/k on the mma.sync one) and at ragged ones
   4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
               beside the least time the card could take (bound_ms)
@@ -126,11 +128,22 @@ Phases, each printing its lines; no phase's failure is caught:
               (B4 32 a step; loss and aux finite); the f32 smoke config
               card against CPU, serving and 3 trainer rounds, with the
               same top-2 routing ([moe] and the reused phases' lines)
- 14. result   one JSON line of per-kernel numbers (B4 as two rows, one
-              per instance, the bf16 row with whisper's two shapes and
-              mixtral's; each row with its training, uplink, downlink,
-              health, vlm, encdec and moe launches), the nvidia-smi line,
-              and last the contract line {"ok": true, "device": {...}}
+ 14. mla      (k) deepseek-v2-lite-16b (the moe family's mla_moe blocks:
+              MLA, top-6 over 64 experts, two shared) at its published
+              widths: serve() itself at all 27 layers (P =
+              16,210,324,992), 4 x 4096 prompts, 32 generated (B4 27 a
+              prefill, all tc at (192, 128), none in decode; the prefill
+              run twice, bit-identical, the second profiled);
+              make_train_step at 8 layers, 8 x 2048 tokens, M = 2, 3 steps
+              (B4 32 a step; loss and aux finite); the f32 smoke config
+              card against CPU, serving and 3 trainer rounds, with the same
+              routing ([mla] and the reused phases' lines)
+ 15. result   one JSON line of per-kernel numbers (B4 as two rows, one
+              per instance, the bf16 row with whisper's two shapes,
+              mixtral's and deepseek's; each row with its training, uplink,
+              downlink, health, vlm, encdec, moe and mla launches), the
+              nvidia-smi line, and last the contract line {"ok": true,
+              "device": {...}}
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
 why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
@@ -535,6 +548,9 @@ WHISPER = dict(H=6, D=64, frames=1500, text=448)
 # mixtral-8x22b's attention: 48 query heads of 128 on 8 kv heads, a sliding
 # window of 4096; its prefill runs prompts of twice the window
 MIXTRAL = dict(H=48, KVH=8, D=128, window=4096, prompt=8192)
+# deepseek-v2-lite-16b's MLA: 16 heads, q/k head dim 192 (128 + 64 rope),
+# v head dim 128, full causal attention over the 4096-token prompts
+DEEPSEEK = dict(H=16, D=192, Dv=128)
 RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 SSD_CASES = [  # B, NH, S, hd, ds, chunk, h0
@@ -568,10 +584,14 @@ def _randn(torch, *shape, seed, dtype=None):
     return x if dtype is None else x.to(dtype)
 
 
-def _flash_inputs(torch, B, S, Skv, H, KVH, D, dtype, seed):
+def _flash_inputs(torch, B, S, Skv, H, KVH, D, dtype, seed, Dv=None):
     """q, and k, v as strided views of one (B, Skv, 2 KVH, D) tensor, so
-    the kernel's stride handling is exercised."""
+    the kernel's stride handling is exercised; with a value head dim Dv,
+    of one (B, Skv, KVH, D + Dv) tensor (k its first D columns)."""
     q = _randn(torch, B, S, H, D, seed=seed, dtype=dtype)
+    if Dv is not None:
+        kv = _randn(torch, B, Skv, KVH, D + Dv, seed=seed + 1, dtype=dtype)
+        return q, kv[..., :D], kv[..., D:]
     kv = _randn(torch, B, Skv, 2 * KVH, D, seed=seed + 1, dtype=dtype)
     return q, kv[:, :, :KVH], kv[:, :, KVH:]
 
@@ -636,7 +656,7 @@ def phase_parity_lm(torch):
         return a
 
     S = SERVE_PROMPT
-    flash_cases = [  # B, Sq, Skv, H, KVH, D, causal, window, dtype
+    flash_cases = [  # B, Sq, Skv, H, KVH, D, causal, window, dtype[, Dv]
         (SERVE_BATCH, S, S, RG["H"], RG["KVH"], RG["D"], True, RG["window"],
          bf16),                                          # the slice's shape
         (SERVE_BATCH, S, S, RG["H"], RG["KVH"], RG["D"], True, RG["window"],
@@ -657,14 +677,22 @@ def phase_parity_lm(torch):
         (SERVE_BATCH, MIXTRAL["prompt"], MIXTRAL["prompt"], MIXTRAL["H"],
          MIXTRAL["KVH"], MIXTRAL["D"], True, MIXTRAL["window"],
          bf16),                                          # mixtral's prefill
+        (SERVE_BATCH, S, S, DEEPSEEK["H"], DEEPSEEK["H"], DEEPSEEK["D"], True,
+         None, bf16, DEEPSEEK["Dv"]),                    # deepseek's prefill
+        (2, 1000, 1000, DEEPSEEK["H"], DEEPSEEK["H"], DEEPSEEK["D"], True,
+         None, bf16, DEEPSEEK["Dv"]),                    # ... ragged
+        (2, 777, 777, 8, 4, 192, True, 300, f32, 128),   # Dv < D on mma
+        (2, 333, 333, 4, 4, 24, True, None, f32, 16),    # MLA's smoke shape
+        (2, 333, 333, 4, 4, 24, True, None, bf16, 16),   # ... in bf16
     ]
-    for i, (B, Sq, Skv, H, KVH, D, causal, window, dt) in enumerate(
+    for i, (B, Sq, Skv, H, KVH, D, causal, window, dt, *Dv) in enumerate(
             flash_cases):
-        q, k, v = _flash_inputs(torch, B, Sq, Skv, H, KVH, D, dt, 10 + i)
+        Dv = Dv[0] if Dv else None
+        q, k, v = _flash_inputs(torch, B, Sq, Skv, H, KVH, D, dt, 10 + i, Dv)
         FK.reset_launch_counts()
         o = twice(lambda: FK.flash_attention_call(q, k, v, causal=causal,
                                                   window=window))
-        inst = FK.instance(dt, D)
+        inst = FK.instance(dt, D, Dv)
         if getattr(FK.flash_attention_call, f"launches_{inst}") != 2:
             raise AssertionError(f"flash_attention {dt} D={D} did not run "
                                  f"on its {inst} instance")
@@ -673,9 +701,11 @@ def phase_parity_lm(torch):
             dict(rtol=1e-4, atol=1e-4)
         e = _max_err(torch, o, want, **tol)
         errs.setdefault(f"flash_attention_{str(dt)[6:]}_{inst}", e)
+        if (B, Sq, D, Dv) == (SERVE_BATCH, S, DEEPSEEK["D"], DEEPSEEK["Dv"]):
+            errs["flash_attention_deepseek"] = e
         torch.cuda.synchronize()
         log(f"[parity] flash_attention B={B} Sq={Sq} Skv={Skv} H={H} "
-            f"KVH={KVH} D={D} causal={causal} window={window} "
+            f"KVH={KVH} D={D} Dv={Dv or D} causal={causal} window={window} "
             f"{str(dt)[6:]} ({inst}): max|d| {e:.3e}")
         del q, k, v, o, want
 
@@ -929,12 +959,14 @@ def phase_timing_lm(torch):
     causal+window band mask and enable_gqa, a yardstick the port never
     calls.  B4 is timed per instance: bf16 on its wgmma instance, f32 on
     its mma.sync (3xTF32) instance, and bf16 also at whisper-tiny's two
-    non-causal shapes (SDPA with no mask there) and at mixtral-8x22b's
+    non-causal shapes (SDPA with no mask there), at mixtral-8x22b's
     prefill (SDPA on its memory-efficient backend with the band mask; the
-    plain version a batch row at a time).  Bounds count each input
-    read once and each output written once; operations are those the
-    unmasked band needs (B4: 4 D flops per (query, key) pair in the band,
-    every pair where non-causal; at the bf16 tensor-core rate for bf16
+    plain version a batch row at a time) and at deepseek-v2-lite-16b's
+    (q/k head dim 192, v 128, causal: SDPA with is_causal and the backend
+    it picks for two head dims, named from its kernel).  Bounds count each
+    input read once and each output written once; operations are those the
+    unmasked band needs (B4: 2 (D + Dv) flops per (query, key) pair in the
+    band, every pair where non-causal; at the bf16 tensor-core rate for bf16
     inputs, at the rate of f32-accurate (3xTF32) tensor-core products for
     f32) or the chunk products (B6, at the 3xTF32 rate, for a chunk of L
     steps: hd L (L + 1) + 4 L hd ds per (b, head, chunk) for the causal W X,
@@ -1019,6 +1051,31 @@ def phase_timing_lm(torch):
         nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
         flops=4 * Dm * int(band.sum()) * B * Hm, peak=BF16_FLOPS_PER_S)
     del q, k, v, qt, kt, vt, band
+
+    # deepseek-v2-lite-16b's prefill: 16 heads, q/k 192, v 128, causal over
+    # 4096 positions (o is 128 wide: q and o differ in size here)
+    Hd, Dd, Dvd = DEEPSEEK["H"], DEEPSEEK["D"], DEEPSEEK["Dv"]
+    q, k, v = _flash_inputs(torch, B, S, S, Hd, Hd, Dd, torch.bfloat16, 65,
+                            Dvd)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with _profiler(torch) as prof:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.cuda.synchronize()
+    sdpa_kernels = [key for _, key in _kernel_times(torch, prof)[1]]
+    rows["flash_attention_bf16_tc_deepseek"] = dict(
+        ms=_time_ms(torch, lambda: FK.flash_attention_call(
+            q, k, v, causal=True), iters=20, warmup=2),
+        plain_ms=_time_ms(torch, lambda: _flash_plain(q, k, v, True, None),
+                          iters=1, warmup=1),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=10, warmup=2),
+        library_kernels=[key[:80] for key in sdpa_kernels[:3]],
+        nbytes=(q.numel() + k.numel() + 2 * v.numel()) * 2,
+        flops=2 * (Dd + Dvd) * (S * (S + 1) // 2) * B * Hd,
+        peak=BF16_FLOPS_PER_S)
+    log(f"[timing] SDPA at deepseek's (192, 128) shape runs "
+        f"{sdpa_kernels[:3]}")
+    del q, k, v, qt, kt, vt
 
     C = RG["C"]
     log_a, b = _rglru_inputs(torch, B, S, C, torch.float32, 61)
@@ -1106,10 +1163,12 @@ def _extras(torch, cfg, batch, gen, device):
         device=device)}, cfg.n_img_tokens
 
 
-def _profile_serving(torch, arch, prompt_len):
+def _profile_serving(torch, arch, prompt_len, repeat=False):
     """The full config's prefill and one decode step, each under the
     profiler (warm: serve() ran just before): the prefill's device time by
-    kernel, and the decode step's wall and device-busy time."""
+    kernel, and the decode step's wall and device-busy time.  With
+    ``repeat``, the prefill runs once unprofiled first, timed (warm), and
+    the profiled call's logits must equal that call's bit for bit."""
     from repro_torch.configs import get_config
     from repro_torch.launch.specs import make_prefill_step, make_serve_step
     from repro_torch.models.model import build_model
@@ -1121,15 +1180,24 @@ def _profile_serving(torch, arch, prompt_len):
                             generator=gen, device="cuda")
     images, n_img = _extras(torch, cfg, SERVE_BATCH, gen, "cuda")
     cache = model.init_cache(SERVE_BATCH, prompt_len + SERVE_GEN + n_img)
+    batch = {"tokens": prompts, **images}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    first = make_prefill_step(model)(params, batch, cache)[0] if repeat \
+        else None
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with _profiler(torch) as prof:
-        logits, cache = make_prefill_step(model)(
-            params, {"tokens": prompts, **images}, cache)
+        logits, cache = make_prefill_step(model)(params, batch, cache)
         torch.cuda.synchronize()
     prefill_wall = time.perf_counter() - t0
     if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
         raise AssertionError(f"{arch}: non-finite prefill logits")
+    if repeat and not torch.equal(first, logits):
+        raise AssertionError(f"{arch}: the prefill is not run-to-run "
+                             f"bit-identical: max|d| "
+                             f"{float((first - logits).abs().max())}")
     total, rows = _kernel_times(torch, prof)
     log(f"[serve] {arch}: profiled prefill {prefill_wall * 1e3:.1f} ms wall,"
         f" kernels {total:.2f} ms (idle share "
@@ -1152,12 +1220,18 @@ def _profile_serving(torch, arch, prompt_len):
     busy_ms, rows = _kernel_times(torch, prof)
     log(f"[serve] {arch}: decode step kernels by time: " + ", ".join(
         f"{key[:40]} {ms:.3f} ms" for ms, key in rows[:4]))
-    return dict(prefill_wall_ms=prefill_wall * 1e3, prefill_busy_ms=total,
-                prefill_idle_share=1 - total / (prefill_wall * 1e3)), \
-        wall, busy_ms * 1e3
+    out = dict(prefill_wall_ms=prefill_wall * 1e3, prefill_busy_ms=total,
+               prefill_idle_share=1 - total / (prefill_wall * 1e3))
+    if repeat:
+        out.update(prefill_warm_ms=warm_wall * 1e3,
+                   prefill_idle_share_warm=1 - total / (warm_wall * 1e3))
+        log(f"[serve] {arch}: warm unprofiled prefill {warm_wall * 1e3:.1f} "
+            f"ms (idle share {out['prefill_idle_share_warm']:.4f} of it); "
+            f"the profiled one's logits bit-identical to it")
+    return out, wall, busy_ms * 1e3
 
 
-def _serve_full(torch, arch, prompt_len=SERVE_PROMPT):
+def _serve_full(torch, arch, prompt_len=SERVE_PROMPT, repeat=False):
     """serve() at ``arch``'s full width: 4 prompts of ``prompt_len`` tokens
     (after the image positions of a vlm config), 32 generated.  The LM
     kernels' counts are zeroed just before and read just after: each must
@@ -1165,7 +1239,8 @@ def _serve_full(torch, arch, prompt_len=SERVE_PROMPT):
     local-attention and 18 recurrent layers, (rec, rec, attn) x 8 + (rec,
     rec); mamba2-1.3b's 48 SSD layers; internvl2-1b's 24 attention
     layers), B4 all on its bf16 tensor-core instance, decode none.  Then the prefill and one decode
-    step are profiled.  Returns (the counts, the summary record)."""
+    step are profiled (``_profile_serving``, with ``repeat`` the prefill
+    twice, bit-identical).  Returns (the counts, the summary record)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.serve import serve
@@ -1200,7 +1275,8 @@ def _serve_full(torch, arch, prompt_len=SERVE_PROMPT):
             (gen >= 0) & (gen < cfg.vocab_size)).all():
         raise AssertionError(f"{arch}: generated tokens out of the vocab "
                              f"or of shape {gen.shape}")
-    prefill, wall, busy_us = _profile_serving(torch, arch, prompt_len)
+    prefill, wall, busy_us = _profile_serving(torch, arch, prompt_len,
+                                              repeat)
     step_s = r["decode_s"] / (SERVE_GEN - 1)      # unprofiled, in serve
     positions = prompt_len + (cfg.n_img_tokens if cfg.family == "vlm"
                               else 0)
@@ -1365,18 +1441,19 @@ def _train_grad_parity(torch):
     def leaves(*ts):
         return [t.detach().clone().requires_grad_(True) for t in ts]
 
-    flash_cases = [  # B, S, H, KVH, D, window, dtype
-        (2, 1024, 8, 2, 128, 256, torch.bfloat16),     # tc instance
-        (1, 333, 4, 2, 64, None, torch.float32),       # mma instance
-        (2, 40, 4, 1, 16, 16, torch.float32),          # the f32 smoke shape
-        (2, TRAIN_SEQ, *VLM_HEADS, 64, None, torch.bfloat16),  # internvl2
+    flash_cases = [  # B, S, H, KVH, D, window, dtype, Dv
+        (2, 1024, 8, 2, 128, 256, torch.bfloat16, 128),     # tc instance
+        (1, 333, 4, 2, 64, None, torch.float32, 64),        # mma instance
+        (2, 40, 4, 1, 16, 16, torch.float32, 16),       # the f32 smoke shape
+        (2, TRAIN_SEQ, *VLM_HEADS, 64, None, torch.bfloat16, 64),  # internvl2
+        (2, 1024, 16, 16, 192, None, torch.bfloat16, 128),  # deepseek's MLA
     ]
-    for i, (B, S, H, KVH, D, window, dt) in enumerate(flash_cases):
+    for i, (B, S, H, KVH, D, window, dt, Dv) in enumerate(flash_cases):
         q = _randn(torch, B, S, H, D, seed=70 + i, dtype=dt)
         k = _randn(torch, B, S, KVH, D, seed=80 + i, dtype=dt)
-        v = _randn(torch, B, S, KVH, D, seed=90 + i, dtype=dt)
-        do = _randn(torch, B, S, H, D, seed=100 + i, dtype=dt)
-        inst = FK.instance(dt, D)
+        v = _randn(torch, B, S, KVH, Dv, seed=90 + i, dtype=dt)
+        do = _randn(torch, B, S, H, Dv, seed=100 + i, dtype=dt)
+        inst = FK.instance(dt, D, Dv)
         FK.reset_launch_counts()
         ins = leaves(q, k, v)
         o = layers.chunked_attention(*ins, causal=True, window=window)
@@ -1391,7 +1468,7 @@ def _train_grad_parity(torch):
         key = f"flash_attention_{str(dt)[6:]}_{inst}"
         errs[key] = max(errs.get(key, 0.0), e)
         log(f"[train] grad parity flash_attention B={B} S={S} H={H} "
-            f"KVH={KVH} D={D} window={window} {str(dt)[6:]} ({inst}): "
+            f"KVH={KVH} D={D} Dv={Dv} window={window} {str(dt)[6:]} ({inst}): "
             f"max|d| dq,dk,dv {e:.3e}")
 
     for i, (B, S, C, with_h0) in enumerate([(2, 1000, 256, True),
@@ -1452,7 +1529,8 @@ def _train_grad_parity(torch):
 
 
 KERNEL_OF_BLOCK = {"attn_mlp": "flash_attention", "attn": "flash_attention",
-                   "attn_moe": "flash_attention", "rec": "rglru_scan",
+                   "attn_moe": "flash_attention",
+                   "mla_moe": "flash_attention", "rec": "rglru_scan",
                    "ssd": "ssd_forward"}
 
 
@@ -1508,7 +1586,8 @@ def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
     kernel must launch ``_per_step`` x M times a step (mamba2-1.3b: B6 48
     x 2 x 2; internvl2-1b: B4 24 x 1 x 2; whisper-tiny: B4 4 encoder + 4 x
     2 decoder, all on the tensor-core instance; mixtral-8x22b at 2 layers:
-    B4 2 x 2 x 8), and only there.  The profiled step's device time is
+    B4 2 x 2 x 8; deepseek-v2-lite-16b at 8: B4 8 x 2 x 2), and only
+    there.  The profiled step's device time is
     split by kind (the gathers, sorts and scatter-adds apart: the MoE
     dispatch, and the embedding's), and the kernel's plain backward is read
     from its named range (the decoder's layers x M: an encoder whose output
@@ -2949,6 +3028,75 @@ def phase_moe(torch):
                                    train_min_gap=train_gap), phase_s=took)
 
 
+# --------------- phase k: the moe family's mla_moe path (deepseek-v2-lite-16b)
+
+MLA = "deepseek-v2-lite-16b"
+# Published widths and depth for serving: its 27 layers are 32.4 GB of bf16
+# weights.  The train step holds ~10-11 B a parameter (its f32 gradient sum
+# among them), so it runs 8 of the 27 layers.  P from JAX's eval_shape of
+# the reference's init.
+MLA_TRAIN_LAYERS = 8
+P_MLA = {27: 16_210_324_992, 8: 5_098_215_424}
+
+
+def phase_mla(torch):
+    """k. The moe family's mla_moe path at deepseek-v2-lite-16b's published
+    widths (d 2048, 16 heads, MLA with latent 512 and q/k head dim 192 (128
+    + 64 rope), v head dim 128; 64 experts of d_ff 1408, top-6, two shared
+    experts, capacity factor 1.25): (i) ``serve()`` itself at all 27
+    layers (``_serve_full``: 4 x 4096 prompts, 32 generated; B4 27 a
+    prefill, all on the tc instance at (192, 128), none in decode, whose
+    absorbed MLA reads the compressed cache; then the prefill twice, the
+    second profiled, bit-identical, and one profiled decode step);
+    (ii) make_train_step at 8 layers, batch 8 x 2048, M = 2, remat "full",
+    3 steps (``_train_step_full``: B4 8 x 2 x 2 = 32 a step; the shares of
+    the GEMMs, B4's forward, its plain backward and the dispatch's and
+    combine's gathers; loss and aux finite); (iii) the f32 smoke config
+    card against CPU, serving (B4's mma instance with Dv 16 < D 24 on the
+    card) and 3 cohort trainer rounds, with the same routing on both (a
+    flip in training only within ``MOE_FLIP_MARGIN``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.seafl_agg import kernel as K
+    t0 = time.perf_counter()
+    _warm_profiler(torch)
+    for fn in K.KERNELS:
+        fn.launches = 0
+    full = get_config(MLA)
+    serve_launches, serving = _serve_full(torch, MLA, repeat=True)
+    torch.cuda.empty_cache()
+    if serving["params"] != P_MLA[full.n_layers]:
+        raise AssertionError(f"{MLA}: P {serving['params']}, expected "
+                             f"{P_MLA[full.n_layers]}")
+    step = _train_step_full(torch, full.replace(n_layers=MLA_TRAIN_LAYERS))
+    torch.cuda.empty_cache()
+    if not all(a > 0 for a in step["aux"]):
+        raise AssertionError(f"{MLA}: train step aux {step['aux']}")
+    with _recorded_routes(torch) as calls:
+        smoke_serve_mma = _serve_card_vs_cpu(torch, MLA)
+    serve_flips, serve_gap = _same_routes(torch, calls, f"{MLA} serving")
+    with _recorded_routes(torch) as calls:
+        smoke = _train_card_vs_cpu(torch, (MLA,))
+    train_flips, train_gap = _same_routes(torch, calls, f"{MLA} training",
+                                          MOE_FLIP_MARGIN)
+    log(f"[mla] {MLA} smoke f32 routing card vs CPU: serving identical over "
+        f"its calls (smallest top-2 gap {serve_gap:.3e}); training "
+        f"{train_flips} tokens routed apart (allowed within "
+        f"{MOE_FLIP_MARGIN:g}; smallest top-2 gap {train_gap:.3e})")
+    took = time.perf_counter() - t0
+    log(f"[mla] phase took {took:.1f} s")
+    lm = {n: serve_launches[n] + step["launches"][n] + smoke[n]
+          for n in _lm_kernels()}
+    return dict(serve=serving, serve_launches=serve_launches, step=step,
+                train_layers=MLA_TRAIN_LAYERS, lm_launches=lm,
+                seafl_launches={fn.__name__[:-5]: fn.launches
+                                for fn in K.KERNELS},
+                smoke_serve_mma=smoke_serve_mma, smoke_train=smoke,
+                smoke_routing=dict(serve_flips=serve_flips,
+                                   serve_min_gap=serve_gap,
+                                   train_flips=train_flips,
+                                   train_min_gap=train_gap), phase_s=took)
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -3029,6 +3177,7 @@ def main() -> int:
     vlm = phase_vlm(torch)
     encdec = phase_encdec(torch)
     moe = phase_moe(torch)
+    mla = phase_mla(torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -3042,7 +3191,8 @@ def main() -> int:
             "vlm_cohort": vlm["cohort"]["seafl_launches"][
                 "sim_partials_from_params"],
             "encdec_cohort": encdec["cohort"]["seafl_launches"][
-                "sim_partials_from_params"]},
+                "sim_partials_from_params"],
+            "mla": mla["seafl_launches"]["sim_partials_from_params"]},
         "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"],
                          "uplink_topk": up_seafl["weighted_agg"],
                          "downlink_cohorts": down["seafl_launches"][
@@ -3052,8 +3202,10 @@ def main() -> int:
                          "vlm_cohort": vlm["cohort"]["seafl_launches"][
                              "weighted_agg"],
                          "encdec_cohort": encdec["cohort"]["seafl_launches"][
-                             "weighted_agg"]},
-        "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"]},
+                             "weighted_agg"],
+                         "mla": mla["seafl_launches"]["weighted_agg"]},
+        "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"],
+                         "mla": mla["seafl_launches"]["sim_partials"]},
         "flash_attention_bf16_tc": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_tc"],
             "vlm_prefill": vlm["serve_launches"]["flash_attention_tc"],
@@ -3063,7 +3215,9 @@ def main() -> int:
             "encdec_step": encdec["step"]["launches_tc"],
             "encdec_cohort": encdec["cohort"]["launches_tc"],
             "moe_prefill": moe["serve_launches"]["flash_attention_tc"],
-            "moe_step": moe["step"]["launches_tc"]},
+            "moe_step": moe["step"]["launches_tc"],
+            "mla_prefill": mla["serve_launches"]["flash_attention_tc"],
+            "mla_step": mla["step"]["launches_tc"]},
         "flash_attention_f32_mma": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"],
             "vlm_smoke": vlm["smoke_serve_mma"]
@@ -3071,9 +3225,13 @@ def main() -> int:
             "encdec_smoke": encdec["smoke_serve_mma"]
             + encdec["smoke_train"]["flash_attention_mma"],
             "moe_smoke": moe["smoke_serve_mma"]
-            + moe["smoke_train"]["flash_attention_mma"]},
-        "rglru_scan": {"smoke_card_vs_cpu": smoke_launches["rglru_scan"]},
+            + moe["smoke_train"]["flash_attention_mma"],
+            "mla_smoke": mla["smoke_serve_mma"]
+            + mla["smoke_train"]["flash_attention_mma"]},
+        "rglru_scan": {"smoke_card_vs_cpu": smoke_launches["rglru_scan"],
+                       "mla": mla["lm_launches"]["rglru_scan"]},
         "ssd_forward": {
+            "mla": mla["lm_launches"]["ssd_forward"],
             "train_step": train_step["launches"]["ssd_forward"],
             "cohort": cohort["launches"]["ssd_forward"],
             "smoke_card_vs_cpu": smoke_launches["ssd_forward"],
@@ -3128,7 +3286,10 @@ def main() -> int:
             "train_launches": train_launches[kname],
             "grad_max_abs_err": grad_errs.get(err_key),
             **({"whisper_shapes": whisper,
-                "mixtral_shape": lm_timing["flash_attention_bf16_tc_mixtral"]}
+                "mixtral_shape": lm_timing["flash_attention_bf16_tc_mixtral"],
+                "deepseek_shape": dict(
+                    lm_timing["flash_attention_bf16_tc_deepseek"],
+                    max_abs_err=errs["flash_attention_deepseek"])}
                if kname == "flash_attention_bf16_tc" else {}),
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
@@ -3141,6 +3302,7 @@ def main() -> int:
     log(f"[vlm] summary: {json.dumps(vlm)}")
     log(f"[encdec] summary: {json.dumps(encdec)}")
     log(f"[moe] summary: {json.dumps(moe)}")
+    log(f"[mla] summary: {json.dumps(mla)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

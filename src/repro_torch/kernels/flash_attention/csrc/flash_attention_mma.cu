@@ -6,17 +6,21 @@
 // over the keys k with k <= q (causal, top-left aligned), k > q - window
 // (sliding window), k < Skv; a row with no such key gives 0.  GQA: query
 // head h reads kv head h / (H / KVH), and K/V are never repeated.  Inputs
-// f32 or bf16, o in q's dtype, any head dim 4 <= D <= 256 with D % 4 == 0.
-// The instance for everything flash_attention_tc.cu does not take (that
-// one: bf16 with D in {64, 128, 256}); replaces
+// f32 or bf16, o in q's dtype, any head dim 4 <= D <= 256 of q and k and
+// any 4 <= Dv <= D of v (MLA's smoke configs: D = 24, Dv = 16), each a
+// multiple of 4.  The instance for everything flash_attention_tc.cu does
+// not take (that one: bf16 with (D, Dv) in {(64, 64), (128, 128),
+// (256, 256), (192, 128)}); replaces
 // src/repro/kernels/flash_attention/kernel.py _flash_kernel for those.
 //
-// Layout: q and o are (B, Sq, H, D), k and v (B, Skv, KVH, D), the model's
-// own layout, read through element strides (the last dim contiguous), so
-// there is no transpose and no pad copy: the ragged edges of Sq and Skv are
-// masked in the kernel, and D is padded with zeros in shared memory to 8 kNT
-// (32, 64, 128 or 256; kNT, the mma's 8-column tiles, is a template
-// argument, so every loop over D is unrolled with no guard).
+// Layout: q is (B, Sq, H, D), k (B, Skv, KVH, D), v (B, Skv, KVH, Dv) and o
+// (B, Sq, H, Dv), the model's own layout, read through element strides (the
+// last dim contiguous), so there is no transpose and no pad copy: the
+// ragged edges of Sq and Skv are masked in the kernel, and D and Dv are
+// padded with zeros in shared memory to 8 kNT (32, 64, 128 or 256, from D;
+// kNT, the mma's 8-column tiles, is a template argument, so every loop over
+// D is unrolled with no guard).  V's columns from Dv on are zeroed once and
+// never loaded, so O stays 0 there, and o gets only Dv columns.
 //
 // Bound: at the f32 slice shape (recurrentgemma-2b prefill in f32, q (4,
 // 4096, 10, 256), window 2048) the band needs 2.6e11 flop against 369 MB
@@ -171,7 +175,8 @@ template <typename T, int kNT>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int KVH,
-                 int Sq, int Skv, int D, Strides qs, Strides ks, Strides vs,
+                 int Sq, int Skv, int D, int Dv, Strides qs, Strides ks,
+                 Strides vs,
                  Strides os, int causal, int window, float scale_log2,
                  int copy_bytes) {
   constexpr bool kF32In = sizeof(T) == 4;
@@ -198,10 +203,14 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_lo = kv_lo / kBK;
   const int n_tiles = kv_hi > kv_lo ? (kv_hi + kBK - 1) / kBK - t_lo : 0;
 
-  // the pad columns [D, kW) of every tile are zeros for good
+  // the pad columns of every tile are zeros for good: [D, kW) of the Q
+  // and K rows (one run of rows), [Dv, kW) of the V rows
   if (kW > D)
-    for (int i = threadIdx.x; i < (kBQ + 2 * kBK) * (kW - D); i += kThreads)
+    for (int i = threadIdx.x; i < (kBQ + kBK) * (kW - D); i += kThreads)
       Qs[(i / (kW - D)) * p + D + i % (kW - D)] = from_f32<T>(0.f);
+  if (kW > Dv)
+    for (int i = threadIdx.x; i < kBK * (kW - Dv); i += kThreads)
+      Vs[(i / (kW - Dv)) * p + Dv + i % (kW - Dv)] = from_f32<T>(0.f);
   // K and V tiles are separate cp.async groups, one each (empty past the
   // last tile), issued in the order K0 (with Q), V0, K1, V1, ...
   auto load_k = [&](int j) {
@@ -215,7 +224,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto load_v = [&](int j) {
     if (j < n_tiles) {
       const int k0 = (t_lo + j) * kBK;
-      load_rows<kW>(Vs, p, vb + k0 * vs.s, vs.s, kBK, Skv - k0, D,
+      load_rows<kW>(Vs, p, vb + k0 * vs.s, vs.s, kBK, Skv - k0, Dv,
                     copy_bytes);
     }
     cp_async_commit();
@@ -369,7 +378,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
     const int col = 8 * n + 2 * t;
-    if (col < D) {
+    if (col < Dv) {
       if (r0 < Sq) {
         ob[r0 * os.s + col] = from_f32<T>(acc[n][0] * inv0);
         ob[r0 * os.s + col + 1] = from_f32<T>(acc[n][1] * inv0);
@@ -384,9 +393,10 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // the widest cp.async (16, 8 or 4 bytes) that every row, stride and base
 // allows; 2 (plain loads) when a bf16 tensor allows none
-int copy_bytes(int es, int D, const void* const* ptrs, const Strides* sts) {
+int copy_bytes(int es, int D, int Dv, const void* const* ptrs,
+               const Strides* sts) {
   for (int w = 16; w >= 4; w /= 2) {
-    bool ok = (D * es) % w == 0;
+    bool ok = (D * es) % w == 0 && (Dv * es) % w == 0;
     for (int i = 0; i < 3; ++i)
       ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % w == 0 &&
            (sts[i].b * es) % w == 0 && (sts[i].s * es) % w == 0 &&
@@ -398,9 +408,9 @@ int copy_bytes(int es, int D, const void* const* ptrs, const Strides* sts) {
 
 template <typename T, int kNT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KVH, int Sq, int Skv, int D, Strides qs,
-                   Strides ks, Strides vs, Strides os, int causal, int window,
-                   float scale, cudaStream_t s) {
+                   int B, int H, int KVH, int Sq, int Skv, int D, int Dv,
+                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                   int window, float scale, cudaStream_t s) {
   constexpr int smem = smem_bytes<T, kNT>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_mma_kernel<T, kNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -411,46 +421,47 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   flash_mma_kernel<T, kNT><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KVH, Sq, Skv, D, qs,
-      ks, vs, os, causal, window, scale * kLog2e,
-      copy_bytes(static_cast<int>(sizeof(T)), D, ptrs, sts));
+      static_cast<const T*>(v), static_cast<T*>(o), H, KVH, Sq, Skv, D, Dv,
+      qs, ks, vs, os, causal, window, scale * kLog2e,
+      copy_bytes(static_cast<int>(sizeof(T)), D, Dv, ptrs, sts));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KVH, int Sq, int Skv, int D,
+                     int B, int H, int KVH, int Sq, int Skv, int D, int Dv,
                      Strides qs, Strides ks, Strides vs, Strides os,
                      int causal, int window, float scale, cudaStream_t s) {
   if (D <= 32)
-    return launch<T, 4>(q, k, v, o, B, H, KVH, Sq, Skv, D, qs, ks, vs, os,
-                        causal, window, scale, s);
+    return launch<T, 4>(q, k, v, o, B, H, KVH, Sq, Skv, D, Dv, qs, ks, vs,
+                        os, causal, window, scale, s);
   if (D <= 64)
-    return launch<T, 8>(q, k, v, o, B, H, KVH, Sq, Skv, D, qs, ks, vs, os,
-                        causal, window, scale, s);
+    return launch<T, 8>(q, k, v, o, B, H, KVH, Sq, Skv, D, Dv, qs, ks, vs,
+                        os, causal, window, scale, s);
   if (D <= 128)
-    return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Skv, D, qs, ks, vs, os,
-                         causal, window, scale, s);
-  return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Skv, D, qs, ks, vs, os,
-                       causal, window, scale, s);
+    return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Skv, D, Dv, qs, ks, vs,
+                         os, causal, window, scale, s);
+  return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Skv, D, Dv, qs, ks, vs,
+                       os, causal, window, scale, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o: (B, Sq, H, D); k, v: (B, Skv, KVH, D); dtype 0 f32, 1 bf16 (all
-// four alike).  *_st: element strides of (batch, seq, head), D contiguous.
-// window <= 0: no window.  D % 4 == 0, D <= 256 and H % KVH == 0 (the
-// wrapper checks).
+// q: (B, Sq, H, D); k: (B, Skv, KVH, D); v: (B, Skv, KVH, Dv); o: (B, Sq,
+// H, Dv); dtype 0 f32, 1 bf16 (all four alike).  *_st: element strides of
+// (batch, seq, head), the head dim contiguous.  window <= 0: no window.
+// D % 4 == 0, D <= 256, Dv % 4 == 0, Dv <= D and H % KVH == 0 (the wrapper
+// checks).
 int flash_attention_fwd_mma(const void* q, const void* k, const void* v,
                             void* o, int dtype, int B, int H, int KVH, int Sq,
-                            int Skv, int D, const long long* q_st,
+                            int Skv, int D, int Dv, const long long* q_st,
                             const long long* k_st, const long long* v_st,
                             const long long* o_st, int causal, int window,
                             float scale, void* stream) {
-  if (D < 4 || D > kMaxD || D % 4 != 0 || KVH < 1 || H % KVH != 0 ||
-      Sq < 1 || Skv < 1)
+  if (D < 4 || D > kMaxD || D % 4 != 0 || Dv < 4 || Dv > D || Dv % 4 != 0 ||
+      KVH < 1 || H % KVH != 0 || Sq < 1 || Skv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{q_st[0], q_st[1], q_st[2]};
@@ -459,11 +470,11 @@ int flash_attention_fwd_mma(const void* q, const void* k, const void* v,
   const Strides os{o_st[0], o_st[1], o_st[2]};
   cudaError_t e;
   if (dtype == kF32) {
-    e = launch_d<float>(q, k, v, o, B, H, KVH, Sq, Skv, D, qs, ks, vs, os,
-                        causal, window, scale, s);
+    e = launch_d<float>(q, k, v, o, B, H, KVH, Sq, Skv, D, Dv, qs, ks, vs,
+                        os, causal, window, scale, s);
   } else if (dtype == kBF16) {
-    e = launch_d<__nv_bfloat16>(q, k, v, o, B, H, KVH, Sq, Skv, D, qs, ks,
-                                vs, os, causal, window, scale, s);
+    e = launch_d<__nv_bfloat16>(q, k, v, o, B, H, KVH, Sq, Skv, D, Dv, qs,
+                                ks, vs, os, causal, window, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

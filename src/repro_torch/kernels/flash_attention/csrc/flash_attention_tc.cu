@@ -1,5 +1,6 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a), bf16 in and
-// out, head dims D in {64, 128, 256}; plain C interface.
+// out, head dims (D, Dv) of q/k and of v in {(64, 64), (128, 128),
+// (256, 256), (192, 128)}; plain C interface.
 //
 //   o[b, q, h] = softmax_k(q[b, q, h] . k[b, k, h/G] / sqrt(D)) v[b, k, h/G]
 //
@@ -7,8 +8,10 @@
 // (sliding window), k < Skv; a row with no such key gives 0.  GQA: query
 // head h reads kv head h / (H / KVH).  The same function as
 // flash_attention_mma.cu (the mma.sync instance, which keeps every other
-// dtype and D); replaces src/repro/kernels/flash_attention/kernel.py
-// _flash_kernel for bf16 with these D.
+// dtype and shape); replaces src/repro/kernels/flash_attention/kernel.py
+// _flash_kernel for bf16 with these head dims.  (192, 128) is MLA's
+// (deepseek-v2-lite-16b: 128 + 64 rope dims for q and k, 128 for v), the
+// same function as the reference's chunked_attention with Dv = v's dim.
 //
 // Bound: at the main path's shape (recurrentgemma-2b prefill, q (4, 4096,
 // 10, 256), window 2048) the band needs 2.6e11 flop against 185 MB moved, so
@@ -17,8 +20,9 @@
 //     head, batch), q-tiles launched last-first (grid z reversed), since
 //     the tiles past the window see the most keys;
 //   * thread 0 issues TMA loads (Q once; K and V tiles of 64 keys into a
-//     two-stage ring, one tile ahead, each tile D / 64 boxes of 64 columns
-//     with the 128-byte swizzle), completion on mbarriers.  No producer
+//     two-stage ring, one tile ahead, a Q or K tile D / 64 boxes of 64
+//     columns with the 128-byte swizzle, a V tile Dv / 64), completion on
+//     mbarriers.  No producer
 //     warp: 8 warps are 2 on each of the SM's four register partitions, so
 //     a thread may hold 255 registers, which D = 256 needs (O alone is
 //     128).  A producer warpgroup with `setmaxnreg` (384 threads) or a
@@ -28,7 +32,8 @@
 //     softmax in f32 with exp2 and log2(e) folded into the scale, the mask
 //     only on tiles at the edge of the causal/window band, then O += P V by
 //     `wgmma` with P from registers and V from shared memory (MN-major, the
-//     transpose flag), D / 64 instructions of n = 64 per k-step;
+//     transpose flag), Dv / 64 instructions of n = 64 per k-step (the
+//     scores take D / 16 k-steps of m64n64k16: 12 at D = 192);
 //   * P goes to the tensor cores as two bf16 parts, P_hi = bf16(P) and
 //     P_lo = bf16(P - P_hi), O += P_hi V + P_lo V, so its error is ~2^-18
 //     of sum p|v| (one bf16 P, at 2^-9, would fail the one-bf16-step
@@ -60,13 +65,16 @@ constexpr int kRowBytes = 128; // one swizzled panel row: 64 bf16
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-struct Layout {  // byte offsets in shared memory, 1024-aligned tiles
-  static constexpr int kQBytes = kBQ * D * 2;   // D/64 panels of kBQ rows
-  static constexpr int kKVBytes = kBK * D * 2;  // D/64 panels of kBK rows
+// byte offsets in shared memory, 1024-aligned tiles; at (192, 128) Q 48 KB,
+// K 2 x 24 KB, V 2 x 16 KB
+template <int DQK, int DV>
+struct Layout {
+  static constexpr int kQBytes = kBQ * DQK * 2;  // DQK/64 panels of kBQ rows
+  static constexpr int kKBytes = kBK * DQK * 2;  // DQK/64 panels of kBK rows
+  static constexpr int kVBytes = kBK * DV * 2;   // DV/64 panels of kBK rows
   static constexpr int kK = kQBytes;
-  static constexpr int kV = kK + kStages * kKVBytes;
-  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kV = kK + kStages * kKBytes;
+  static constexpr int kBar = kV + kStages * kVBytes;
   static constexpr int kBytes = kBar + 64 + 1024;  // barriers, alignment
 };
 
@@ -154,7 +162,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -162,8 +170,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 __nv_bfloat16* __restrict__ o, int H, int KVH, int Sq,
                 int Skv, Strides os, int causal, int window,
                 float scale_log2) {
-  using L = Layout<D>;
-  constexpr int kPanels = D / 64;
+  using L = Layout<DQK, DV>;
+  constexpr int kQKPanels = DQK / 64;
+  constexpr int kPanels = DV / 64;  // of V and O
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -203,20 +212,20 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   // each later tile one tile ahead (in the loop below)
   auto load_kv = [&](int j) {
     const int s = j % kStages, k0 = (t_lo + j) * kBK;
-    uint8_t* kd = Ks + s * L::kKVBytes;
-    uint8_t* vd = Vs + s * L::kKVBytes;
-    mbar_expect_tx(k_full + s, L::kKVBytes);
-    for (int p = 0; p < kPanels; ++p)
+    uint8_t* kd = Ks + s * L::kKBytes;
+    uint8_t* vd = Vs + s * L::kVBytes;
+    mbar_expect_tx(k_full + s, L::kKBytes);
+    for (int p = 0; p < kQKPanels; ++p)
       tma_load(kd + p * kBK * kRowBytes, &tm_k, k_full + s, 64 * p, kvh, k0,
                b);
-    mbar_expect_tx(v_full + s, L::kKVBytes);
+    mbar_expect_tx(v_full + s, L::kVBytes);
     for (int p = 0; p < kPanels; ++p)
       tma_load(vd + p * kBK * kRowBytes, &tm_v, v_full + s, 64 * p, kvh, k0,
                b);
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(q_full, L::kQBytes);
-    for (int p = 0; p < kPanels; ++p)
+    for (int p = 0; p < kQKPanels; ++p)
       tma_load(Qs + p * kBQ * kRowBytes, &tm_q, q_full, 64 * p, h, q0, b);
     for (int j = 0; j < min(kStages, n_tiles); ++j) load_kv(j);
   }
@@ -254,15 +263,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(k_full + s, par);
     if (any) {
       // S = Q K^T.  q_base is made opaque each tile, so the compiler
-      // builds Q's D / 16 descriptors where they are used instead of
+      // builds Q's DQK / 16 descriptors where they are used instead of
       // keeping them live across the loop.
       uint32_t q_base;
       asm volatile("mov.b32 %0, %1;" : "=r"(q_base) : "r"(q_base0));
       float sc[32];
-      const uint32_t k_base = smem_u32(Ks + s * L::kKVBytes);
+      const uint32_t k_base = smem_u32(Ks + s * L::kKBytes);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
+      for (int ks = 0; ks < DQK / 16; ++ks) {
         const uint32_t off = (ks % 4) * 32;
         wgmma_ss(sc,
                  desc_sw128(q_base + (ks / 4) * kBQ * kRowBytes + off, 16,
@@ -338,7 +347,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // O += P_hi V + P_lo V
       mbar_wait(v_full + s, par);
-      const uint32_t v_base = smem_u32(Vs + s * L::kKVBytes);
+      const uint32_t v_base = smem_u32(Vs + s * L::kVBytes);
 #pragma unroll
       for (int p = 0; p < kPanels; ++p) fence_regs(acc[p]);
       wgmma_fence();
@@ -409,22 +418,23 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KVH, int Sq, int Skv, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal, int window,
                    float scale, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, Sq, H, D, qs, kBQ) ||
-      !make_map(&tk, k, B, Skv, KVH, D, ks, kBK) ||
-      !make_map(&tv, v, B, Skv, KVH, D, vs, kBK))
+  if (!make_map(&tq, q, B, Sq, H, DQK, qs, kBQ) ||
+      !make_map(&tk, k, B, Skv, KVH, DQK, ks, kBK) ||
+      !make_map(&tv, v, B, Skv, KVH, DV, vs, kBK))
     return cudaErrorInvalidValue;
-  const int smem = Layout<D>::kBytes;
+  const int smem = Layout<DQK, DV>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_tc_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_tc_kernel<D><<<grid, kThreads, smem, s>>>(
+  flash_tc_kernel<DQK, DV><<<grid, kThreads, smem, s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KVH, Sq, Skv, os, causal,
       window, scale * kLog2e);
   return cudaGetLastError();
@@ -434,13 +444,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q, o: (B, Sq, H, D); k, v: (B, Skv, KVH, D); all bf16.  *_st: element
-// strides of (batch, seq, head), D contiguous, each a multiple of 8
-// elements (16 bytes) and every pointer 16-byte aligned (the wrapper
-// checks).  window <= 0: no window.  D in {64, 128, 256}, H % KVH == 0.
+// q: (B, Sq, H, D); k: (B, Skv, KVH, D); v: (B, Skv, KVH, Dv); o: (B, Sq,
+// H, Dv); all bf16.  *_st: element strides of (batch, seq, head), the head
+// dim contiguous, each a multiple of 8 elements (16 bytes) and every
+// pointer 16-byte aligned (the wrapper checks).  window <= 0: no window.
+// (D, Dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}, H % KVH == 0.
 int flash_attention_fwd_tc(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int KVH, int Sq, int Skv,
-                           int D, const long long* q_st,
+                           int D, int Dv, const long long* q_st,
                            const long long* k_st, const long long* v_st,
                            const long long* o_st, int causal, int window,
                            float scale, void* stream) {
@@ -452,18 +463,22 @@ int flash_attention_fwd_tc(const void* q, const void* k, const void* v,
   const Strides vs{v_st[0], v_st[1], v_st[2]};
   const Strides os{o_st[0], o_st[1], o_st[2]};
   cudaError_t e;
-  switch (D) {
-    case 64:
-      e = launch<64>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os, causal,
-                     window, scale, s);
+  switch (D * 1000 + Dv) {
+    case 64064:
+      e = launch<64, 64>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
+                         causal, window, scale, s);
       break;
-    case 128:
-      e = launch<128>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os, causal,
-                      window, scale, s);
+    case 128128:
+      e = launch<128, 128>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
+                           causal, window, scale, s);
       break;
-    case 256:
-      e = launch<256>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os, causal,
-                      window, scale, s);
+    case 256256:
+      e = launch<256, 256>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
+                           causal, window, scale, s);
+      break;
+    case 192128:
+      e = launch<192, 128>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
+                           causal, window, scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

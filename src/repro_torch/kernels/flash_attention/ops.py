@@ -15,7 +15,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None):
-    """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> o (B, Sq, H, D), q's dtype."""
+    """q (B, Sq, H, D); k (B, Skv, KVH, D); v (B, Skv, KVH, Dv), Dv <= D
+    -> o (B, Sq, H, Dv), q's dtype; scores scaled by 1/sqrt(D)."""
     if q.device.type == "cuda":
         return _k.flash_attention_call(q, k, v, causal=causal, window=window)
     if q.device.type != "cpu":

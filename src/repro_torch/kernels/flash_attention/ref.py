@@ -14,9 +14,10 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal=True, window=None, kv_len=None):
-    """q: (B, H, Sq, D); k, v: (B, KVH, Skv, D) -> (B, H, Sq, D) in q's
-    dtype.  Keys seen by query q: k <= q (causal), k > q - window, k < kv_len;
-    a row with none gives 0."""
+    """q: (B, H, Sq, D); k: (B, KVH, Skv, D); v: (B, KVH, Skv, Dv) -> (B,
+    H, Sq, Dv) in q's dtype, the scores scaled by 1/sqrt(D) (MLA's Dv <
+    D included).  Keys seen by query q: k <= q (causal), k > q - window,
+    k < kv_len; a row with none gives 0."""
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     G = H // KVH

@@ -1,15 +1,16 @@
 """Blocks of the ported LM families: dense/local attention, attention +
-MoE, RG-LRU, SSD, and the encoder / decoder blocks.
+MoE, MLA + MoE, RG-LRU, SSD, and the encoder / decoder blocks.
 
-Torch translation of the parts of the JAX package's ``models/blocks.py`` that
-the dense, moe (mixtral's ``attn_moe``), hybrid (RecurrentGemma), ssm
-(Mamba-2), vlm and encdec (whisper) families run.  Every block type exposes
+Torch translation of the JAX package's ``models/blocks.py``, every block
+type the dense, moe (mixtral's ``attn_moe``, deepseek's ``mla_moe``),
+hybrid (RecurrentGemma), ssm (Mamba-2), vlm and encdec (whisper) families
+run.  Every block type exposes
 
   <name>_init(gen, cfg, dtype, device, lead)   -> params (leading ``lead`` axes)
   <name>_cache(cfg, batch, max_len, dtype, device, lead) -> decode cache
   <name>_apply(p, x, cfg, *, mode, cache, pos, enc_out) -> (x, new_cache, aux)
 
-``aux`` is the block's f32 load-balance loss, 0 but for ``attn_moe``.
+``aux`` is the block's f32 load-balance loss, 0 but for the MoE blocks.
 
 An apply takes ``x`` in the activation dtype or in f32 and returns its
 residual sum in f32, unrounded (:func:`layers.block_input`,
@@ -17,9 +18,6 @@ residual sum in f32, unrounded (:func:`layers.block_input`,
 ``enc_out`` is the encoder's output, which only the ``dec`` block reads
 (as in the reference, whisper's decoder groups are ``attn_mlp`` blocks,
 ``configs/base.py:scan_groups``, so no model path runs ``dec``).
-
-``BLOCKS`` lists only ported block types; the MLA blocks (``mla_moe``,
-deepseek-v2-lite-16b) are still to port (ROADMAP.md, Queue A).
 
 Kernel routes: on CUDA tensors ``rg_lru_scan`` launches the RG-LRU kernel
 (``kernels/rglru``) and ``ssd_chunked`` the SSD kernel (``kernels/ssd``);
@@ -167,10 +165,12 @@ def moe_apply(p, x, cfg, dtype=None):
     first C pairs fill its C slots; a slot past the segment's end is
     clipped to the last pair and gets gate 0, a pair past C is dropped.
     The slots are laid out (E, B, C), so each expert's three products are
-    one batched matrix product over its B C slots.  The combine adds each
-    slot's gated output to its token's row with ``index_add_``: a token
-    has at most k non-zero terms and a clipped slot adds an exact zero,
-    so with k = 2 every order of the adds gives the same bits.
+    one batched matrix product over its B C slots.  The combine
+    (:func:`moe_combine`) adds each token's gated outputs in ascending
+    expert id, the order of the reference's scatter-add, one add at a time
+    in the activation dtype: with k > 2 terms another order gives other
+    bits.  It runs the same on both devices and, with no atomics, gives
+    the same bits on every run.
 
     ``x`` in the activation dtype, or in f32 with ``dtype`` the one the
     router, the gathers and the shared MLP read it in
@@ -208,8 +208,18 @@ def moe_apply(p, x, cfg, dtype=None):
     h = h * torch.bmm(xe, w3)
     ye = torch.bmm(h, w2)                                        # (E, B C, D)
     ye = L.product(ye, slot_gate.transpose(0, 1).reshape(E, B * C, 1), dtype)
-    out = torch.zeros((B * S, D), dtype=dtype, device=dev).index_add(
-        0, rows, ye.reshape(E * B * C, D)).reshape(B, S, D)
+
+    # each pair's slot row of ye: expert e, row b, its rank in e's segment;
+    # past C (dropped) the zero row E B C
+    pos = torch.empty_like(order).scatter_(
+        1, order, torch.arange(Tk, device=dev).expand(B, Tk))
+    rank = pos - torch.gather(seg, 1, e_flat)
+    pair_row = torch.where(
+        rank < C, e_flat * (B * C) + torch.arange(B, device=dev)[:, None] * C
+        + rank, E * B * C).reshape(B * S, k)
+    by_expert = torch.argsort(idx.reshape(B * S, k), dim=-1)
+    out = moe_combine(torch.gather(pair_row, 1, by_expert),
+                      ye.reshape(E * B * C, D)).reshape(B, S, D)
 
     if "shared" in p:
         out = out + L.mlp_apply(p["shared"], xs[0], cfg)
@@ -219,6 +229,22 @@ def moe_apply(p, x, cfg, dtype=None):
     ce = torch.mean(torch.sum(F.one_hot(idx, E).to(torch.float32), dim=2),
                     dim=(0, 1))
     return out, cfg.router_aux_coef * E * torch.sum(me * ce)
+
+
+def moe_combine(pair_rows, ye):
+    """out[t] = the sum of ``ye``'s rows ``pair_rows[t, 0]``, ...,
+    ``pair_rows[t, k - 1]``, added in that order to zeros, each add rounded
+    to ye's dtype: the reference's scatter-add of a token's terms in
+    update order.  ``pair_rows`` (T, k) indexes ``ye`` (N, D); the index N
+    reads a zero row (a dropped pair).  Every row of ``ye`` is read at most
+    once, so the gather's gradient writes each row once."""
+    T, k = pair_rows.shape
+    rows = torch.cat([ye, ye.new_zeros((1, ye.shape[1]))]).index_select(
+        0, pair_rows.reshape(-1)).reshape(T, k, -1)
+    out = torch.zeros_like(rows[:, 0])
+    for j in range(k):
+        out = out + rows[:, j]
+    return out
 
 
 def attn_moe_init(gen, cfg, dtype, device, lead=()):
@@ -233,22 +259,127 @@ def attn_moe_init(gen, cfg, dtype, device, lead=()):
 attn_moe_cache = attn_mlp_cache
 
 
-def attn_moe_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
-                   enc_out=None):
+def _attention_then_moe(attend, key, p, x, cfg, mode, cache, pos):
+    """x + attention, then + MoE (``attn_moe`` with ``attend`` =
+    ``layers.attn_apply`` under ``key`` "attn", ``mla_moe`` with
+    :func:`mla_apply` under "mla")."""
     x, x_in = L.block_input(x, cfg)
-    a, new_c = L.attn_apply(p["attn"],
-                            L.rmsnorm(p["ln1"], x_in, cfg.norm_eps,
-                                      torch.float32),
-                            cfg, mode=mode,
-                            cache=None if cache is None else cache["attn"],
-                            pos=pos, dtype=x.dtype)
+    a, new_c = attend(p[key],
+                      L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, torch.float32),
+                      cfg, mode=mode, cache=None if cache is None else
+                      cache[key], pos=pos, dtype=x.dtype)
     # ln2 reads the residual sum unrounded, the residual stream rounded
     x, mid = L.rounded_pair(L.unrounded(x, a), x.dtype)
     m, aux = moe_apply(p["moe"],
                        L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
                        cfg, x.dtype)
-    return (L.unrounded(x, m), None if cache is None else {"attn": new_c},
-            aux)
+    return (L.unrounded(x, m), None if cache is None else {key: new_c}, aux)
+
+
+def attn_moe_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
+                   enc_out=None):
+    return _attention_then_moe(L.attn_apply, "attn", p, x, cfg, mode, cache,
+                               pos)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention) + MoE
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg, dtype, device, lead=()):
+    d, H = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    return {
+        "wq": L.linear_init(gen, d, H * (dn + dr), dtype, device, lead=lead),
+        "w_dkv": L.linear_init(gen, d, r + dr, dtype, device, lead=lead),
+        "kv_norm": L.norm_init(r, device, lead=lead),
+        "w_uk": L._normal(gen, (*lead, r, H, dn), 1.0 / math.sqrt(r), dtype,
+                          device),
+        "w_uv": L._normal(gen, (*lead, r, H, dv), 1.0 / math.sqrt(r), dtype,
+                          device),
+        "wo": L.linear_init(gen, H * dv, d, dtype, device, lead=lead),
+    }
+
+
+def mla_cache(cfg, batch, max_len, dtype, device, lead=()):
+    """The compressed cache: the normed latent ``c`` (r wide) and the
+    roped shared key ``kr`` (qk_rope_dim wide) of every position."""
+    return {k: torch.zeros((*lead, batch, max_len, n), dtype=dtype,
+                           device=device)
+            for k, n in (("c", cfg.kv_lora_rank), ("kr", cfg.qk_rope_dim))}
+
+
+def mla_apply(p, x, cfg, *, mode, cache, pos, dtype=None):
+    """Multi-head latent attention (the reference's ``mla_apply``).  ``x``
+    in the activation dtype, or in f32 with ``dtype`` the one wq and w_dkv
+    read it in (:func:`layers.fan_out`).  Train and prefill materialise
+    each head's k_nope and v from the latent ``c`` and attend with
+    :func:`layers.chunked_attention` (the flash kernel on the card, q/k
+    head dim qk_nope + qk_rope, v head dim v_head_dim); prefill writes
+    ``c`` and the roped key into the cache in place.  Decode is the
+    absorbed path: it writes its position, then scores in the latent space
+    in f32 over the whole cache, masked to positions <= ``pos``.  Returns
+    (out, cache)."""
+    B, S, _ = x.shape
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dtype = dtype or x.dtype
+    xq, xkv = L.fan_out(x, dtype, 2)
+    q = L.linear(p["wq"], xq).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    ckr = L.linear(p["w_dkv"], xkv)
+    c = L.rmsnorm(p["kv_norm"], ckr[..., :r], cfg.norm_eps)
+    positions = (torch.arange(S, device=x.device)[None, :] if mode != "decode"
+                 else torch.full((B, 1), pos, device=x.device))
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = L.apply_rope(ckr[:, :, None, r:], positions,
+                          cfg.rope_theta)[:, :, 0]
+
+    if mode in ("train", "prefill"):
+        k_nope = torch.einsum("bsr,rhn->bshn", c, p["w_uk"].to(c.dtype))
+        # contiguous in the (B, S, H, D) layout the kernel's TMA reads
+        v = torch.einsum("bsr,rhv->bshv", c, p["w_uv"].to(c.dtype)) \
+            .contiguous()
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], -1)
+        o = L.chunked_attention(torch.cat([q_nope, q_rope], -1), k, v,
+                                causal=True)
+        if mode == "prefill":
+            cache["c"][:, :S] = c
+            cache["kr"][:, :S] = k_rope
+    else:
+        cache["c"][:, pos:pos + S] = c
+        cache["kr"][:, pos:pos + S] = k_rope
+        cc, ckr = cache["c"], cache["kr"]
+        q_c = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"].to(dtype))
+        f32 = torch.float32
+        s = (torch.einsum("bshr,btr->bhst", q_c.to(f32), cc.to(f32))
+             + torch.einsum("bshd,btd->bhst", q_rope.to(f32), ckr.to(f32))) \
+            * (1.0 / math.sqrt(dn + dr))
+        t_pos = torch.arange(cc.shape[1], device=x.device)
+        s = s.masked_fill((t_pos > pos)[None, None, None, :], L.NEG_INF)
+        o_c = torch.einsum("bhst,btr->bshr",
+                           torch.softmax(s, -1).to(cc.dtype), cc)
+        o = torch.einsum("bshr,rhv->bshv", o_c, p["w_uv"].to(dtype))
+    return L.linear(p["wo"], o.reshape(B, S, H * dv)), cache
+
+
+def mla_moe_init(gen, cfg, dtype, device, lead=()):
+    return {
+        "ln1": L.norm_init(cfg.d_model, device, lead=lead),
+        "mla": mla_init(gen, cfg, dtype, device, lead=lead),
+        "ln2": L.norm_init(cfg.d_model, device, lead=lead),
+        "moe": moe_init(gen, cfg, dtype, device, lead=lead),
+    }
+
+
+def mla_moe_cache(cfg, batch, max_len, dtype, device, lead=()):
+    return {"mla": mla_cache(cfg, batch, max_len, dtype, device, lead=lead)}
+
+
+def mla_moe_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
+                  enc_out=None):
+    return _attention_then_moe(mla_apply, "mla", p, x, cfg, mode, cache, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -676,6 +807,7 @@ BLOCKS = {
     "rec": (rec_init, rec_cache, rec_apply),
     "attn": (attn_mlp_init, attn_mlp_cache, attn_mlp_apply),  # hybrid local-attn
     "attn_moe": (attn_moe_init, attn_moe_cache, attn_moe_apply),
+    "mla_moe": (mla_moe_init, mla_moe_cache, mla_moe_apply),
     "ssd": (ssd_init, ssd_cache, ssd_apply),
     "enc": (enc_init, enc_cache, enc_apply),
     "dec": (dec_init, dec_cache, dec_apply),

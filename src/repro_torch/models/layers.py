@@ -10,14 +10,14 @@ a mesh and are dropped; ``chunked_attention`` still accepts ``score_shard``
 and ignores it.
 
 Routing of ``chunked_attention``, a static contract: on a CUDA tensor with
-Sq > 1, ``q_offset == 0``, ``kv_len is None``, ``softcap is None`` and one
-head dim for q, k and v -- prefill and training -- it calls the
-hand-written flash-attention kernel (``kernels/flash_attention``), which
-raises on what it does not take (head dims above 256 or not a multiple of
-4).  Everywhere else (decode's single query, a partly filled cache,
-soft-capping, a value head dim other than the query's as MLA has, and every
-CPU tensor) it runs the torch translation below, as the JAX package has no
-kernel there either.
+Sq > 1, ``q_offset == 0``, ``kv_len is None``, ``softcap is None`` and a
+value head dim no larger than the query's -- prefill and training, MLA's
+(192, 128) included -- it calls the hand-written flash-attention kernel
+(``kernels/flash_attention``), which raises on what it does not take (head
+dims above 256 or not a multiple of 4).  Everywhere else (decode's single
+query, a partly filled cache, soft-capping, a value head dim above the
+query's, which no model has, and every CPU tensor) it runs the torch
+translation below, as the JAX package has no kernel there either.
 The kernel route has a gradient (:class:`_FlashAttention`): its backward
 differentiates the torch translation, recomputed from the saved inputs,
 which is the function the JAX training path differentiates (the JAX kernel
@@ -382,7 +382,7 @@ def attention_scores_ctx(q, k, v, mask, softcap=None):
 def _uses_flash_kernel(q, k, v, q_offset, kv_len, softcap):
     return (q.device.type == "cuda" and q.shape[1] > 1 and q_offset == 0
             and kv_len is None and softcap is None
-            and k.shape[-1] == v.shape[-1])
+            and v.shape[-1] <= k.shape[-1])
 
 
 def plain_vjp(fn, inputs, out_grads, needs_grad):
@@ -435,11 +435,12 @@ class _FlashAttention(torch.autograd.Function):
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                       kv_len=None, q_chunk=512, softcap=None,
                       score_shard="qrows"):
-    """Exact attention.  q: (B, Sq, H, Dh); k, v: (B, Skv, KVH, Dh); GQA by
-    reshape.  ``q_offset`` is the absolute position of q[:, 0] relative to
-    k[:, 0]; ``kv_len`` masks a partly filled cache; ``window`` keeps the
-    last ``window`` positions.  ``score_shard`` is accepted and ignored
-    (there is no mesh).  See the module docstring for the kernel route."""
+    """Exact attention.  q: (B, Sq, H, Dh); k: (B, Skv, KVH, Dh); v: (B,
+    Skv, KVH, Dv) -> (B, Sq, H, Dv); GQA by reshape.  ``q_offset`` is the
+    absolute position of q[:, 0] relative to k[:, 0]; ``kv_len`` masks a
+    partly filled cache; ``window`` keeps the last ``window`` positions.
+    ``score_shard`` is accepted and ignored (there is no mesh).  See the
+    module docstring for the kernel route."""
     del score_shard
     if _uses_flash_kernel(q, k, v, q_offset, kv_len, softcap):
         return _FlashAttention.apply(q, k, v, causal, window, q_chunk)

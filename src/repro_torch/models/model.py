@@ -1,8 +1,9 @@
 """LM assembly: embeddings + block groups + loss/prefill/decode.
 
-Torch translation of the JAX package's ``models/model.py`` for the families
-whose blocks are ported (dense, hybrid, ssm, vlm, encdec, and the moe
-family's ``attn_moe`` configs; an ``mla_moe`` config raises).  A vlm config's
+Torch translation of the JAX package's ``models/model.py`` for every
+registered family: dense, hybrid, ssm, vlm, encdec and moe (mixtral's
+``attn_moe`` blocks and deepseek's ``mla_moe``, whose decode cache holds the
+MLA latent and roped key, ``{"c", "kr"}``, a layer).  A vlm config's
 model projects precomputed image patch embeddings (``batch["image_embeds"]``,
 (B, n_img_tokens, vision_embed_dim)) with ``patch_proj`` and puts them in
 front of the token embeddings; the loss masks those positions.  An encdec
@@ -39,8 +40,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
-
-PORTED_FAMILIES = ("dense", "hybrid", "ssm", "vlm", "encdec", "moe")
 
 
 def nest_params(flat: Mapping) -> dict:
@@ -90,16 +89,6 @@ def _copy_into(dst, src):
 
 class LM:
     def __init__(self, cfg, device=None):
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(its blocks are in ROADMAP.md, Queue A)")
-        missing = sorted({b for pattern, _ in cfg.scan_groups()
-                          for b in pattern} - set(BLOCKS))
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: its {missing} blocks are not ported yet "
-                f"(ROADMAP.md, Queue A)")
         self.cfg = cfg
         self.device = (torch.device("meta") if str(device) == "meta"
                        else resolve_device(device))
@@ -314,8 +303,7 @@ class LM:
 
 def build_model(cfg, device=None) -> LM:
     """The port's LM for ``cfg`` on ``device`` (``cuda`` by default; raises
-    without a card).  Raises NotImplementedError for a config whose blocks
-    are not all ported yet (deepseek-v2-lite-16b's ``mla_moe``)."""
+    without a card)."""
     return LM(cfg, device)
 
 

@@ -260,6 +260,43 @@ def test_flash_attention_matches_plain(cuda, case, dt):
         ((1, 0) if tc else (0, 1))
 
 
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,Dv,window,dt", [
+    (2, 1024, 1024, 16, 16, 192, 128, None, "bf16"),  # deepseek's MLA: tc
+    (1, 333, 333, 16, 16, 192, 128, None, "bf16"),    # ragged: tc
+    (1, 100, 161, 16, 16, 192, 128, None, "bf16"),    # Skv != Sq: tc
+    (1, 300, 300, 8, 2, 192, 128, 128, "f32"),        # mma, window, GQA
+    (2, 45, 45, 4, 4, 24, 16, None, "f32"),           # MLA's smoke shape
+    (2, 45, 45, 4, 4, 24, 16, None, "bf16"),          # ... bf16 on mma
+    (1, 77, 77, 4, 2, 64, 36, 20, "bf16"),            # Dv not a multiple of 8
+])
+def test_flash_attention_with_another_value_head_dim_matches_plain(
+        cuda, B, Sq, Skv, H, KVH, D, Dv, window, dt):
+    """v narrower than q and k (Dv < D, MLA's): o is Dv wide, within the
+    tolerances of ``test_flash_attention_matches_plain`` of the plain
+    version, bit-identical run to run, on the instance the rule names
+    (bf16 (192, 128) on the tensor cores, every other shape on mma.sync);
+    causal unless Skv != Sq.  k and v are strided views of one tensor."""
+    from repro_torch.kernels.flash_attention import kernel as K, ref as R
+    causal = Sq == Skv
+    q = _randn(cuda, B, Sq, H, D, seed=11, dtype=DT[dt])
+    kv = _randn(cuda, B, Skv, KVH, D + Dv, seed=12, dtype=DT[dt])
+    k, v = kv[..., :D], kv[..., D:]
+    inst = K.instance(DT[dt], D, Dv)
+    assert inst == ("tc" if (dt, D, Dv) == ("bf16", 192, 128) else "mma")
+    before = getattr(K.flash_attention_call, f"launches_{inst}")
+    o = K.flash_attention_call(q, k, v, causal=causal, window=window)
+    assert o.shape == (B, Sq, H, Dv) and o.dtype == DT[dt]
+    want = R.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal,
+                           window=window).transpose(1, 2)
+    tol = dict(rtol=2 ** -7, atol=1e-5) if dt == "bf16" else \
+        dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(o.float(), want.float(), **tol)
+    assert torch.equal(o, K.flash_attention_call(q, k, v, causal=causal,
+                                                 window=window))
+    assert getattr(K.flash_attention_call, f"launches_{inst}") == before + 2
+
+
 def test_flash_attention_tensor_cores_refuse_layouts_tma_cannot_read(cuda):
     """bf16 at D = 64 goes to the tensor-core instance, which raises (no
     fallback) on rows that are not a multiple of 16 bytes apart."""
@@ -382,19 +419,23 @@ def _assert_grads_equal(got, want, rtol):
     (1, 448, 1500, 6, 6, 64, False, None, "bf16"),   # whisper's cross shape
     (1, 1500, 1500, 6, 6, 64, False, None, "bf16"),  # whisper's encoder
     (1, 1024, 1024, 48, 8, 128, True, 512, "bf16"),  # mixtral's heads
+    (2, 1024, 1024, 16, 16, (192, 128), True, None, "bf16"),  # deepseek MLA
+    (2, 40, 40, 4, 4, (24, 16), True, None, "f32"),  # MLA's f32 smoke shape
 ])
 def test_flash_attention_route_has_the_plain_gradient(cuda, B, S, Skv, H,
                                                       KVH, D, causal, window,
                                                       dt):
     """The kernel route of chunked_attention returns a tensor with a
     gradient, and it is autograd's through the plain translation (the
-    backward recomputes it): expected bit-identical, 1e-6 allowed."""
+    backward recomputes it): expected bit-identical, 1e-6 allowed.  A
+    (D, Dv) pair gives v its own head dim (MLA's)."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.models import layers
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    D, Dv = D if isinstance(D, tuple) else (D, D)
     q, k, v, do = (_randn(cuda, *s, seed=i, dtype=dtype) for i, s in
                    enumerate([(B, S, H, D), (B, Skv, KVH, D),
-                              (B, Skv, KVH, D), (B, S, H, D)]))
+                              (B, Skv, KVH, Dv), (B, S, H, Dv)]))
     ins = _leaves(q, k, v)
     before = FK.flash_attention_call.launches
     o = layers.chunked_attention(*ins, causal=causal, window=window)
@@ -555,23 +596,39 @@ def test_vlm_smoke_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_attention_with_another_value_head_dim_runs_plain(cuda, dt):
+def test_attention_with_another_value_head_dim_runs_the_kernel(cuda, dt):
     """MLA's shapes (query/key head dim 192, value head dim 128), causal:
-    the route sends them to the torch translation, which returns what
-    ``_attention_plain`` returns, and launches no flash kernel."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    the route sends them to the flash kernel, one launch of the instance
+    the rule names (bf16: tensor cores, f32: mma.sync), within the
+    kernel's tolerances of its plain version (f32 softmax weights) and of
+    what ``_attention_plain`` returns: 1e-4 in f32; in bf16 3e-2, as
+    tests/test_torch_lm_kernels.py holds the two, since the model's
+    translation rounds the softmax weights to bf16 before P V and the
+    kernel keeps them to ~2^-18 (P as two bf16 parts)."""
+    from repro_torch.kernels.flash_attention import kernel as K, ref as R
     from repro_torch.models.layers import _attention_plain, chunked_attention
     dtype = DT[dt]
     gen = torch.Generator(device=cuda).manual_seed(7)
     q, k = (torch.randn(2, 256, 4, 192, generator=gen, device=cuda)
             .to(dtype) for _ in range(2))
     v = torch.randn(2, 256, 4, 128, generator=gen, device=cuda).to(dtype)
-    before = flash_attention_call.launches
+    inst = "tc" if dt == "bf16" else "mma"
+    assert K.instance(dtype, 192, 128) == inst
+    before = (K.flash_attention_call.launches,
+              getattr(K.flash_attention_call, f"launches_{inst}"))
     out = chunked_attention(q, k, v, causal=True)
-    assert flash_attention_call.launches == before
+    assert (K.flash_attention_call.launches,
+            getattr(K.flash_attention_call, f"launches_{inst}")) == \
+        (before[0] + 1, before[1] + 1)
     assert out.shape == (2, 256, 4, 128) and out.dtype == dtype
-    torch.testing.assert_close(out, _attention_plain(q, k, v, causal=True),
-                               rtol=0, atol=0)
+    tol = dict(rtol=2 ** -7, atol=1e-5) if dt == "bf16" else \
+        dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out.float(), R.attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True).transpose(1, 2).float(), **tol)
+    tol = dict(rtol=3e-2, atol=3e-2) if dt == "bf16" else tol
+    torch.testing.assert_close(out.float(), _attention_plain(
+        q, k, v, causal=True).float(), **tol)
 
 
 @pytest.mark.parametrize("spec", ["f32", "bf16", "topk:0.05", "int8"])
@@ -696,15 +753,15 @@ def test_dispatch_on_the_card_equals_the_cpu(cuda, spec):
 
 # ------------------------------------------- the moe family's dispatch (A17b c)
 
-def _moe_setup(device, dtype, B=2, S=64, **replace):
-    """mixtral's smoke config (E = 4, top-2) in ``dtype``, its MoE params
-    drawn on the CPU, and a seeded (B, S, d) input: (cfg, params, x)."""
+def _moe_setup(device, dtype, B=2, S=64, arch="mixtral-8x22b", **replace):
+    """``arch``'s smoke config (mixtral's: E = 4, top-2) in ``dtype``, its
+    MoE params drawn on the CPU, and a seeded (B, S, d) input: (cfg,
+    params, x)."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import blocks
     from repro_torch.models.model import tree_map
     name = str(dtype)[6:]
-    cfg = smoke_config("mixtral-8x22b").replace(
-        param_dtype=name, dtype=name, **replace)
+    cfg = smoke_config(arch).replace(param_dtype=name, dtype=name, **replace)
     gen = torch.Generator().manual_seed(0)
     p = blocks.moe_init(gen, cfg, dtype, "cpu")
     x = torch.randn(B, S, cfg.d_model, generator=gen).to(dtype)
@@ -729,11 +786,31 @@ def test_moe_apply_card_matches_cpu(cuda, cf):
     assert abs(float(aux) - float(aux_c)) <= 1e-6
 
 
-def test_moe_combine_is_run_to_run_bit_identical(cuda):
-    """bf16 at a wider shape: the combine's index_add (atomic adds of at
-    most two non-zero terms a token) gives the same bits every run."""
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
+def test_moe_combine_is_run_to_run_bit_identical(cuda, arch, monkeypatch):
+    """bf16 at 4 x 1024 tokens: the combine (each token's gated outputs
+    gathered and added in ascending expert id, no atomics) gives the same
+    bits every run, and on the card's own inputs the CPU's bits (the expert
+    products before it are cuBLAS's, so ``moe_apply`` as a whole is held to
+    the CPU only in f32, ``test_moe_apply_card_matches_cpu``): mixtral's
+    smoke experts at top-2, and deepseek's published routing, 64 experts at
+    top-6 with two shared experts, at the smoke width."""
     from repro_torch.models import blocks
-    cfg, p, x = _moe_setup(cuda, torch.bfloat16, B=4, S=1024)
+    rep = {} if arch == "mixtral-8x22b" else dict(n_experts=64, top_k=6)
+    cfg, p, x = _moe_setup(cuda, torch.bfloat16, B=4, S=1024, arch=arch,
+                           **rep)
     first = blocks.moe_apply(p, x, cfg)[0]
     for _ in range(3):
         assert torch.equal(blocks.moe_apply(p, x, cfg)[0], first)
+    combine, seen = blocks.moe_combine, []
+
+    def recording(rows, ye):
+        out = combine(rows, ye)
+        seen.append((rows, ye, out))
+        return out
+
+    monkeypatch.setattr(blocks, "moe_combine", recording)
+    blocks.moe_apply(p, x, cfg)
+    (rows, ye, out), = seen
+    assert rows.shape == (4 * 1024, cfg.top_k)
+    assert torch.equal(out.cpu(), combine(rows.cpu(), ye.cpu()))

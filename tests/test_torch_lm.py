@@ -201,16 +201,20 @@ def test_full_config_param_shapes_match_jax(arch):
         assert got["final_norm/b"] == ((384,), "float32")
 
 
-def test_unported_families_raise():
-    """The moe family is ported for its ``attn_moe`` blocks (mixtral-8x22b
-    builds); deepseek-v2-lite-16b's ``mla_moe`` blocks are not, so it
-    raises, on the meta device as on the CPU."""
-    for dev in ("meta", "cpu"):
-        with pytest.raises(NotImplementedError, match="mla_moe.*ROADMAP"):
-            build_model(get_config("deepseek-v2-lite-16b"), dev)
-    assert build_model(get_config("mixtral-8x22b"), "meta").cfg.family == \
-        "moe"
-    build_model(smoke_config("mixtral-8x22b"), "cpu")
+@pytest.mark.parametrize("arch", list_configs())
+def test_unported_families_raise(arch):
+    """No family is left unported: every registered config, deepseek-v2-
+    lite-16b's ``mla_moe`` blocks included, builds on the meta device, and
+    its P equals the reference's, summed over ``jax.eval_shape`` of the
+    JAX init (the configs' analytic ``param_count()`` leaves out norms)."""
+    want = sum(int(np.prod(s)) for s, _ in _jax_shapes(jax.eval_shape(
+        j_build_model(j_get_config(arch)).init,
+        jax.random.PRNGKey(0))).values())
+    params = build_model(get_config(arch), "meta").init()
+    assert sum(t.numel() for _, t in tree_leaves(params)) == want
+    if arch == "deepseek-v2-lite-16b":
+        assert want == 16_210_324_992
+    build_model(smoke_config(arch), "cpu")
 
 
 def test_configs_match_the_jax_registry():

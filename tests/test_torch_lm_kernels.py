@@ -200,10 +200,14 @@ def test_ops_refuse_other_devices():
 
 def test_flash_route_refuses_another_value_head_dim():
     """The static route rule sends a CUDA call with Sq > 1 to the flash
-    kernel only when q, k and v share one head dim: MLA's Dqk 192 / Dv 128
-    goes to the torch translation (the rule reads shapes and the device
-    type only, so stand-ins with a CUDA device check it without a card)."""
+    kernel when v's head dim is no larger than q's and k's: MLA's Dqk 192
+    / Dv 128 goes to the kernel, in bf16 on its tensor-core instance, in
+    f32 on mma.sync; a value head dim above the query's is refused, by the
+    route (the torch translation runs it) and by the instance rule (the
+    rule reads shapes and the device type only, so stand-ins with a CUDA
+    device check it without a card)."""
     from types import SimpleNamespace
+    from repro_torch.kernels.flash_attention.kernel import instance
     from repro_torch.models.layers import _uses_flash_kernel
 
     def t(*shape):
@@ -211,4 +215,14 @@ def test_flash_route_refuses_another_value_head_dim():
 
     q, k = t(2, 256, 4, 192), t(2, 256, 4, 192)
     assert _uses_flash_kernel(q, k, t(2, 256, 4, 192), 0, None, None)
-    assert not _uses_flash_kernel(q, k, t(2, 256, 4, 128), 0, None, None)
+    assert _uses_flash_kernel(q, k, t(2, 256, 4, 128), 0, None, None)
+    assert instance(torch.bfloat16, 192, 128) == "tc"
+    assert instance(torch.float32, 192, 128) == "mma"
+    assert instance(torch.bfloat16, 24, 16) == "mma"
+    assert instance(torch.bfloat16, 128) == "tc"
+    assert instance(torch.bfloat16, 192) == "mma"
+    assert not _uses_flash_kernel(t(2, 256, 4, 64), t(2, 256, 4, 64),
+                                  t(2, 256, 4, 128), 0, None, None)
+    for dv in (128, 62, 0):
+        with pytest.raises(ValueError, match="value head dim"):
+            instance(torch.bfloat16, 64, dv)

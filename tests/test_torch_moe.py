@@ -176,24 +176,41 @@ def test_equal_probabilities_take_the_lower_expert_first():
     assert (gates == 0.5).all()
 
 
+def _reversed_combine(monkeypatch):
+    """Swap ``blocks.moe_combine`` for one that adds each token's terms in
+    descending expert id, the reverse of the reference's order."""
+    combine = TB.moe_combine
+    monkeypatch.setattr(TB, "moe_combine", lambda rows, ye: combine(
+        rows.flip(1), ye))
+
+
 def test_combine_is_order_free_with_two_experts(monkeypatch):
-    """With k = 2 a token's row gets at most two non-zero terms, and each
-    clipped slot adds an exact zero, so adding the slots in any order gives
-    the same bits: the slot order reversed, in bf16."""
+    """With k = 2 a token's row gets at most two terms, added to zeros: the
+    first add is exact, so adding them in either order gives the same bits:
+    the order reversed, in bf16, with pairs dropped."""
     jc, tc, jp, tp, jx, tx = _moe_pair("bfloat16", capacity_factor=0.5)
-    calls = []
-    index_add = torch.Tensor.index_add
-
-    def reversed_add(self, dim, index, source):
-        calls.append(index.numel())
-        return index_add(self, dim, index.flip(0), source.flip(0))
-
     out, _ = TB.moe_apply(tp, tx, tc)
-    monkeypatch.setattr(torch.Tensor, "index_add", reversed_add)
+    _reversed_combine(monkeypatch)
     flipped, _ = TB.moe_apply(tp, tx, tc)
-    monkeypatch.undo()
-    assert calls == [tc.n_experts * 2 * TB.moe_capacity(tc, 32)]
     assert torch.equal(out, flipped)
+
+
+def test_combine_order_matters_with_six_experts(monkeypatch):
+    """deepseek's top-6 on 8 experts, in bf16 with pairs dropped: the
+    combine adds each token's terms in ascending expert id, the update
+    order of the reference's scatter-add, and gives JAX's bits; the same
+    terms in the reverse order give other bits on some elements."""
+    jc, tc, jp, tp, jx, tx = _moe_pair("bfloat16", capacity_factor=0.5,
+                                       top_k=6, n_experts=8)
+    want = np.asarray(jax.jit(lambda p, v: JB.moe_apply(p, v, jc))(jp, jx)[0],
+                      np.float32)
+    out, _ = TB.moe_apply(tp, tx, tc)
+    np.testing.assert_array_equal(out.float().numpy(), want)
+    _reversed_combine(monkeypatch)
+    flipped, _ = TB.moe_apply(tp, tx, tc)
+    differ = int((flipped.float().numpy() != want).sum())
+    print(f"reversed order: {differ} of {want.size} elements differ")
+    assert differ > 0
 
 
 def _jax_block_inputs(jc, params, toks):
