@@ -107,11 +107,11 @@ Phases, each printing its lines; no phase's failure is caught:
               lines, each naming internvl2-1b)
  12. encdec   (i) whisper-tiny at full width (P = 56,437,248; its decoder
               blocks are attn_mlp, as in the reference, so the encoder's
-              output reaches none): serve() of 4 x (1500 frames + 416
-              tokens), 32 generated (B4 8 a prefill: 4 non-causal encoder
-              + 4 causal decoder, all tc, none in decode);
-              make_train_step on 8 x 448 tokens, M = 1, 3 steps (B4 12 a
-              step: the encoder runs without a checkpoint); the cohort
+              output reaches none and, as XLA drops it, the encoder does
+              not run): serve() of 4 x (1500 frames + 416 tokens), 32
+              generated (B4 4 a prefill, the causal decoder's, all tc,
+              none in decode); make_train_step on 8 x 448 tokens, M = 1,
+              3 steps (B4 8 a step: forward and remat rerun); the cohort
               trainer as phase c with seq_len 448 (B1/B2 once an
               aggregation, B4 as reckoned), then B1/B2 timed at that P;
               the pytree aggregation path against the flat engine on the
@@ -551,6 +551,9 @@ MIXTRAL = dict(H=48, KVH=8, D=128, window=4096, prompt=8192)
 # deepseek-v2-lite-16b's MLA: 16 heads, q/k head dim 192 (128 + 64 rope),
 # v head dim 128, full causal attention over the 4096-token prompts
 DEEPSEEK = dict(H=16, D=192, Dv=128)
+# phi4-mini-3.8b's attention (phase l's cells): 24 query heads of 128 on 8
+# kv heads, full causal; its prefill_32k row and its train_4k step (8 x 4096)
+PHI4 = dict(H=24, KVH=8, D=128, prompt=32768, train=(8, 4096))
 RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 SSD_CASES = [  # B, NH, S, hd, ds, chunk, h0
@@ -622,13 +625,18 @@ def _ssd_inputs(torch, B, NH, S, hd, ds, seed):
 def _flash_plain(q, k, v, causal, window):
     """B4's plain version (``ref.attention_ref``) in the kernel's (B, S, H,
     D) layout, one batch row at a time: its (B, H, Sq, Skv) f32 scores at
-    mixtral's prefill shape would be 51.5 GB, a row's 12.9."""
+    mixtral's prefill shape would be 51.5 GB, a row's 12.9.  A row whose
+    scores pass 16 GiB runs 512 queries at a time: phi4-mini's prefill row
+    (24 heads over 32768 positions) would be 103 GB, a chunk's 1.6."""
     import torch
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    return torch.cat([attention_ref(
-        q[b:b + 1].transpose(1, 2), k[b:b + 1].transpose(1, 2),
-        v[b:b + 1].transpose(1, 2), causal=causal,
-        window=window).transpose(1, 2) for b in range(q.shape[0])])
+    Sq, H, Skv = q.shape[1], q.shape[2], k.shape[1]
+    c = Sq if H * Sq * Skv * 4 <= 16 << 30 else 512
+    return torch.cat([torch.cat([attention_ref(
+        q[b:b + 1, o:o + c].transpose(1, 2), k[b:b + 1].transpose(1, 2),
+        v[b:b + 1].transpose(1, 2), causal=causal, window=window,
+        q_offset=o).transpose(1, 2) for o in range(0, Sq, c)], dim=1)
+        for b in range(q.shape[0])])
 
 
 def phase_parity_lm(torch):
@@ -684,6 +692,10 @@ def phase_parity_lm(torch):
         (2, 777, 777, 8, 4, 192, True, 300, f32, 128),   # Dv < D on mma
         (2, 333, 333, 4, 4, 24, True, None, f32, 16),    # MLA's smoke shape
         (2, 333, 333, 4, 4, 24, True, None, bf16, 16),   # ... in bf16
+        (1, PHI4["prompt"], PHI4["prompt"], PHI4["H"], PHI4["KVH"],
+         PHI4["D"], True, None, bf16),                   # phi4-mini's prefill
+        (*PHI4["train"], PHI4["train"][1], PHI4["H"], PHI4["KVH"], PHI4["D"],
+         True, None, bf16),                              # ... its train step
     ]
     for i, (B, Sq, Skv, H, KVH, D, causal, window, dt, *Dv) in enumerate(
             flash_cases):
@@ -703,6 +715,8 @@ def phase_parity_lm(torch):
         errs.setdefault(f"flash_attention_{str(dt)[6:]}_{inst}", e)
         if (B, Sq, D, Dv) == (SERVE_BATCH, S, DEEPSEEK["D"], DEEPSEEK["Dv"]):
             errs["flash_attention_deepseek"] = e
+        if (H, KVH, D) == (PHI4["H"], PHI4["KVH"], PHI4["D"]):
+            errs[f"flash_attention_phi4_{B}x{Sq}"] = e
         torch.cuda.synchronize()
         log(f"[parity] flash_attention B={B} Sq={Sq} Skv={Skv} H={H} "
             f"KVH={KVH} D={D} Dv={Dv or D} causal={causal} window={window} "
@@ -961,9 +975,11 @@ def phase_timing_lm(torch):
     its mma.sync (3xTF32) instance, and bf16 also at whisper-tiny's two
     non-causal shapes (SDPA with no mask there), at mixtral-8x22b's
     prefill (SDPA on its memory-efficient backend with the band mask; the
-    plain version a batch row at a time) and at deepseek-v2-lite-16b's
+    plain version a batch row at a time), at deepseek-v2-lite-16b's
     (q/k head dim 192, v 128, causal: SDPA with is_causal and the backend
-    it picks for two head dims, named from its kernel).  Bounds count each
+    it picks for two head dims, named from its kernel) and at
+    phi4-mini-3.8b's prefill (24 / 8 heads of 128, causal over 32768: SDPA
+    on its flash backend, k/v expanded).  Bounds count each
     input read once and each output written once; operations are those the
     unmasked band needs (B4: 2 (D + Dv) flops per (query, key) pair in the
     band, every pair where non-causal; at the bf16 tensor-core rate for bf16
@@ -1075,6 +1091,30 @@ def phase_timing_lm(torch):
         peak=BF16_FLOPS_PER_S)
     log(f"[timing] SDPA at deepseek's (192, 128) shape runs "
         f"{sdpa_kernels[:3]}")
+    del q, k, v, qt, kt, vt
+
+    # phi4-mini-3.8b's prefill: 24 / 8 heads of 128, causal over 32768
+    # positions, one sequence.  The plain version runs 512 queries at a
+    # time (_flash_plain), and SDPA on its flash backend, named, with k/v
+    # expanded to 24 heads outside the timed region
+    Hp, KVp, Dp, Sp = (PHI4[n] for n in ("H", "KVH", "D", "prompt"))
+    q, k, v = _flash_inputs(torch, 1, Sp, Sp, Hp, KVp, Dp, torch.bfloat16, 66)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(Hp // KVp, dim=1)
+              for t in (k, v))
+
+    def sdpa_flash():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    rows["flash_attention_bf16_tc_phi4"] = dict(
+        ms=_time_ms(torch, lambda: FK.flash_attention_call(
+            q, k, v, causal=True), iters=10, warmup=2),
+        plain_ms=_time_ms(torch, lambda: _flash_plain(q, k, v, True, None),
+                          iters=1, warmup=1),
+        library_ms=_time_ms(torch, sdpa_flash, iters=5, warmup=1),
+        nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
+        flops=4 * Dp * (Sp * (Sp + 1) // 2) * Hp, peak=BF16_FLOPS_PER_S)
     del q, k, v, qt, kt, vt
 
     C = RG["C"]
@@ -1447,6 +1487,8 @@ def _train_grad_parity(torch):
         (2, 40, 4, 1, 16, 16, torch.float32, 16),       # the f32 smoke shape
         (2, TRAIN_SEQ, *VLM_HEADS, 64, None, torch.bfloat16, 64),  # internvl2
         (2, 1024, 16, 16, 192, None, torch.bfloat16, 128),  # deepseek's MLA
+        (*PHI4["train"], PHI4["H"], PHI4["KVH"], PHI4["D"], None,
+         torch.bfloat16, PHI4["D"]),                     # phi4-mini's step
     ]
     for i, (B, S, H, KVH, D, window, dt, Dv) in enumerate(flash_cases):
         q = _randn(torch, B, S, H, D, seed=70 + i, dtype=dt)
@@ -1546,10 +1588,13 @@ def _decoder_layers(cfg):
 
 def _per_forward(cfg):
     """Each LM kernel's launches in one forward of ``cfg``: the decoder's
-    layers, and an encdec config's encoder layers (B4 non-causal over the
-    frames, run in apply, loss and prefill; decode runs none)."""
+    layers, and an encdec config's encoder layers where a decoder block
+    reads the encoder (B4 non-causal over the frames, run in apply, loss
+    and prefill; decode runs none).  whisper-tiny's decoder is attn_mlp,
+    so its encoder does not run (``model.reads_encoder``)."""
+    from repro_torch.models.model import reads_encoder
     out = _decoder_layers(cfg)
-    if cfg.family == "encdec":
+    if reads_encoder(cfg):
         out["flash_attention"] += cfg.n_enc_layers
     return out
 
@@ -1584,9 +1629,10 @@ def _train_step_full(torch, arch="mamba2-1.3b", seq=TRAIN_SEQ):
     encdec config's tokens with their frames) in cfg.train_microbatches
     microbatches, 3 steps; the last runs under the profiler.  Each LM
     kernel must launch ``_per_step`` x M times a step (mamba2-1.3b: B6 48
-    x 2 x 2; internvl2-1b: B4 24 x 1 x 2; whisper-tiny: B4 4 encoder + 4 x
-    2 decoder, all on the tensor-core instance; mixtral-8x22b at 2 layers:
-    B4 2 x 2 x 8; deepseek-v2-lite-16b at 8: B4 8 x 2 x 2), and only
+    x 2 x 2; internvl2-1b: B4 24 x 1 x 2; whisper-tiny: B4 4 x 2 decoder
+    (its encoder does not run), all on the tensor-core instance;
+    mixtral-8x22b at 2 layers: B4 2 x 2 x 8; deepseek-v2-lite-16b at 8: B4
+    8 x 2 x 2), and only
     there.  The profiled step's device time is
     split by kind (the gathers, sorts and scatter-adds apart: the MoE
     dispatch, and the embedding's), and the kernel's plain backward is read
@@ -2772,16 +2818,17 @@ def phase_encdec(torch):
     """i. whisper-tiny at full width (P = 56,437,248) through the port's
     entry points.  Its decoder blocks are attn_mlp, as in the reference
     (configs/base.py:scan_groups), so the encoder's output reaches no
-    block: B4 runs the encoder's non-causal self-attention over the 1500
-    frames (4 a forward) and the decoder's causal self-attention (4).
+    block and the encoder does not run (XLA drops it from the reference
+    as dead code): B4 runs the decoder's causal self-attention (4 a
+    forward); phases 3 and 4 hold its non-causal encoder and cross shapes.
     (i) serve() with 4 x (1500 frames, 416 prompt tokens), 32 generated:
-    448 decoder positions; B4 8 a prefill, all tc, none in decode; the
+    448 decoder positions; B4 4 a prefill, all tc, none in decode; the
     prefill and a decode step profiled.  (ii) make_train_step, 8 x 448
-    tokens with their frames, M = 1, remat "full", 3 steps: B4 12 a step
-    (4 encoder + 4 x 2 decoder), its forward's and plain backward's share
-    of the profiled step.  (iii) the cohort trainer as phase c with
-    seq_len 448 (K = 2, 2 aggregations): B1/B2 once an aggregation, B4 12
-    an SGD step and 8 an evaluation; then B1/B2 held against their plain
+    tokens with their frames, M = 1, remat "full", 3 steps: B4 8 a step
+    (4 x 2 decoder), its forward's and plain backward's share of the
+    profiled step.  (iii) the cohort trainer as phase c with seq_len 448
+    (K = 2, 2 aggregations): B1/B2 once an aggregation, B4 8 an SGD step
+    and 4 an evaluation; then B1/B2 held against their plain
     versions and timed at that P.  (iv) the pytree aggregation path
     against the flat engine (``_pytree_vs_flat``).  (v) the f32 smoke
     config card against CPU, serving (B4's mma instance on the card) and
@@ -3097,6 +3144,412 @@ def phase_mla(torch):
                                    train_min_gap=train_gap), phase_s=took)
 
 
+# ------------ phase l: distribution and cost (A19) on a one-card mesh
+
+DIST = "phi4-mini-3.8b"
+# the published sequence lengths; the batch cut to fit one card (of 256,
+# 32 and 128)
+DIST_CUTS = {"train_4k": 8, "prefill_32k": 1, "decode_32k": 4}
+DIST_DECODE_STEPS = 8
+DIST_K = 4
+DIST_SEED = 24
+# the caching allocator hands a tensor a block of a multiple of 512 bytes,
+# and a large one (over 1 MiB) the whole free block it found when less than
+# 1 MiB would be left over: the allocated bytes may exceed the requested by
+# up to 1 MiB a tensor, the requested bytes are exact
+ALLOC_SLACK = 1 << 20
+
+
+def _requested(torch):
+    """Bytes the caching allocator was asked for and holds (before its
+    rounding)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+# tests/test_torch_dryrun.py's bound for the aggregation cell's bf16 leaves
+# against the flat engine's f32 result, as a share of max(|g|, max_k |w_k|)
+AGG_BF16_BOUND = 2.0 ** -6
+
+
+def _start_dryruns(tmp):
+    """The dry-run CLI in subprocesses on the host's cores while the card
+    works: the published cells on the two production meshes and the
+    one-card mesh, and each cut cell on the one-card mesh.  {name: (Popen,
+    out dir, log file)}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {"published": ["--agg", "--mesh", "16x16", "--mesh", "2x16x16",
+                          "--mesh", "1x1"]}
+    for shape, batch in DIST_CUTS.items():
+        runs[shape] = ["--shape", shape, "--batch", str(batch), "--mesh",
+                       "1x1"]
+    procs = {}
+    for name, extra in runs.items():
+        out = os.path.join(tmp, name)
+        logf = open(os.path.join(tmp, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DIST, *extra, "--out", out], stdout=logf,
+            stderr=subprocess.STDOUT, env=env, cwd=str(ROOT)), out, logf)
+    return procs
+
+
+def _dryrun_records(procs, name, timeout):
+    """{file name: record} of one dry-run subprocess, once it has ended."""
+    proc, out, logf = procs[name]
+    rc = proc.wait(timeout=timeout)
+    logf.close()
+    tail = open(logf.name).read()[-4000:]
+    if rc != 0 or "cells ok" not in tail:
+        raise AssertionError(f"dry run {name} exited {rc}:\n{tail}")
+    return {f: json.load(open(os.path.join(out, f)))
+            for f in sorted(os.listdir(out)) if f.endswith(".json")}
+
+
+def _dist_print_dryrun(recs):
+    """i. One [dist] line per published cell; the aggregation cell must
+    dispatch collectives on 2 x 16 x 16 and none on (1, 1)."""
+    for f, r in recs.items():
+        m, c = r["memory"], r["collectives"]
+        coll = "null (the LM step does not run on shards yet)" if c is None \
+            else (f"{c['total_bytes']} B, " + (", ".join(
+                f"{k} {v['count']}" for k, v in c.items()
+                if isinstance(v, dict) and v["count"]) or "none")
+                + f", NVLink bound {c['nvlink_bound_s']:.3e} s")
+        log(f"[dist] dry run {r['cell']} on {r['mesh']['shape']}: flops "
+            f"{r['op_cost']['flops']:.4e}, per device argument "
+            f"{m['argument_size_in_bytes']} B, output "
+            f"{m['output_size_in_bytes']} B, alias {m['alias_size_in_bytes']}"
+            f" B, peak estimate {m.get('peak_estimate_bytes')}, "
+            f"collectives {coll}; traced in {r['trace_seconds']} s")
+        if "seafl_agg" in f:
+            total = r["collectives"]["total_bytes"]
+            if r["mesh"]["shape"] == [2, 16, 16] and not total > 0:
+                raise AssertionError(f"{f}: no collectives on 2x16x16")
+            if r["mesh"]["shape"] == [1, 1] and total != 0:
+                raise AssertionError(f"{f}: collectives on one card")
+        elif not r["op_cost"]["flops"] > 0:
+            raise AssertionError(f"{f}: flops {r['op_cost']['flops']}")
+
+
+def _n_device_leaves(torch, tree):
+    return sum(1 for t in torch.utils._pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor) and t.is_cuda)
+
+
+def _same_tree(torch, a, b):
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for (_, x), (_, y) in
+               zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _card_flops(torch, cfg, shape, fn):
+    """(FLOPs of one run of ``fn`` as the card runs it, of which B4's) --
+    the products the run dispatches, counted by ``op_cost`` over a real run
+    on the card (the projections, the logits, the plain recompute that B4's
+    backward differentiates), plus B4's own, which no counter sees inside
+    its launch: 2 (D + Dv) flops a causal (query, key) pair, key <= query,
+    for each launch.  The dry run's count is of the plain path instead (full
+    score squares in every attention), work the card does not do."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.op_cost import analyze_step
+    before = FK.flash_attention_call.launches
+    counted = analyze_step(fn)["flops"]
+    n = FK.flash_attention_call.launches - before
+    S, D = shape.seq_len, cfg.head_dim
+    b4 = n * 4 * D * shape.global_batch * cfg.n_heads * (S * (S + 1) // 2)
+    return counted + b4, b4
+
+
+def _dist_cell(torch, mesh, name, rec):
+    """ii. One of phi4-mini-3.8b's cells, cut to DIST_CUTS' batch, on the
+    one-card mesh through materialize + run_cell: its arguments' bytes
+    against the dry run's, the step's peak against its estimate, step ms
+    and TFLOP/s of the card's program (``_card_flops``, one more run after
+    the timed ones), B4's launches, and the outputs of the eager step
+    builders on the same inputs, bit for bit."""
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import specs as SP
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+    cfg = get_config(DIST)
+    pub = SHAPES[name]
+    shape = ShapeConfig(name, pub.seq_len, DIST_CUTS[name], pub.kind)
+    cell = SP.build_cell(cfg, shape, mesh)
+    model = build_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_req = torch.cuda.memory_allocated(), _requested(torch)
+    args = SP.materialize(cell, "cuda", DIST_SEED,
+                          pos=shape.seq_len - DIST_DECODE_STEPS)
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - base
+    asked = _requested(torch) - base_req
+    want = rec["memory"]["argument_size_in_bytes"]
+    leaves = _n_device_leaves(torch, args)
+    if asked != want or not 0 <= rise - want <= ALLOC_SLACK * leaves:
+        raise AssertionError(f"{name}: arguments asked the allocator for "
+                             f"{asked} B and took {rise} B, the dry run "
+                             f"says {want} B ({leaves} tensors)")
+    per_run = {"train": 2 * cfg.n_layers, "prefill": cfg.n_layers,
+               "decode": 0}[shape.kind]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_lm_counts()
+    walls = []
+    if shape.kind == "train":
+        # the cell's new parameters wait on the host while the eager step
+        # runs from the same state, so two steps' transients never meet
+        state0, batch = args
+        (state, met), w = _sync_s(torch, lambda: SP.run_cell(cell, args))
+        peak = torch.cuda.max_memory_allocated()
+        host = tree_map(lambda t: t.cpu(), state.params)
+        del state, args
+        state, eager_met = SP.make_train_step(model)(state0, batch)
+        same = (torch.equal(met["loss"], eager_met["loss"])
+                and _same_tree(torch, host, tree_map(lambda t: t.cpu(),
+                                                     state.params)))
+        del state0, host
+        for _ in range(2):
+            (state, met), w = _sync_s(torch, lambda: SP.run_cell(
+                cell, (state, batch)))
+            walls.append(w)
+        runs = 4
+        detail = (f"loss {float(met['loss']):.4f}, 3 cell steps and one "
+                  "eager")
+        counted = lambda: SP.run_cell(cell, (state, batch))  # noqa: E731
+    elif shape.kind == "prefill":
+        params, batch, cache = args
+        (logits, _), w = _sync_s(torch, lambda: SP.run_cell(cell, args))
+        peak = torch.cuda.max_memory_allocated()
+        eager, _ = SP.make_prefill_step(model)(
+            params, batch, model.init_cache(shape.global_batch,
+                                            shape.seq_len))
+        same = torch.equal(logits, eager)
+        for _ in range(2):
+            _, w = _sync_s(torch, lambda: SP.run_cell(cell, args))
+            walls.append(w)
+        runs = 4
+        detail = "logits (B, 1, V) of the last position"
+        del logits, eager
+        counted = lambda: SP.run_cell(cell, args)  # noqa: E731
+    else:
+        # the eager twin of the cache waits on the host during the cell's
+        # steps, so the peak is the cell's own
+        params, cache, tok = args
+        args = None
+        twin = tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor)
+                        else t, cache)
+        toks, eager = [], []
+        t1 = t2 = tok
+        for i in range(DIST_DECODE_STEPS):
+            (t1, cache), w = _sync_s(torch, lambda: SP.run_cell(
+                cell, (params, cache, t1)))
+            walls.append(w)
+            toks.append(t1)
+        peak = torch.cuda.max_memory_allocated()
+        card_flops, b4_flops = _card_flops(torch, cfg, shape, lambda:
+                                           SP.run_cell(cell, (params, cache,
+                                                              t1)))
+        del cache
+        twin = tree_map(lambda t: t.to("cuda") if isinstance(t, torch.Tensor)
+                        else t, twin)
+        for i in range(DIST_DECODE_STEPS):
+            t2, twin = SP.make_serve_step(model)(params, twin, t2)
+            eager.append(t2)
+        same = all(torch.equal(a, b) for a, b in zip(toks, eager))
+        walls = walls[1:]
+        runs = 2 * DIST_DECODE_STEPS
+        detail = (f"{DIST_DECODE_STEPS} steps from pos "
+                  f"{shape.seq_len - DIST_DECODE_STEPS}")
+        del params, twin, args
+        counted = None
+    torch.cuda.synchronize()
+    launched = FK.flash_attention_call.launches
+    tc = FK.flash_attention_call.launches_tc
+    if launched != per_run * runs or tc != launched:
+        raise AssertionError(f"{name}: B4 launched {launched} ({tc} tc) in "
+                             f"{runs} runs, expected {per_run} a run")
+    if counted is not None:     # after the launches are read
+        card_flops, b4_flops = _card_flops(torch, cfg, shape, counted)
+        counted = args = state = batch = params = cache = None
+    if not same:
+        raise AssertionError(f"{name}: the cell's outputs differ from the "
+                             "eager step builders'")
+    peak -= base
+    ms = sorted(walls)[len(walls) // 2] * 1e3
+    flops = rec["op_cost"]["flops"]
+    tflops = card_flops / (ms / 1e3) / 1e12
+    est = rec["memory"].get("peak_estimate_bytes")
+    log(f"[dist] {DIST} {name} cut to batch {shape.global_batch} (of "
+        f"{pub.global_batch}), seq {shape.seq_len}: arguments {asked} B "
+        f"asked of the allocator ({rise} B in its blocks) against {want} B "
+        f"(dry run, {leaves} tensors); peak "
+        f"{peak} B against the estimate {est} B (ratio "
+        f"{peak / est:.4f}); {'step' if shape.kind != 'decode' else 'decode step'}"
+        f" {ms:.2f} ms (median of {len(walls)} warm); the card's program "
+        f"{card_flops:.4e} flops (B4 {b4_flops:.4e} of them, by causal pairs)"
+        f", {tflops:.2f} TFLOP/s, {tflops / 989:.4f} of 989 (the dry run's "
+        f"plain path counts {flops:.4e}); B4 {per_run} a run, all tc; equal "
+        f"to the eager builders bit for bit ({detail})")
+    del model
+    torch.cuda.empty_cache()
+    return dict(batch=shape.global_batch, of=pub.global_batch,
+                seq=shape.seq_len, arg_bytes=asked, arg_block_bytes=rise,
+                dry_arg_bytes=want,
+                peak_bytes=peak, peak_estimate_bytes=est,
+                peak_ratio=peak / est, ms=ms, card_flops=card_flops,
+                b4_flops=b4_flops, dry_run_flops=flops, tflops=tflops,
+                b4_per_run=per_run, b4_launches=launched, walls_ms=[
+                    x * 1e3 for x in walls])
+
+
+def _agg_share(torch, pk, tree, flat, g_flat, buf, chunk=1 << 26):
+    """max over elements i of |tree_i - flat_i| / max(|g_i|, max_k
+    |buf_k,i|), a chunk of a leaf at a time (no (P,) temporary)."""
+    share = 0.0
+    for name, off, n in zip(pk.names, pk._offsets, pk._sizes):
+        node = tree
+        for key in name.split("."):
+            node = node[key]
+        node = node.reshape(-1)
+        for i in range(0, n, chunk):
+            a, b = off + i, off + min(n, i + chunk)
+            rows = buf[:, a:b]
+            scale = torch.maximum(g_flat[a:b].abs(), torch.maximum(
+                rows.amax(0).float().abs(), rows.amin(0).float().abs()))
+            gap = (node[i:i + b - a].float() - flat[a:b]).abs()
+            share = max(share, float((gap / scale).max()))
+    return share
+
+
+def _dist_agg(torch, mesh):
+    """iii. The SEAFL aggregation cell at phi4-mini-3.8b's P, K = 4 on the
+    one-card mesh: one (K, P) bf16 buffer whose rows the stacked leaves are
+    views of; the cell (the pytree path on DTensors, no kernel) against the
+    flat engine (B1 + B2) on that buffer, within AGG_BF16_BOUND; both
+    timed, the flat engine's device span (CUDA events) beside its wall."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packer import ParamPacker
+    from repro_torch.kernels.seafl_agg import kernel as K, ops
+    from repro_torch.launch import specs as SP
+    from repro_torch.models.model import LM
+    from repro_torch.tree import tree_map
+    cfg = get_config(DIST)
+    cell = SP.build_agg_cell(cfg, mesh, DIST_K)
+    pk = ParamPacker(LM(cfg, "meta").init())
+    buf = torch.empty((DIST_K, pk.size), dtype=torch.bfloat16, device="cuda")
+    g, stacked, sizes, stale = args = SP.materialize(cell, "cuda", DIST_SEED,
+                                                     buffer=buf)
+    hyper = cell.extra["hyper"]
+    local = lambda tree: tree_map(lambda t: t.to_local(), tree)  # noqa: E731
+    K.reset_launch_counts()
+    # unprofiled: a profile of the pytree path's ~5e5 small launches costs
+    # minutes to gather
+    (out, w), tree_s = _sync_s(torch, lambda: SP.run_cell(cell, args))
+    if any(fn.launches for fn in K.KERNELS):
+        raise AssertionError("the pytree aggregation path launched a kernel")
+    out, w = local(out), w.to_local()
+    g_flat = pk.pack(local(g))
+    del g, stacked, args
+    torch.cuda.empty_cache()
+    sz, st = sizes.to_local().tolist(), stale.to_local().tolist()
+
+    def flat_call():
+        return ops.seafl_aggregate_flat_from_params(
+            g_flat, buf, sz, st, hyper.alpha, hyper.mu, hyper.beta,
+            hyper.theta)
+
+    (flat, p), flat_first_s = _sync_s(torch, flat_call)
+    launched = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
+    if (launched["sim_partials_from_params"], launched["weighted_agg"]) != \
+            (1, 1):
+        raise AssertionError(f"the flat SEAFL entry launched {launched}")
+    del flat
+    # a warm call: its device span between two CUDA events beside its wall
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    start.record()
+    flat, p = flat_call()
+    end.record()
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t1
+    flat_dev = start.elapsed_time(end)
+    w_gap = float((p - w).abs().max())
+    share = _agg_share(torch, pk, out, flat, g_flat, buf)
+    del g_flat
+    if not share <= AGG_BF16_BOUND or not w_gap <= 1e-6:
+        raise AssertionError(f"agg cell vs flat engine: share {share} (bound"
+                             f" {AGG_BF16_BOUND}), weights {w_gap}")
+    log(f"[dist] {DIST} SEAFL aggregation cell, K = {DIST_K}, P = {pk.size}"
+        f", bf16 buffer of {buf.numel() * 2} B: the cell (pytree path on "
+        f"DTensors, no kernel) {tree_s * 1e3:.1f} ms (one call, "
+        f"unprofiled); the flat engine (B1 + B2, {launched} in its first "
+        f"call) {flat_first_s * 1e3:.1f} ms first, {flat_s * 1e3:.1f} ms "
+        f"warm, its device span {flat_dev:.1f} ms (CUDA events, "
+        f"{flat_dev / (flat_s * 1e3):.4f} of its wall); weights "
+        f"within {w_gap:.3e}, new global within {share:.4e} of max(|g|, "
+        f"|w_k|) (bound {AGG_BF16_BOUND:.4e})")
+    del buf, flat, out
+    torch.cuda.empty_cache()
+    return dict(P=pk.size, K=DIST_K, tree_ms=tree_s * 1e3,
+                flat_first_ms=flat_first_s * 1e3, flat_ms=flat_s * 1e3,
+                flat_device_span_ms=flat_dev, weights_gap=w_gap, share=share,
+                launches=launched)
+
+
+def phase_dist(torch):
+    """l. Distribution and cost (A19): (i) the dry-run CLI
+    (repro_torch.launch.dryrun --arch phi4-mini-3.8b --agg) on the 16 x 16
+    and 2 x 16 x 16 production meshes and the (1, 1) mesh, in a subprocess
+    on the host's cores while the card runs (ii) and (iii): a [dist] line
+    per cell (flops; argument, output and alias bytes per device; the peak
+    estimate on (1, 1); the aggregation cell's collectives, > 0 on
+    2 x 16 x 16 and 0 on (1, 1)).  (ii) phi4-mini-3.8b's train_4k (8 x
+    4096, M = 1, 3 steps), prefill_32k (1 x 32768) and decode_32k (4
+    sequences of a 32768 cache, 8 steps) cells at its published widths on
+    the (1, 1) cuda mesh over a one-rank process group
+    (``_dist_cell``); the dry run of each cut cell runs in its own
+    subprocess.  (iii) the aggregation cell at phi4-mini-3.8b's P, K = 4,
+    bf16, against B1 + B2 (``_dist_agg``)."""
+    import tempfile
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _start_dryruns(tmp)
+        try:
+            with local_process_group():
+                mesh = make_mesh((1, 1), ("data", "model"),
+                                 device_type="cuda")
+                cells, walls = {}, {}
+                for name in DIST_CUTS:
+                    rec, = _dryrun_records(procs, name, 600).values()
+                    t1 = time.perf_counter()
+                    cells[name] = _dist_cell(torch, mesh, name, rec)
+                    walls[name] = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                agg = _dist_agg(torch, mesh)
+                walls["agg"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            published = _dryrun_records(procs, "published", 900)
+            walls["dry_run_wait"] = time.perf_counter() - t1
+        finally:
+            for proc, _, logf in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                logf.close()
+    _dist_print_dryrun(published)
+    took = time.perf_counter() - t0
+    log(f"[dist] phase took {took:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    lm = {"flash_attention": sum(c["b4_launches"] for c in cells.values())}
+    return dict(cells=cells, agg=agg, lm_launches=lm, phase_s=took,
+                part_s=walls,
+                dry_run={f: dict(flops=r["op_cost"]["flops"],
+                                 memory=r["memory"],
+                                 collectives=r["collectives"])
+                         for f, r in published.items()})
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -3141,9 +3594,9 @@ def phase_lm_cost(torch):
 
 def main() -> int:
     if sys.argv[1:] not in ([], ["--ssd-precision"], ["--probe"],
-                            ["--lm-cost"]):
+                            ["--lm-cost"], ["--dist"]):
         print("usage: chip_smoke.py [--ssd-precision | --probe | "
-              "--lm-cost]", file=sys.stderr)
+              "--lm-cost | --dist]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -3163,6 +3616,9 @@ def main() -> int:
     if sys.argv[1:] == ["--lm-cost"]:
         phase_lm_cost(torch)
         return 0
+    if sys.argv[1:] == ["--dist"]:
+        log(f"[dist] summary: {json.dumps(phase_dist(torch))}")
+        return 0
     errs = phase_parity(torch)
     errs.update(phase_parity_lm(torch))
     timing = phase_timing(torch)
@@ -3178,6 +3634,7 @@ def main() -> int:
     encdec = phase_encdec(torch)
     moe = phase_moe(torch)
     mla = phase_mla(torch)
+    dist = phase_dist(torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -3192,7 +3649,8 @@ def main() -> int:
                 "sim_partials_from_params"],
             "encdec_cohort": encdec["cohort"]["seafl_launches"][
                 "sim_partials_from_params"],
-            "mla": mla["seafl_launches"]["sim_partials_from_params"]},
+            "mla": mla["seafl_launches"]["sim_partials_from_params"],
+            "dist_agg": dist["agg"]["launches"]["sim_partials_from_params"]},
         "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"],
                          "uplink_topk": up_seafl["weighted_agg"],
                          "downlink_cohorts": down["seafl_launches"][
@@ -3203,7 +3661,8 @@ def main() -> int:
                              "weighted_agg"],
                          "encdec_cohort": encdec["cohort"]["seafl_launches"][
                              "weighted_agg"],
-                         "mla": mla["seafl_launches"]["weighted_agg"]},
+                         "mla": mla["seafl_launches"]["weighted_agg"],
+                         "dist_agg": dist["agg"]["launches"]["weighted_agg"]},
         "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"],
                          "mla": mla["seafl_launches"]["sim_partials"]},
         "flash_attention_bf16_tc": {
@@ -3217,7 +3676,8 @@ def main() -> int:
             "moe_prefill": moe["serve_launches"]["flash_attention_tc"],
             "moe_step": moe["step"]["launches_tc"],
             "mla_prefill": mla["serve_launches"]["flash_attention_tc"],
-            "mla_step": mla["step"]["launches_tc"]},
+            "mla_step": mla["step"]["launches_tc"],
+            "dist_cells": dist["lm_launches"]["flash_attention"]},
         "flash_attention_f32_mma": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"],
             "vlm_smoke": vlm["smoke_serve_mma"]
@@ -3289,7 +3749,13 @@ def main() -> int:
                 "mixtral_shape": lm_timing["flash_attention_bf16_tc_mixtral"],
                 "deepseek_shape": dict(
                     lm_timing["flash_attention_bf16_tc_deepseek"],
-                    max_abs_err=errs["flash_attention_deepseek"])}
+                    max_abs_err=errs["flash_attention_deepseek"]),
+                "phi4_shape": dict(
+                    lm_timing["flash_attention_bf16_tc_phi4"],
+                    max_abs_err=errs[f"flash_attention_phi4_1x"
+                                     f"{PHI4['prompt']}"],
+                    train_max_abs_err=errs["flash_attention_phi4_{}x{}"
+                                           .format(*PHI4["train"])])}
                if kname == "flash_attention_bf16_tc" else {}),
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
@@ -3303,6 +3769,7 @@ def main() -> int:
     log(f"[encdec] summary: {json.dumps(encdec)}")
     log(f"[moe] summary: {json.dumps(moe)}")
     log(f"[mla] summary: {json.dumps(mla)}")
+    log(f"[dist] summary: {json.dumps(dist)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

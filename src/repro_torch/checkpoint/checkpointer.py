@@ -18,9 +18,9 @@ other:
 ``Checkpointer`` keeps step-numbered checkpoints in a directory, saves on a
 background thread and keeps the last ``keep``.  Leaves are tensors (numpy
 arrays and scalars are taken too); ``load_tree`` returns tensors on the
-device of ``like``'s leaves or on ``device``.  The reference's
-``shardings`` argument (restore onto another mesh) belongs to the sharding
-stack, which the port does not carry yet, and is refused.
+device of ``like``'s leaves or on ``device``.  With ``shardings`` (the
+reference's elastic restore onto a mesh), each leaf is restored as a
+DTensor of its ``sharding.NamedSharding`` record.
 """
 from __future__ import annotations
 
@@ -133,11 +133,13 @@ def load_tree(path: str, like=None, shardings=None, verify: bool = True,
     """Load (tree, extra).  With ``like``, the structure is restored to
     match it and each leaf goes to the device of ``like``'s leaf (or to
     ``device``); without, the nested dicts are rebuilt from the leaf paths
-    on ``device`` (default the CPU).  Raises IOError on a CRC mismatch."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "load_tree(shardings=...) restores onto a mesh, which needs the "
-            "sharding stack that repro_torch does not port yet")
+    on ``device`` (default the CPU).  With ``shardings``, a tree of
+    ``sharding.NamedSharding`` records matching ``like`` (the reference's
+    elastic restore), each leaf becomes a DTensor of its record's mesh and
+    placements, each rank keeping its own shard of the array it read (no
+    data moves between ranks).  Raises IOError on a CRC mismatch."""
+    if shardings is not None and like is None:
+        raise ValueError("load_tree(shardings=...) needs like=")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     flat = {}
@@ -164,6 +166,26 @@ def load_tree(path: str, like=None, shardings=None, verify: bool = True,
             ref = like_flat.get(k)
             dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
         out[k] = _to_tensor(arr, dtype, dev)
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.sharding import NamedSharding
+        flat_sh = {}
+
+        def walk(node, prefix):     # a record is a tuple: dicts only here
+            if isinstance(node, Mapping):
+                for key, v in node.items():
+                    walk(v, f"{prefix}/{key}" if prefix else str(key))
+            else:
+                flat_sh[prefix] = node
+
+        walk(shardings, "")
+        for k in out:
+            sh = flat_sh.get(k)
+            if not isinstance(sh, NamedSharding):
+                raise ValueError(f"load_tree: no sharding for leaf {k}")
+            out[k] = distribute_tensor(out[k].to(sh.mesh.device_type),
+                                       sh.mesh, list(sh.placements),
+                                       src_data_rank=None)
     return _unflatten_into(like, out), manifest["extra"]
 
 

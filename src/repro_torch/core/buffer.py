@@ -25,6 +25,12 @@ concurrent streams may finish — or die — in any order):
 ``add`` keeps the monolithic one-call write on top of the same protocol.
 ``stacked_flat`` is a zero-copy view whenever the committed rows are
 contiguous from 0 (the common, single-stream case) and a gather otherwise.
+
+The reference places the slot axis over the 'pod' mesh axis at allocation
+and on growth (``shard_update_buffer``).  Here the slot array stays a plain
+tensor on every mesh: the writes, the row merge and the flat engine that
+reads ``stacked_flat`` take plain tensors, and placing it waits until they
+take a DTensor's local shards (ROADMAP A19).
 """
 from __future__ import annotations
 

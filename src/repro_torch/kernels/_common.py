@@ -16,6 +16,9 @@ MAX_SMEM = 227 * 1024          # dynamic shared memory a block may use (H100)
 # Spec-sheet numbers, not measurements: they bound times from below
 # (chip_smoke.py's bound_ms, runtime/autotune.py's predicted_us).
 HBM_BYTES_PER_S = 3.35e12
+# NVLink 4, H100 SXM data sheet: 900 GB/s both ways a GPU, 450 GB/s each
+# way (a spec-sheet number: the dry run's least time for a collective)
+NVLINK_BYTES_PER_S = 450e9
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 F32_TC_FLOPS_PER_S = 495e12 / 3

@@ -221,14 +221,18 @@ def moe_apply(p, x, cfg, dtype=None):
     out = moe_combine(torch.gather(pair_row, 1, by_expert),
                       ye.reshape(E * B * C, D)).reshape(B, S, D)
 
-    if "shared" in p:
-        out = out + L.mlp_apply(p["shared"], xs[0], cfg)
-
-    # load-balance aux loss (Switch-style): E * sum_e f_e * P_e
+    # load-balance aux loss (Switch-style): E * sum_e f_e * P_e.  Taken
+    # before the shared experts, so a checkpointed block's recompute stops
+    # at their down product (which saves its inputs) and does not run it:
+    # no gradient reads its output, and XLA's rematerialisation drops it
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(torch.sum(F.one_hot(idx, E).to(torch.float32), dim=2),
                     dim=(0, 1))
-    return out, cfg.router_aux_coef * E * torch.sum(me * ce)
+    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+
+    if "shared" in p:
+        out = out + L.mlp_apply(p["shared"], xs[0], cfg)
+    return out, aux
 
 
 def moe_combine(pair_rows, ye):

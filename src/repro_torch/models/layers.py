@@ -30,6 +30,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -427,7 +428,8 @@ class _FlashAttention(torch.autograd.Function):
         # device time
         with torch.profiler.record_function(FLASH_BACKWARD_RANGE):
             grads = plain_vjp(
-                lambda q, k, v: _attention_plain(q, k, v, **ctx.opts),
+                lambda q, k, v: _attention_plain(q, k, v, **ctx.opts,
+                                                 remat_chunks=False),
                 ctx.saved_tensors, (do,), ctx.needs_input_grad[:3])
         return (*grads, None, None, None)
 
@@ -450,8 +452,14 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 
 
 def _attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
-                     kv_len=None, q_chunk=512, softcap=None):
-    """The torch translation of the JAX model's ``chunked_attention``."""
+                     kv_len=None, q_chunk=512, softcap=None,
+                     remat_chunks=True):
+    """The torch translation of the JAX model's ``chunked_attention``.
+    Under autograd each query chunk runs under a checkpoint that saves
+    nothing, as the reference's scan body does (``jax.checkpoint`` with
+    ``nothing_saveable``): the backward recomputes a chunk's scores rather
+    than keeping every chunk's.  ``remat_chunks=False`` leaves that out for
+    a caller that is itself the recompute (the kernel route's backward)."""
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -498,8 +506,13 @@ def _attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
         m = block_mask(q_pos, k_pos)
         if kv_len is not None:
             m &= (k_pos < kv_len)[None, :]
-        outs.append(attention_scores_ctx(qi, ki, vi, m[None, None, None],
-                                         softcap))
+        if remat_chunks and torch.is_grad_enabled():
+            outs.append(checkpoint(attention_scores_ctx, qi, ki, vi,
+                                   m[None, None, None], softcap,
+                                   use_reentrant=False))
+        else:
+            outs.append(attention_scores_ctx(qi, ki, vi, m[None, None, None],
+                                             softcap))
     return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
 
 

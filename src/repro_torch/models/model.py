@@ -7,12 +7,13 @@ MLA latent and roped key, ``{"c", "kr"}``, a layer).  A vlm config's
 model projects precomputed image patch embeddings (``batch["image_embeds"]``,
 (B, n_img_tokens, vision_embed_dim)) with ``patch_proj`` and puts them in
 front of the token embeddings; the loss masks those positions.  An encdec
-config's model (whisper) runs its encoder over precomputed frame embeddings
+config's model (whisper) has an encoder over precomputed frame embeddings
 (``batch["frames"]``, (B, enc_seq, d_model); the conv frontend is a stub,
-as in the reference) in ``apply``, ``loss`` and ``prefill``, without a
-checkpoint, and hands its output to every decoder block.  The reference's
+as in the reference), run without a checkpoint in ``apply``, ``loss`` and
+``prefill`` where a decoder block reads its output.  The reference's
 decoder blocks are ``attn_mlp`` (``configs/base.py:scan_groups``), which do
-not read it: its parameters get zero gradients.  The params
+not: XLA drops the encoder as dead code, the port does not run it, and its
+parameters get zero gradients.  The params
 keep the JAX tree, ``groups/g{gi}/b{bi}/...`` with a leading repeats axis
 per group, so a JAX params tree carries over leaf for leaf
 (:func:`from_jax_lm_params`).  ``lax.scan`` over a group becomes a plain
@@ -85,6 +86,18 @@ def _copy_into(dst, src):
             _copy_into(dst[k], v)
         elif v.data_ptr() != dst[k].data_ptr():
             dst[k].copy_(v)
+
+
+def reads_encoder(cfg) -> bool:
+    """Whether a decoder block of ``cfg`` reads an encoder's output (a
+    ``dec`` block).  The reference's encdec decoder is ``attn_mlp``, which
+    does not: XLA drops its encoder as dead code, and the port does not run
+    it.  No registered config has a ``dec`` block, so no registered path
+    reaches :meth:`LM._encode`; the block and the encoder stay for a config
+    that adds one, and the CPU parity tests hold ``_encode`` against the
+    reference's encoder directly."""
+    return cfg.family == "encdec" and any(
+        "dec" in pattern for pattern, _ in cfg.scan_groups())
 
 
 class LM:
@@ -219,10 +232,11 @@ class LM:
     def _stream(self, params, batch):
         """(the decoder's input stream, the encoder's output or None): the
         token embeddings, after the image positions of a vlm config; an
-        encdec config's encoder run over ``batch["frames"]``."""
+        encdec config's encoder run over ``batch["frames"]`` where a block
+        reads it (:func:`reads_encoder`)."""
         x = self._embed(params, batch["tokens"])
         enc_out = None
-        if self.cfg.family == "encdec":
+        if reads_encoder(self.cfg):
             enc_out = self._encode(params, batch["frames"])
         if self.cfg.family == "vlm":
             x = self._prepend_vision(params, x, batch["image_embeds"])

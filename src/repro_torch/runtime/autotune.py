@@ -29,8 +29,12 @@ measures them on the device the server runs on:
 
   * each sweep reports measured-vs-predicted against a byte/operation
     bound from the H100's spec-sheet rates (kernels/_common.py).  The JAX
-    package's second prediction, from compiled HLO (``predict_from_hlo``),
-    has no counterpart: the port has no HLO cost model;
+    package raises that bound by a second prediction from compiled HLO
+    (``predict_from_hlo``); the port's counterpart, ``predict_from_cost``
+    (launch/op_cost.py's count of the ops the plain twin dispatches), is
+    not in the bound or the record: eager PyTorch materialises every op,
+    so its count is no lower bound on the fused kernel's time (folded in,
+    it put the measured kernel below its "bound" on the H100);
 
   * winners are cached in a versioned JSON keyed by ``(device kind, dtype,
     scheme, P-bucket, K-bucket)``, the JAX package's schema with the
@@ -96,6 +100,7 @@ __all__ = [
     "sweep_codec",
     "sweep_ingest",
     "predict_agg_seconds",
+    "predict_from_cost",
     "partials_drift",
     "GRID_BOUND",
     "GRID_BOUNDED",
@@ -340,6 +345,21 @@ def predict_agg_seconds(entry: str, p: int, k: int, dtype) -> float:
         nbytes = 2 * (rows + g) + g + 16 * k
         flops = 7.0 * k * p + 5.0 * p
     return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+
+
+def predict_from_cost(fn: Callable, *args) -> Optional[float]:
+    """The counterpart of the JAX package's ``predict_from_hlo``: run
+    ``fn(*args)`` once under the op cost model (``launch/op_cost.py``) and
+    put its FLOPs and materialised bytes through the reference's roofline
+    terms (2x the bytes over HBM, the FLOPs over the f32 rate; the H100's
+    spec-sheet rates).  The seconds an eager run of ``fn`` would need at
+    those rates, not a bound on a fused kernel; None when the call costs
+    nothing."""
+    from repro_torch.launch.op_cost import analyze_step
+    cost = analyze_step(fn, *args)
+    t = max(2.0 * cost["hbm_bytes"] / HBM_BYTES_PER_S,
+            cost["flops"] / F32_FLOPS_PER_S)
+    return t if t > 0 else None
 
 
 def partials_drift(tuned: torch.Tensor, default: torch.Tensor) -> dict:

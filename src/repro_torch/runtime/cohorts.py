@@ -59,9 +59,10 @@ def shard_cohort_state(vec: torch.Tensor) -> torch.Tensor:
     """Place a cohort-shared (P,) dispatch residual.
 
     On a device mesh the reference shards a cohort residual's element axis
-    over the 'pod' axis; off a mesh, or when P does not divide the pod axis
-    size, the vector is left as it is.  The port runs on one device, so
-    this is the identity (sharding comes with the port's mesh layer)."""
+    over the 'pod' axis (``repro_torch.sharding.shard_cohort_state`` is
+    that placement).  The dispatch arithmetic that reads the residual takes
+    plain tensors, so here it stays the identity on every mesh until that
+    arithmetic takes a DTensor (ROADMAP A19)."""
     return vec
 
 

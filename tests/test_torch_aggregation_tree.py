@@ -126,6 +126,51 @@ def test_tree_helpers_match_jax(mixed):
                JU.tree_weighted_sum(_j(stack), jnp.asarray(w)))
 
 
+@DTYPES
+def test_the_rest_of_utils_matches_jax(mixed):
+    """The utils the dry run and the trainer use: tree algebra, sizes,
+    paths (sorted-key order), flatten / unflatten, finiteness and the
+    human-readable counts, against the JAX package's."""
+    _, clients, stack, _, _, _ = _fleet(3, mixed, 1)
+    a, b = clients[0], clients[1]
+    _same_tree(TU.tree_add(_t(a), _t(b)), JU.tree_add(_j(a), _j(b)))
+    for s in (0.3, 2.0):
+        _same_tree(TU.tree_scale(_t(a), s), JU.tree_scale(_j(a), s))
+        _same_tree(TU.tree_axpy(s, _t(a), _t(b)),
+                   JU.tree_axpy(s, _j(a), _j(b)))
+    _same_tree(TU.tree_zeros_like(_t(a)), JU.tree_zeros_like(_j(a)))
+    _same_tree(TU.tree_cast(_t(a), torch.bfloat16),
+               JU.tree_cast(_j(a), jnp.bfloat16))
+    _same_tree(TU.tree_stack([_t(c) for c in clients]),
+               JU.tree_stack([_j(c) for c in clients]))
+    for got, want in zip(TU.tree_unstack(_t(stack), 3),
+                         JU.tree_unstack(_j(stack), 3)):
+        _same_tree(got, want)
+    assert TU.tree_paths(_t(a)) == JU.tree_paths(_j(a))
+    assert TU.tree_bytes(_t(a)) == JU.tree_bytes(_j(a))
+    assert TU.tree_size(_t(a)) == JU.tree_size(_j(a))
+    flat = TU.tree_flatten_concat(_t(a))
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(
+        JU.tree_flatten_concat(_j(a))))
+    _same_tree(TU.tree_unflatten_concat(flat, _t(a)),
+               JU.tree_unflatten_concat(JU.tree_flatten_concat(_j(a)),
+                                        _j(a)))
+    assert bool(TU.tree_isfinite(_t(a))) is bool(JU.tree_isfinite(_j(a)))
+    bad = _t(a)
+    bad["head"]["w"][0] = float("nan")
+    assert not bool(TU.tree_isfinite(bad))
+    for n in (0, 1023.0, 5e9, -3.2e12):
+        assert TU.human_bytes(n) == JU.human_bytes(n)
+        assert TU.human_count(n) == JU.human_count(n)
+    g1, g2 = TU.fold_rng(7, 1, 2), TU.fold_rng(7, 1, 2)
+    assert torch.equal(torch.rand(4, generator=g1),
+                       torch.rand(4, generator=g2))
+    assert TU.fold_rng(7, 2, 1).initial_seed() != g1.initial_seed()
+    with TU.Timer() as t:
+        pass
+    assert t.seconds >= 0
+
+
 def test_tree_dot_of_a_bf16_leaf_accumulates_in_f32():
     """A long bf16 leaf: the dot is the f32 sum of the exact products
     (chunked, never one f32 copy of the leaf), not a bf16 sum.  Held

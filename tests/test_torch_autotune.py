@@ -88,6 +88,20 @@ def test_codec_and_ingest_winners_equal_jax(clock, spec):
 
 
 @pytest.mark.parametrize("entry", AGG_ENTRY_POINTS)
+def test_predict_from_cost_is_positive_for_each_entry(entry):
+    """The counterpart of ``predict_from_hlo``: the op cost model over the
+    plain twin gives a positive time; a sweep's bound stays the analytical
+    one and records no second prediction."""
+    inputs = at._agg_inputs(P, K, "float32", torch.device("cpu"))
+    pred = at.predict_from_cost(at._agg_call(entry, inputs, oracle=True))
+    assert pred is not None and pred > 0
+    rec = sweep_agg_entry(entry, P, K, timer=fake_timer(), device="cpu")
+    assert "cost_predicted_us" not in rec
+    assert rec["predicted_us"] == round(
+        at.predict_agg_seconds(entry, P, K, "float32") * 1e6, 3)
+
+
+@pytest.mark.parametrize("entry", AGG_ENTRY_POINTS)
 def test_agg_sweep_is_deterministic_and_follows_the_clock(entry):
     kw = dict(candidates=BLOCK_P_CANDIDATES, device="cpu")
     a = sweep_agg_entry(entry, P, K, timer=fake_timer(), **kw)

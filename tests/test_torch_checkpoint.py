@@ -3,7 +3,9 @@
 * The reference's eight ``tests/test_checkpoint.py`` tests, run against
   ``repro_torch.checkpoint``.
 * The on-disk format is shared: a tree saved by either package loads in the
-  other, bf16 leaves included.
+  other, bf16 leaves included; a JAX checkpoint restores onto DTensor
+  placements on a fake 8-rank mesh (``load_tree(shardings=...)``), and the
+  update buffer and a cohort residual stay plain tensors on every mesh.
 * The reference's server-state cases (``tests/test_transport.py``): the
   buffer kept under sync-wait, a mid-stream upload dropped while committed
   slots are kept, stale EF residuals guarded, legacy tree residuals packed.
@@ -16,6 +18,7 @@
   with ``patch_proj.w``) restores in the port's trainer, and both go on
   alike.
 """
+import contextlib
 import os
 import warnings
 
@@ -129,9 +132,94 @@ def test_async_save_copies_before_it_returns(tmp_path):
 
 
 def test_shardings_are_refused(tmp_path, tree):
+    """Restoring onto a mesh needs ``like`` and a sharding record for every
+    leaf; anything less is refused."""
     save_tree(str(tmp_path / "ck"), tree)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="like"):
+        load_tree(str(tmp_path / "ck"), shardings={})
+    with pytest.raises(ValueError, match="no sharding"):
         load_tree(str(tmp_path / "ck"), like=tree, shardings={})
+
+
+def test_a_jax_checkpoint_restores_onto_placements(tmp_path):
+    """A parameter tree saved by the JAX package restores onto the port's
+    placements on a fake 8-rank (pod, data, model) mesh: on every rank each
+    leaf is a DTensor whose local shard is that rank's slice of the saved
+    array, by the reference's parameter specs."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro.configs import smoke_config as jsmoke
+    from repro.models.model import LM as JLM
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import fake_process_group, make_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.sharding import axis_rules, named_sharding, param_pspecs
+
+    jp = JLM(jsmoke("qwen3-32b")).init(jax.random.PRNGKey(4))
+    J.save_tree(str(tmp_path / "ck"), jp)
+    full = jax.tree.map(lambda x: np.asarray(x, np.float32), jp)
+    like = LM(smoke_config("qwen3-32b"), "meta").init()
+    sharded = 0
+    for rank in range(8):
+        with fake_process_group(8, rank=rank):
+            mesh = make_mesh((2, 2, 2), device_type="cpu")
+            with axis_rules(mesh) as rules:
+                sh = named_sharding(mesh, param_pspecs(like, rules))
+            out, _ = load_tree(str(tmp_path / "ck"), like=like,
+                               shardings=sh, device="cpu")
+            for path, leaf in _flat(out).items():
+                s = _flat(sh)[path]
+                assert tuple(leaf.placements) == s.placements, path
+                shape, off = compute_local_shape_and_global_offset(
+                    leaf.shape, mesh, list(s.placements))
+                want = _flat(full)[path][tuple(
+                    slice(o, o + n) for o, n in zip(off, shape))]
+                np.testing.assert_array_equal(
+                    leaf.to_local().to(torch.float32).numpy(), want, path)
+                sharded += tuple(shape) != tuple(leaf.shape)
+    assert sharded > 0          # some leaves really were split
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 4), (2, 2, 2)])
+def test_the_buffer_stays_a_plain_tensor(mesh_shape):
+    """The update buffer (allocated, then grown by a third add) and a cohort
+    table's residual stay plain tensors, bit for bit what was written: off
+    a mesh, on one without a 'pod' axis, and on a (pod, data, model) mesh
+    too, where the reference would place them, since their consumers take
+    plain tensors."""
+    from repro_torch.core.buffer import Update, UpdateBuffer
+    from repro_torch.launch.mesh import fake_process_group, make_mesh
+    from repro_torch.runtime.cohorts import CohortTable
+    from repro_torch.sharding import axis_rules
+
+    rows = [torch.linspace(-1, 1, 10) * (i + 1) for i in range(4)]
+    with contextlib.ExitStack() as stack:
+        if mesh_shape is not None:
+            stack.enter_context(fake_process_group(8))
+            stack.enter_context(axis_rules(make_mesh(mesh_shape,
+                                                     device_type="cpu")))
+        buf = UpdateBuffer(2, device="cpu")
+        for r in rows[:3]:                     # the third add grows it
+            buf.add(Update(0, 1, 0, 1), r)
+        buf.merge_rows(0, 2, 1.0, 1.0)
+        table = CohortTable()
+        table.move(0, ("c", 1), implied=lambda: rows[3])
+    assert type(buf.stacked_flat()) is torch.Tensor
+    assert torch.equal(buf.stacked_flat(), torch.stack(
+        [(rows[0] + rows[2]) / 2, rows[1], rows[2]]))
+    assert buf.hbm_bytes == 4 * 10 * 4
+    res = table.residual_vec(("c", 1))
+    assert type(res) is torch.Tensor and torch.equal(res, rows[3])
 
 
 # ------------------------------------------------------ one format, both ways

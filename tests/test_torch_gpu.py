@@ -814,3 +814,95 @@ def test_moe_combine_is_run_to_run_bit_identical(cuda, arch, monkeypatch):
     (rows, ye, out), = seen
     assert rows.shape == (4 * 1024, cfg.top_k)
     assert torch.equal(out.cpu(), combine(rows.cpu(), ye.cpu()))
+
+
+# ------------------------------------------------ cells on a one-card mesh
+
+# tests/test_torch_dryrun.py's bound for the aggregation cell's bf16 leaves
+# against the flat engine's f32 result, as a share of max(|g|, max_k |w_k|)
+AGG_BF16_BOUND = 2.0 ** -6
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_a_smoke_lm_cell_on_the_one_card_mesh_equals_the_eager_step(cuda,
+                                                                    kind):
+    """A smoke LM cell materialized and run on the (1, 1) cuda mesh (a
+    one-rank process group) gives the eager step builders' outputs bit for
+    bit, and its arguments take the dry run's argument bytes."""
+    from repro_torch.configs import ShapeConfig, smoke_config
+    from repro_torch.launch import dryrun as D, specs as S
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = smoke_config("phi4-mini-3.8b")
+    model = LM(cfg, "cuda")
+    with local_process_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        cell = S.build_cell(cfg, ShapeConfig("smoke", 64, 8, kind), mesh)
+        args = S.materialize(cell, "cuda", seed=5, pos=60)
+        want_bytes = D.memory_record(
+            cell, D.trace_cell(cell, peak=False)[0])["argument_size_in_bytes"]
+        assert want_bytes == sum(
+            t.numel() * t.element_size()
+            for t in torch.utils._pytree.tree_leaves(args)
+            if isinstance(t, torch.Tensor) and t.is_cuda)
+        if kind == "train":
+            got_s, got_m = S.run_cell(cell, args)
+            want_s, want_m = S.make_train_step(model)(*args)
+            assert torch.equal(got_m["loss"], want_m["loss"])
+            for (p, a), (_, b) in zip(tree_leaves(got_s.params),
+                                      tree_leaves(want_s.params)):
+                assert torch.equal(a, b), p
+        elif kind == "prefill":
+            params, batch, _ = args
+            got, _ = S.run_cell(cell, args)
+            want, _ = S.make_prefill_step(model)(
+                params, batch, model.init_cache(8, 64))
+            assert torch.equal(got, want)
+        else:
+            params, cache, tok = args
+            twin = tree_map(lambda t: t.clone() if isinstance(
+                t, torch.Tensor) else t, cache)
+            t1 = t2 = tok
+            for _ in range(3):
+                t1, cache = S.run_cell(cell, (params, cache, t1))
+                t2, twin = S.make_serve_step(model)(params, twin, t2)
+                assert torch.equal(t1, t2)
+        torch.cuda.synchronize()
+
+
+def test_the_agg_cell_on_the_card_is_within_the_bound_of_the_flat_engine(
+        cuda):
+    """The SEAFL aggregation cell on DTensors of the (1, 1) cuda mesh (the
+    pytree path, no kernel) against the flat engine (B1 + B2) on the same
+    (K, P) bf16 buffer, whose rows the stacked leaves are views of."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.aggregation import SeaflHyper
+    from repro_torch.core.packer import ParamPacker
+    from repro_torch.kernels.seafl_agg import kernel as K, ops
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.tree import tree_map
+    cfg = smoke_config("phi4-mini-3.8b")
+    with local_process_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        cell = S.build_agg_cell(cfg, mesh, 4)
+        pk = ParamPacker(LM(cfg, "meta").init())
+        buf = torch.empty((4, pk.size), dtype=torch.bfloat16, device=cuda)
+        g, stacked, sizes, stale = args = S.materialize(cell, "cuda", 3,
+                                                        buffer=buf)
+        K.reset_launch_counts()
+        out, w = S.run_cell(cell, args)
+        torch.cuda.synchronize()
+        assert not any(fn.launches for fn in K.KERNELS)
+    local = lambda tree: tree_map(lambda t: t.to_local(), tree)  # noqa: E731
+    h = SeaflHyper()
+    g_flat = pk.pack(local(g))
+    flat, p = ops.seafl_aggregate_flat_from_params(
+        g_flat, buf, sizes.to_local().tolist(), stale.to_local().tolist(),
+        h.alpha, h.mu, h.beta, h.theta)
+    torch.testing.assert_close(p, w.to_local(), rtol=0, atol=1e-6)
+    scale = torch.maximum(g_flat.abs(), buf.float().abs().amax(0))
+    share = float(((pk.pack(local(out)) - flat).abs() / scale).max())
+    assert share <= AGG_BF16_BOUND, share

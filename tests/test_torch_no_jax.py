@@ -34,7 +34,9 @@ assert not leaked, leaked
 for m in ("repro_torch.checkpoint.checkpointer", "repro_torch.runtime.codecs",
           "repro_torch.runtime.compression", "repro_torch.runtime.dispatch",
           "repro_torch.runtime.cohorts", "repro_torch.runtime.monitor",
-          "repro_torch.runtime.autotune", "repro_torch.launch.report"):
+          "repro_torch.runtime.autotune", "repro_torch.launch.report",
+          "repro_torch.sharding", "repro_torch.launch.mesh",
+          "repro_torch.launch.op_cost", "repro_torch.launch.dryrun"):
     assert m in names, m
 print(len(names))
 """
