@@ -5,6 +5,8 @@ federated simulation, the LM serving path and the LM training path.
     python3 chip_smoke.py
     python3 chip_smoke.py --ssd-precision   # only the SSD precision probe
     python3 chip_smoke.py --probe           # only B4 f32's and B5's probe
+    python3 chip_smoke.py --dist            # only phase l
+    python3 chip_smoke.py --shards          # only phases l and m
 
 Phases, each printing its lines; no phase's failure is caught:
 
@@ -138,12 +140,24 @@ Phases, each printing its lines; no phase's failure is caught:
               (B4 32 a step; loss and aux finite); the f32 smoke config
               card against CPU, serving and 3 trainer rounds, with the same
               routing ([mla] and the reused phases' lines)
- 15. result   one JSON line of per-kernel numbers (B4 as two rows, one
+ 15. dist     (l) distribution and cost: the dry-run CLI for
+              phi4-mini-3.8b on 16 x 16, 2 x 16 x 16 and (1, 1) in
+              subprocesses; its train_4k, prefill_32k and decode_32k cells,
+              batch cut, on the (1, 1) cuda mesh on plain tensors (argument
+              bytes against the dry run's, peak, ms, TFLOP/s, bit-equal to
+              the eager builders); the aggregation cell against B1 + B2
+ 16. shards   (m) the same three cells on DTensor arguments, bit-equal to
+              phase l's runs (B4 64 a train step, 32 a prefill, 0 in
+              decode), their times beside phase l's; B4 at the local shapes
+              of qwen3-32b's and granite-34b's 16 x 16 prefill_32k shards
+              through the route's local body, against its plain version,
+              with its bound and SDPA's ms ([shards] lines)
+ 17. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance, the bf16 row with whisper's two shapes,
-              mixtral's and deepseek's; each row with its training, uplink,
-              downlink, health, vlm, encdec, moe and mla launches), the
-              nvidia-smi line, and last the contract line {"ok": true,
-              "device": {...}}
+              mixtral's, deepseek's, phi4-mini's and the two shards'; each
+              row with its training, uplink, downlink, health, vlm, encdec,
+              moe, mla, dist and shards launches), the nvidia-smi line, and
+              last the contract line {"ok": true, "device": {...}}
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
 why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
@@ -3151,6 +3165,7 @@ DIST = "phi4-mini-3.8b"
 # 32 and 128)
 DIST_CUTS = {"train_4k": 8, "prefill_32k": 1, "decode_32k": 4}
 DIST_DECODE_STEPS = 8
+PUBLISHED_MESHES = ("16x16", "2x16x16", "1x1")
 DIST_K = 4
 DIST_SEED = 24
 # the caching allocator hands a tensor a block of a multiple of 512 bytes,
@@ -3171,12 +3186,12 @@ AGG_BF16_BOUND = 2.0 ** -6
 
 def _start_dryruns(tmp):
     """The dry-run CLI in subprocesses on the host's cores while the card
-    works: the published cells on the two production meshes and the
-    one-card mesh, and each cut cell on the one-card mesh.  {name: (Popen,
-    out dir, log file)}."""
+    works: the published cells on each of the two production meshes and
+    the one-card mesh (one subprocess a mesh), and each cut cell on the
+    one-card mesh.  {name: (Popen, out dir, log file)}."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    runs = {"published": ["--agg", "--mesh", "16x16", "--mesh", "2x16x16",
-                          "--mesh", "1x1"]}
+    runs = {f"published_{m}": ["--agg", "--mesh", m]
+            for m in PUBLISHED_MESHES}
     for shape, batch in DIST_CUTS.items():
         runs[shape] = ["--shape", shape, "--batch", str(batch), "--mesh",
                        "1x1"]
@@ -3208,7 +3223,7 @@ def _dist_print_dryrun(recs):
     dispatch collectives on 2 x 16 x 16 and none on (1, 1)."""
     for f, r in recs.items():
         m, c = r["memory"], r["collectives"]
-        coll = "null (the LM step does not run on shards yet)" if c is None \
+        coll = "null (its family does not run on shards yet)" if c is None \
             else (f"{c['total_bytes']} B, " + (", ".join(
                 f"{k} {v['count']}" for k, v in c.items()
                 if isinstance(v, dict) and v["count"]) or "none")
@@ -3227,6 +3242,10 @@ def _dist_print_dryrun(recs):
                 raise AssertionError(f"{f}: collectives on one card")
         elif not r["op_cost"]["flops"] > 0:
             raise AssertionError(f"{f}: flops {r['op_cost']['flops']}")
+        elif c is None or (r["n_devices"] > 1) != (c["total_bytes"] > 0):
+            # phi4-mini-3.8b is dense: its cells run on shards
+            raise AssertionError(f"{f}: collectives {c} on "
+                                 f"{r['n_devices']} devices")
 
 
 def _n_device_leaves(torch, tree):
@@ -3258,13 +3277,22 @@ def _card_flops(torch, cfg, shape, fn):
     return counted + b4, b4
 
 
+def _local_args(torch, tree):
+    """``tree`` with each DTensor leaf as its local tensor (no copy)."""
+    from torch.distributed.tensor import DTensor
+    return torch.utils._pytree.tree_map(
+        lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
+
+
 def _dist_cell(torch, mesh, name, rec):
     """ii. One of phi4-mini-3.8b's cells, cut to DIST_CUTS' batch, on the
-    one-card mesh through materialize + run_cell: its arguments' bytes
-    against the dry run's, the step's peak against its estimate, step ms
-    and TFLOP/s of the card's program (``_card_flops``, one more run after
-    the timed ones), B4's launches, and the outputs of the eager step
-    builders on the same inputs, bit for bit."""
+    one-card mesh through materialize + run_cell, on plain tensors (the
+    arguments' local tensors): its arguments' bytes against the dry
+    run's, the step's peak against its estimate, step ms and TFLOP/s of
+    the card's program (``_card_flops``, one more run after the timed
+    ones), B4's launches, and the outputs of the eager step builders on
+    the same inputs, bit for bit.  Returns (the first run's outputs on
+    the host, which phase m holds its DTensor run to; the summary)."""
     from repro_torch.configs import SHAPES, ShapeConfig, get_config
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch import specs as SP
@@ -3278,8 +3306,8 @@ def _dist_cell(torch, mesh, name, rec):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base, base_req = torch.cuda.memory_allocated(), _requested(torch)
-    args = SP.materialize(cell, "cuda", DIST_SEED,
-                          pos=shape.seq_len - DIST_DECODE_STEPS)
+    args = _local_args(torch, SP.materialize(
+        cell, "cuda", DIST_SEED, pos=shape.seq_len - DIST_DECODE_STEPS))
     torch.cuda.synchronize()
     rise = torch.cuda.memory_allocated() - base
     asked = _requested(torch) - base_req
@@ -3301,12 +3329,13 @@ def _dist_cell(torch, mesh, name, rec):
         (state, met), w = _sync_s(torch, lambda: SP.run_cell(cell, args))
         peak = torch.cuda.max_memory_allocated()
         host = tree_map(lambda t: t.cpu(), state.params)
+        first = dict(loss=met["loss"].cpu(), params=host)
         del state, args
         state, eager_met = SP.make_train_step(model)(state0, batch)
         same = (torch.equal(met["loss"], eager_met["loss"])
                 and _same_tree(torch, host, tree_map(lambda t: t.cpu(),
                                                      state.params)))
-        del state0, host
+        del state0
         for _ in range(2):
             (state, met), w = _sync_s(torch, lambda: SP.run_cell(
                 cell, (state, batch)))
@@ -3323,6 +3352,7 @@ def _dist_cell(torch, mesh, name, rec):
             params, batch, model.init_cache(shape.global_batch,
                                             shape.seq_len))
         same = torch.equal(logits, eager)
+        first = dict(logits=logits.cpu())
         for _ in range(2):
             _, w = _sync_s(torch, lambda: SP.run_cell(cell, args))
             walls.append(w)
@@ -3355,6 +3385,7 @@ def _dist_cell(torch, mesh, name, rec):
             t2, twin = SP.make_serve_step(model)(params, twin, t2)
             eager.append(t2)
         same = all(torch.equal(a, b) for a, b in zip(toks, eager))
+        first = dict(tokens=torch.cat(toks, 1).cpu())
         walls = walls[1:]
         runs = 2 * DIST_DECODE_STEPS
         detail = (f"{DIST_DECODE_STEPS} steps from pos "
@@ -3391,7 +3422,7 @@ def _dist_cell(torch, mesh, name, rec):
         f"to the eager builders bit for bit ({detail})")
     del model
     torch.cuda.empty_cache()
-    return dict(batch=shape.global_batch, of=pub.global_batch,
+    return first, dict(batch=shape.global_batch, of=pub.global_batch,
                 seq=shape.seq_len, arg_bytes=asked, arg_block_bytes=rise,
                 dry_arg_bytes=want,
                 peak_bytes=peak, peak_estimate_bytes=est,
@@ -3497,7 +3528,8 @@ def _dist_agg(torch, mesh):
 
 
 def phase_dist(torch):
-    """l. Distribution and cost (A19): (i) the dry-run CLI
+    """l. Distribution and cost (A19), returning (each cell's first
+    outputs on the host, the summary): (i) the dry-run CLI
     (repro_torch.launch.dryrun --arch phi4-mini-3.8b --agg) on the 16 x 16
     and 2 x 16 x 16 production meshes and the (1, 1) mesh, in a subprocess
     on the host's cores while the card runs (ii) and (iii): a [dist] line
@@ -3519,17 +3551,21 @@ def phase_dist(torch):
             with local_process_group():
                 mesh = make_mesh((1, 1), ("data", "model"),
                                  device_type="cuda")
-                cells, walls = {}, {}
+                cells, walls, firsts = {}, {}, {}
                 for name in DIST_CUTS:
                     rec, = _dryrun_records(procs, name, 600).values()
                     t1 = time.perf_counter()
-                    cells[name] = _dist_cell(torch, mesh, name, rec)
+                    firsts[name], cells[name] = _dist_cell(torch, mesh, name,
+                                                           rec)
                     walls[name] = time.perf_counter() - t1
                 t1 = time.perf_counter()
                 agg = _dist_agg(torch, mesh)
                 walls["agg"] = time.perf_counter() - t1
             t1 = time.perf_counter()
-            published = _dryrun_records(procs, "published", 900)
+            published = {}
+            for m in PUBLISHED_MESHES:
+                published.update(_dryrun_records(procs, f"published_{m}",
+                                                 900))
             walls["dry_run_wait"] = time.perf_counter() - t1
         finally:
             for proc, _, logf in procs.values():
@@ -3542,12 +3578,174 @@ def phase_dist(torch):
     log(f"[dist] phase took {took:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
     lm = {"flash_attention": sum(c["b4_launches"] for c in cells.values())}
-    return dict(cells=cells, agg=agg, lm_launches=lm, phase_s=took,
-                part_s=walls,
-                dry_run={f: dict(flops=r["op_cost"]["flops"],
-                                 memory=r["memory"],
-                                 collectives=r["collectives"])
-                         for f, r in published.items()})
+    return firsts, dict(
+        cells=cells, agg=agg, lm_launches=lm, phase_s=took, part_s=walls,
+        dry_run={f: dict(flops=r["op_cost"]["flops"], memory=r["memory"],
+                         collectives=r["collectives"])
+                 for f, r in published.items()})
+
+
+# The local B4 problems of the 16 x 16 prefill_32k shards (batch 32 over 16
+# batch shards, 32768 positions, heads of 128, bf16, causal): qwen3-32b's
+# "repeat_kv" (its 64 heads and their repeated KV over 16: 4 a device) and
+# granite-34b's "heads" (MQA, its 48 query groups over 16: 3 on the one KV
+# head).  (B, S, KVH, G, D) of each device's grouped query.
+SHARD_B4 = {"qwen3-32b": (2, 32768, 4, 1, 128),
+            "granite-34b": (2, 32768, 1, 3, 128)}
+
+
+def _shard_cell(torch, mesh, name, first, plain):
+    """m (i). One of phase l's phi4-mini-3.8b cells again, from the same
+    seed, on the (1, 1) cuda mesh with DTensor arguments (materialize's
+    own): its first run's outputs equal phase l's plain-tensor run's bit
+    for bit, B4 launches as phase l's, and its time beside phase l's (the
+    train step and the prefill run twice, the second timed; decode's 8
+    steps, all but the first)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import specs as SP
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(DIST)
+    pub = SHAPES[name]
+    shape = ShapeConfig(name, pub.seq_len, DIST_CUTS[name], pub.kind)
+    cell = SP.build_cell(cfg, shape, mesh)
+    args = SP.materialize(cell, "cuda", DIST_SEED,
+                          pos=shape.seq_len - DIST_DECODE_STEPS)
+    leaves = [t for t in torch.utils._pytree.tree_leaves(args)
+              if isinstance(t, torch.Tensor) and t.dim() > 0]
+    if not all(isinstance(t, DTensor) for t in leaves):
+        raise AssertionError(f"{name}: materialize gave plain tensors")
+    local = lambda t: t.to_local().cpu()  # noqa: E731
+    _reset_lm_counts()
+    walls = []
+    if shape.kind == "train":
+        (state, met), _ = _sync_s(torch, lambda: SP.run_cell(cell, args))
+        same = torch.equal(local(met["loss"]), first["loss"]) and all(
+            torch.equal(local(a), b) for (_, a), (_, b) in
+            zip(tree_leaves(state.params), tree_leaves(first["params"])))
+        batch = args[1]
+        del args
+        (state, met), w = _sync_s(torch, lambda: SP.run_cell(
+            cell, (state, batch)))
+        walls.append(w)
+        runs = 2
+        del state, met, batch
+    elif shape.kind == "prefill":
+        (logits, _), _ = _sync_s(torch, lambda: SP.run_cell(cell, args))
+        same = torch.equal(local(logits), first["logits"])
+        del logits
+        _, w = _sync_s(torch, lambda: SP.run_cell(cell, args))
+        walls.append(w)
+        runs = 2
+        del args
+    else:
+        params, cache, tok = args
+        del args
+        toks = []
+        for _ in range(DIST_DECODE_STEPS):
+            (tok, cache), w = _sync_s(torch, lambda: SP.run_cell(
+                cell, (params, cache, tok)))
+            walls.append(w)
+            toks.append(local(tok))
+        same = torch.equal(torch.cat(toks, 1), first["tokens"])
+        walls = walls[1:]
+        runs = DIST_DECODE_STEPS
+        del params, cache, tok
+    torch.cuda.synchronize()
+    per_run = {"train": 2 * cfg.n_layers, "prefill": cfg.n_layers,
+               "decode": 0}[shape.kind]
+    launched = FK.flash_attention_call.launches
+    if launched != per_run * runs:
+        raise AssertionError(f"{name} on DTensors: B4 launched {launched} "
+                             f"in {runs} runs, expected {per_run} a run")
+    if not same:
+        raise AssertionError(f"{name} on DTensors: the outputs differ from "
+                             "phase l's plain-tensor run")
+    ms = sorted(walls)[len(walls) // 2] * 1e3
+    log(f"[shards] {DIST} {name} on the (1, 1) mesh, DTensor arguments: "
+        f"{'step' if shape.kind != 'decode' else 'decode step'} {ms:.2f} ms"
+        f" (warm), phase l's plain tensors {plain['ms']:.2f} ms (ratio "
+        f"{ms / plain['ms']:.4f}); B4 {per_run} a run; outputs equal phase "
+        f"l's bit for bit")
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_tensor_ms=plain["ms"], b4_per_run=per_run,
+                b4_launches=launched, walls_ms=[x * 1e3 for x in walls])
+
+
+def _shard_b4(torch, arch):
+    """m (ii). B4 at one 16 x 16 shard's local problem (``SHARD_B4``),
+    through the kernel route's body on a rank's local heads
+    (``layers._flash_grouped``, what ``local_map`` hands each rank's
+    shards): against its plain version within one bf16 step (phase 3's
+    bar), its ms, its bound and SDPA's (flash backend, k/v expanded)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import layers as L
+    F = torch.nn.functional
+    B, S, KVH, G, D = SHARD_B4[arch]
+    H = KVH * G
+    q, k, v = _flash_inputs(torch, B, S, S, H, KVH, D, torch.bfloat16,
+                            70 + len(arch))
+    qg = q.reshape(B, S, KVH, G, D)
+    FK.reset_launch_counts()
+    with torch.no_grad():
+        o = L._flash_grouped(qg, k, v, True, None, 512).reshape(B, S, H, D)
+        want, plain_s = _sync_s(torch, lambda: _flash_plain(q, k, v, True,
+                                                            None))
+    if FK.flash_attention_call.launches_tc != 1:
+        raise AssertionError(f"{arch}'s shard: B4 did not run on tc")
+    err = _max_err(torch, o, want, rtol=2 ** -7, atol=1e-5)
+    del o, want
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1) for t in (k, v))
+
+    def sdpa_flash():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    with torch.no_grad():
+        ms = _time_ms(torch, lambda: L._flash_grouped(qg, k, v, True, None,
+                                                      512), iters=10,
+                      warmup=2)
+    lib = _time_ms(torch, sdpa_flash, iters=5, warmup=1)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    flops = 4 * D * (S * (S + 1) // 2) * B * H
+    bound, by = _bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    log(f"[shards] B4 at {arch}'s 16 x 16 prefill_32k shard, q ({B}, {S}, "
+        f"{H}, {D}), k/v ({B}, {S}, {KVH}, {D}), causal, bf16 (tc), through "
+        f"the route's local body: max|d| {err:.3e} against the plain version"
+        f" (one bf16 step); kernel_ms={ms:.4f} bound_ms={bound:.4f} ({by}, "
+        f"{flops:.4g} flop) library_ms={lib:.4f} (SDPA, flash) "
+        f"plain_s={plain_s:.2f} bound/kernel={bound / ms:.4f}")
+    del q, k, v, qg, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(q=[B, S, H, D], kv=[B, S, KVH, D], max_abs_err=err, ms=ms,
+                bound_ms=bound, bound_by=by, library_ms=lib,
+                plain_ms=plain_s * 1e3)
+
+
+def phase_shards(torch, firsts, dist):
+    """m. The dense family's LM step on DTensor shards, on the card: (i)
+    phi4-mini-3.8b's three cells of phase l on the (1, 1) cuda mesh with
+    DTensor arguments, bit-equal to phase l's plain-tensor runs
+    (``_shard_cell``); (ii) B4 at the local shapes of two 16 x 16
+    prefill_32k shards through the route's local body (``_shard_b4``).
+    Phase l's outputs are dropped as each cell is checked."""
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    t0 = time.perf_counter()
+    cells = {}
+    with local_process_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for name in DIST_CUTS:
+            cells[name] = _shard_cell(torch, mesh, name, firsts.pop(name),
+                                      dist["cells"][name])
+    b4 = {arch: _shard_b4(torch, arch) for arch in SHARD_B4}
+    took = time.perf_counter() - t0
+    log(f"[shards] phase took {took:.1f} s")
+    return dict(cells=cells, b4=b4, phase_s=took,
+                lm_launches={"flash_attention": sum(
+                    c["b4_launches"] for c in cells.values())})
 
 
 def phase_lm_cost(torch):
@@ -3594,9 +3792,9 @@ def phase_lm_cost(torch):
 
 def main() -> int:
     if sys.argv[1:] not in ([], ["--ssd-precision"], ["--probe"],
-                            ["--lm-cost"], ["--dist"]):
+                            ["--lm-cost"], ["--dist"], ["--shards"]):
         print("usage: chip_smoke.py [--ssd-precision | --probe | "
-              "--lm-cost | --dist]", file=sys.stderr)
+              "--lm-cost | --dist | --shards]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -3616,8 +3814,12 @@ def main() -> int:
     if sys.argv[1:] == ["--lm-cost"]:
         phase_lm_cost(torch)
         return 0
-    if sys.argv[1:] == ["--dist"]:
-        log(f"[dist] summary: {json.dumps(phase_dist(torch))}")
+    if sys.argv[1:] in (["--dist"], ["--shards"]):
+        firsts, dist = phase_dist(torch)
+        log(f"[dist] summary: {json.dumps(dist)}")
+        if sys.argv[1:] == ["--shards"]:
+            shards = phase_shards(torch, firsts, dist)
+            log(f"[shards] summary: {json.dumps(shards)}")
         return 0
     errs = phase_parity(torch)
     errs.update(phase_parity_lm(torch))
@@ -3634,7 +3836,8 @@ def main() -> int:
     encdec = phase_encdec(torch)
     moe = phase_moe(torch)
     mla = phase_mla(torch)
-    dist = phase_dist(torch)
+    firsts, dist = phase_dist(torch)
+    shards = phase_shards(torch, firsts, dist)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -3677,7 +3880,8 @@ def main() -> int:
             "moe_step": moe["step"]["launches_tc"],
             "mla_prefill": mla["serve_launches"]["flash_attention_tc"],
             "mla_step": mla["step"]["launches_tc"],
-            "dist_cells": dist["lm_launches"]["flash_attention"]},
+            "dist_cells": dist["lm_launches"]["flash_attention"],
+            "shards_cells": shards["lm_launches"]["flash_attention"]},
         "flash_attention_f32_mma": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"],
             "vlm_smoke": vlm["smoke_serve_mma"]
@@ -3755,7 +3959,8 @@ def main() -> int:
                     max_abs_err=errs[f"flash_attention_phi4_1x"
                                      f"{PHI4['prompt']}"],
                     train_max_abs_err=errs["flash_attention_phi4_{}x{}"
-                                           .format(*PHI4["train"])])}
+                                           .format(*PHI4["train"])]),
+                "shard_shapes": shards["b4"]}
                if kname == "flash_attention_bf16_tc" else {}),
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
@@ -3770,6 +3975,7 @@ def main() -> int:
     log(f"[moe] summary: {json.dumps(moe)}")
     log(f"[mla] summary: {json.dumps(mla)}")
     log(f"[dist] summary: {json.dumps(dist)}")
+    log(f"[shards] summary: {json.dumps(shards)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

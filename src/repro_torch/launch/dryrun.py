@@ -16,15 +16,17 @@ cell it records:
     included.  The meta device runs each kernel route's plain translation
     (flash attention's chunked scores among them), so the estimate is the
     plain path's;
-  * ``collectives``: per kind count and bytes.  An LM cell's step runs on
-    whole tensors (the LM does not run on shards yet), so on a mesh of more
-    than one device its collectives are not known: ``null``, with the
-    reason.  The SEAFL aggregation cells run on DTensors with meta local
-    shards and record the collectives they dispatch;
+  * ``collectives``: per kind count and bytes.  The SEAFL aggregation
+    cells and the dense family's LM cells run on DTensors with meta local
+    shards and record the collectives they dispatch.  The other families'
+    LM steps run on whole tensors (their layers do not run on shards yet),
+    so on a mesh of more than one device their collectives are not known:
+    ``null``, with the reason;
   * ``trace_seconds``, the counterpart of ``lower_seconds`` and
     ``compile_seconds``.
 
-An LM cell's trace depends on the arch and shape, not on the mesh, so a run
+A cell on shards is traced once per mesh.  The trace of an LM cell on
+whole tensors depends on the arch and shape, not on the mesh, so a run
 over several meshes traces it once.
 
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k
@@ -66,19 +68,21 @@ def cell_filename(arch: str, shape: str, mesh_shape) -> str:
 
 def trace_cell(cell, peak: bool):
     """(outputs, op_cost, seconds, peak bytes or None) of one run of
-    ``cell``'s step on its meta arguments."""
+    ``cell``'s step on its meta arguments, under its mesh's axis rules."""
     import torch
     from repro_torch.launch.op_cost import trace_step
     from repro_torch.launch.specs import materialize
+    from repro_torch.sharding import axis_rules
     args = materialize(cell, "meta")
     if not peak:
-        out, cost, secs = trace_step(cell.step_fn, *args)
+        with axis_rules(cell.mesh):
+            out, cost, secs = trace_step(cell.step_fn, *args)
         return out, cost, secs, None
     from torch.distributed._tools.mem_tracker import MemTracker
     mt = MemTracker()
     mt.track_external(*[t for t in torch.utils._pytree.tree_leaves(args)
                         if isinstance(t, torch.Tensor)])
-    with mt:
+    with mt, axis_rules(cell.mesh):
         out, cost, secs = trace_step(cell.step_fn, *args)
     snap = mt.get_tracker_snapshot("peak")
     meta = [v for k, v in snap.items() if torch.device(k).type == "meta"]
@@ -97,11 +101,13 @@ def memory_record(cell, out) -> dict:
 
 
 def collectives_record(cost: dict) -> dict:
-    """Per kind count and bytes, their total, and the least time the total
-    could take over one GPU's NVLink at its spec-sheet rate one way."""
+    """Per kind count, bytes and the distinct shapes handed over, the total
+    bytes, and the least time the total could take over one GPU's NVLink
+    at its spec-sheet rate one way."""
     from repro_torch.kernels._common import NVLINK_BYTES_PER_S
     rec = {k: {"count": int(cost["coll_counts"][k]),
-               "bytes": int(cost["coll"][k])} for k in cost["coll"]}
+               "bytes": int(cost["coll"][k]),
+               "shapes": cost["coll_shapes"][k]} for k in cost["coll"]}
     rec["total_bytes"] = int(cost["coll_total_bytes"])
     rec["nvlink_bound_s"] = rec["total_bytes"] / NVLINK_BYTES_PER_S
     return rec
@@ -109,6 +115,7 @@ def collectives_record(cost: dict) -> dict:
 
 def run_cell(cell, mesh_shape, trace) -> dict:
     """The record of ``cell`` on a mesh of ``mesh_shape`` from its trace."""
+    from repro_torch.launch.specs import on_shards
     out, cost, secs, peak = trace
     n = math.prod(mesh_shape)
     rec = {"cell": cell.name, "batch": cell.extra.get("batch"),
@@ -118,11 +125,12 @@ def run_cell(cell, mesh_shape, trace) -> dict:
            "op_cost": cost, "memory": memory_record(cell, out)}
     if peak is not None and n == 1:
         rec["memory"]["peak_estimate_bytes"] = peak
-    if cell.kind != "agg" and n > 1:
+    if not on_shards(cell) and n > 1:
         rec["collectives"] = None
         rec["collectives_null_reason"] = (
-            "the LM step runs on whole tensors, not on shards, so the "
-            "collectives a sharded step needs are not known yet")
+            f"the {cell.cfg.family} family's LM step runs on whole tensors, "
+            "not on shards, so the collectives a sharded step needs are not "
+            "known yet")
     else:
         rec["collectives"] = collectives_record(cost)
     return rec
@@ -153,7 +161,7 @@ def main(argv=None) -> int:
                                      list_configs, smoke_config)
     from repro_torch.launch.mesh import (fake_process_group, make_mesh,
                                          production_shape)
-    from repro_torch.launch.specs import build_agg_cell, build_cell
+    from repro_torch.launch.specs import build_agg_cell, build_cell, on_shards
     from repro_torch.sharding import axis_rules
 
     config = smoke_config if args.smoke else get_config
@@ -197,9 +205,12 @@ def main(argv=None) -> int:
                                 sh = dataclasses.replace(
                                     sh, global_batch=args.batch)
                             cell = build_cell(cfg, sh, mesh)
-                            if (arch, shape) not in traces:
-                                traces[(arch, shape)] = trace_cell(cell, True)
-                            trace = traces[(arch, shape)]
+                            # a cell on shards is traced on each mesh; one
+                            # on whole tensors traces the same on every mesh
+                            key = (arch, shape, on_shards(cell) and mesh_shape)
+                            if key not in traces:
+                                traces[key] = trace_cell(cell, peak=n == 1)
+                            trace = traces[key]
                         rec = run_cell(cell, mesh_shape, trace)
                     with open(fname, "w") as f:
                         json.dump(rec, f, indent=1)

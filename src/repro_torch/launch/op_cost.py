@@ -23,6 +23,8 @@ and a checkpointed block's recompute is counted where the backward runs it.
   * ``coll`` and ``coll_counts``: per collective kind, the bytes of the
     tensors handed to the functional collectives and their count (counted
     by ``CommDebugMode``); 0 with no process group or on a one-device mesh;
+  * ``coll_shapes``: per kind, the distinct shapes of those tensors and of
+    the ones the collectives return;
   * ``coll_total_bytes``.
 
 On DTensors the mode lets DTensor run first (it returns ``NotImplemented``
@@ -92,6 +94,7 @@ class _OpCounter(TorchDispatchMode):
         self.trans = 0
         self.hbm_bytes = 0
         self.coll = dict.fromkeys(COLLECTIVES, 0)
+        self.coll_shapes = {k: set() for k in COLLECTIVES}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(t is DTensor for t in types):
@@ -115,7 +118,9 @@ class _OpCounter(TorchDispatchMode):
                 if func.namespace in ("_c10d_functional", "c10d_functional")
                 else None)
         if kind is not None:
-            self.coll[kind] += sum(map(_nbytes, _tensors((args, kwargs))))
+            ts = _tensors((args, kwargs))
+            self.coll[kind] += sum(map(_nbytes, ts))
+            self.coll_shapes[kind].update(tuple(t.shape) for t in ts + outs)
         elif not func.is_view:
             self.hbm_bytes += sum(map(_nbytes, outs))
         return out
@@ -142,6 +147,8 @@ def trace_step(fn, *args):
             "trans": float(ops.trans), "hbm_bytes": float(ops.hbm_bytes),
             "coll": {k: float(v) for k, v in ops.coll.items()},
             "coll_counts": counts,
+            "coll_shapes": {k: sorted(map(list, v))
+                            for k, v in ops.coll_shapes.items()},
             "coll_total_bytes": float(sum(ops.coll.values()))}
     return out, cost, seconds
 

@@ -9,9 +9,11 @@ the meta device: the full-size configs are traced there (``launch/dryrun.py``),
 never allocated.  :func:`materialize` makes seeded real arguments for a cell
 and :func:`run_cell` runs it.
 
-The LM step does not run on shards yet: on a mesh of more than one device
-an LM cell is traced (its per-device bytes come from the placements) but
-:func:`run_cell` refuses it.  The SEAFL aggregation cell runs on DTensors.
+The SEAFL aggregation cell and the dense family's LM cells run on DTensors
+(:func:`on_shards`), on any mesh.  The other families' LM steps do not run
+on shards yet: on a mesh of more than one device their cells are traced on
+whole tensors (their per-device bytes come from the placements) and
+:func:`run_cell` refuses them.
 
 Scalars the port keeps on the host are not device arguments: a train
 state's ``step`` (an int32 on the CPU) and a cache's ``pos`` (a Python
@@ -25,14 +27,15 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
 from repro_torch.optim import TrainState, sgd
 from repro_torch.sharding import (AxisRules, NamedSharding, PartitionSpec as P,
                                   axis_rules, divisible, mesh_axis_sizes,
-                                  named_sharding, param_pspecs)
+                                  named_sharding, param_pspecs, replicated,
+                                  sharded_over)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -50,9 +53,13 @@ def make_train_step(model, lr: float = 0.05, microbatches: int | None = None):
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
         loss, metrics = model.loss(leaves, batch)
         # a leaf the loss does not read (whisper's encoder) gets zeros
-        grads = torch.autograd.grad(loss, [t for _, t in tree_leaves(leaves)],
-                                    materialize_grads=True)
-        it = iter(grads)
+        ts = [t for _, t in tree_leaves(leaves)]
+        grads = torch.autograd.grad(loss, ts, materialize_grads=True)
+        # on shards, each gradient in its parameter's placements (a
+        # partial sum over the batch's ranks summed)
+        it = iter(g.redistribute(t.device_mesh, t.placements)
+                  if isinstance(g, DTensor) else g
+                  for g, t in zip(grads, ts))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             tree_map(lambda _: next(it), leaves)
 
@@ -60,10 +67,9 @@ def make_train_step(model, lr: float = 0.05, microbatches: int | None = None):
         if M <= 1:
             loss, metrics, grads = grad_fn(state.params, batch)
         else:
-            micro = {k: v.reshape((M, v.shape[0] // M) + v.shape[1:])
-                     for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            micro = {k: _microbatches(v, M) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             losses, ms = [], []
             for i in range(M):
                 loss, m, g = grad_fn(state.params,
@@ -81,6 +87,20 @@ def make_train_step(model, lr: float = 0.05, microbatches: int | None = None):
         return opt.apply(state, grads), {"loss": loss, **metrics}
 
     return train_step
+
+
+def _microbatches(v, M: int):
+    """``v`` (B, ...) as M microbatches of B / M rows, in order, as the
+    reference splits it.  A batch-sharded DTensor is gathered whole first
+    (token ids and labels: small) and each microbatch sharded as the batch
+    was, where its rows divide the shards."""
+    if not isinstance(v, DTensor):
+        return v.reshape((M, v.shape[0] // M) + v.shape[1:])
+    whole, b = replicated(v, [0]), v.shape[0] // M
+    rows = [whole[i * b:(i + 1) * b] for i in range(M)]
+    if b % sharded_over(v, 0):
+        return rows
+    return [r.redistribute(v.device_mesh, v.placements) for r in rows]
 
 
 def make_prefill_step(model):
@@ -363,7 +383,8 @@ def materialize(cell: CellSpec, device, seed: int = 0, *, pos=None,
     labels uniform over the vocabulary, image embeddings and frames N(0, 1)
     in bf16.  A prefill cache is empty; a decode cache is N(0, 1) with
     ``pos`` (default the last slot) as its position.  An LM cell's
-    arguments are this rank's local tensors.
+    arguments are this rank's shards: DTensors for a cell on shards
+    (:func:`on_shards`), else its local tensors.
 
     An aggregation cell's are DTensors: the global as ``LM.init`` draws it,
     K clients at 0.01 N(0, 1) from it, data sizes in [1, 64] and staleness
@@ -374,8 +395,8 @@ def materialize(cell: CellSpec, device, seed: int = 0, *, pos=None,
     from repro_torch.models.model import LM
     dev = torch.device(device)
     if dev.type == "meta":
-        return (_place(cell.args, cell.in_shardings, dtensor=True)
-                if cell.kind == "agg" else cell.args)
+        return (place(cell.args, cell.in_shardings, dtensor=True)
+                if on_shards(cell) else cell.args)
     gen = torch.Generator(device=dev).manual_seed(seed)
     cfg = cell.cfg
     model = LM(cfg, dev)
@@ -413,20 +434,29 @@ def materialize(cell: CellSpec, device, seed: int = 0, *, pos=None,
                 t.copy_(_normal_like(t, gen))
         cache["pos"] = S - 1 if pos is None else int(pos)
         args = (params, cache, batch({"tokens": cell.args[2]})["tokens"])
-    return _place(args, ins, dtensor=False)
+    return place(args, ins, dtensor=on_shards(cell))
+
+
+def on_shards(cell) -> bool:
+    """Whether ``cell`` runs on DTensor shards: the aggregation cells and
+    the dense family's LM cells.  The other families' LM steps take whole
+    tensors (their layers do not run on shards yet)."""
+    return cell.kind == "agg" or cell.cfg.family == "dense"
 
 
 def _cache_dims(cell):
     return cell.extra["batch"], cell.extra["max_len"]
 
 
-def _place(tree, shardings, dtensor: bool):
-    """Each tensor leaf as this rank's shard (``dtensor``: wrapped as a
-    DTensor of the leaf's placements, without a copy)."""
+def place(tree, shardings, dtensor: bool = True):
+    """Each tensor leaf of ``tree`` (whole, the same on every rank) as this
+    rank's shard under its ``shardings`` record (``dtensor``: wrapped as a
+    DTensor of the leaf's placements, without a copy); the host scalars as
+    they are."""
     if isinstance(tree, Mapping):
-        return {k: _place(v, shardings[k], dtensor) for k, v in tree.items()}
+        return {k: place(v, shardings[k], dtensor) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        out = [_place(v, s, dtensor) for v, s in zip(tree, shardings)]
+        out = [place(v, s, dtensor) for v, s in zip(tree, shardings)]
         return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     if not isinstance(tree, torch.Tensor) or tree.device.type == "cpu" \
             and tree.dim() == 0:
@@ -434,8 +464,12 @@ def _place(tree, shardings, dtensor: bool):
     local = _local(tree, shardings)
     if not dtensor:
         return local
-    return DTensor.from_local(local, shardings.mesh,
-                              list(shardings.placements), run_check=False,
+    # a shard over one device is the whole dim: held replicated, so that
+    # no op on it asks that mesh dim for a collective
+    mesh = shardings.mesh
+    pl = [Replicate() if mesh.size(i) == 1 else p
+          for i, p in enumerate(shardings.placements)]
+    return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=tree.shape, stride=tree.stride())
 
 
@@ -473,14 +507,15 @@ def _materialize_agg(cell, params, gen, buffer):
     sizes = torch.randint(1, 65, (K,), generator=cpu).to(torch.float32)
     stale = torch.randint(0, 4, (K,), generator=cpu).to(torch.float32)
     args = (params, stacked, sizes.to(dev), stale.to(dev))
-    return _place(args, cell.in_shardings, dtensor=True)
+    return place(args, cell.in_shardings, dtensor=True)
 
 
 def run_cell(cell: CellSpec, args):
     """Run ``cell``'s step on ``args`` (from :func:`materialize`).  An LM
-    cell on a mesh of more than one device raises: the LM step does not run
-    on shards yet, and the unsharded step is never run in its place."""
-    if cell.kind != "agg" and cell.mesh.size() > 1:
+    cell of a family other than the dense one, on a mesh of more than one
+    device, raises: its step does not run on shards yet, and the unsharded
+    step is never run in its place."""
+    if not on_shards(cell) and cell.mesh.size() > 1:
         raise NotImplementedError(
             f"{cell.name}: the LM step does not run on a mesh of "
             f"{cell.mesh.size()} devices yet (its layers take whole tensors)")

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import constrain
 
 # ---------------------------------------------------------------------------
 # causal depthwise conv1d (RG-LRU / Mamba2 frontends)
@@ -95,19 +96,25 @@ def attn_mlp_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
                    enc_out=None):
     s = _res_scale(cfg)
     x, x_in = L.block_input(x, cfg)
+    # a product reads the residual stream whole along its sequence (the
+    # block's output shards it over "resid"): GSPMD's gather at the next
+    # contraction
     a, new_c = L.attn_apply(p["attn"],
-                            L.rmsnorm(p["ln1"], x_in, cfg.norm_eps,
-                                      torch.float32),
+                            constrain(L.rmsnorm(p["ln1"], x_in, cfg.norm_eps,
+                                                torch.float32),
+                                      "batch", None, None),
                             cfg, mode=mode,
                             cache=None if cache is None else cache["attn"],
                             pos=pos, dtype=x.dtype)
     # ln2 reads the residual sum unrounded, the residual stream rounded
     x, mid = L.rounded_pair(L.unrounded(x, a * L.const(s, a)), x.dtype)
     m = L.mlp_apply(p["mlp"],
-                    L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
+                    constrain(L.rmsnorm(p["ln2"], mid, cfg.norm_eps,
+                                        torch.float32),
+                              "batch", None, None),
                     cfg, x.dtype)
-    return (L.unrounded(x, m * L.const(s, m)),
-            None if cache is None else {"attn": new_c}, L.no_aux(x))
+    x = constrain(L.unrounded(x, m * L.const(s, m)), "batch", "resid", None)
+    return x, None if cache is None else {"attn": new_c}, L.no_aux(x)
 
 
 # ---------------------------------------------------------------------------

@@ -5,19 +5,29 @@ param trees and same numerics policy: params/activations in ``cfg.dtype``;
 softmax, norms, loss and recurrence gates in f32.  Linear weights are
 ``(d_in, d_out)`` and applied as ``x @ w``.
 
-The JAX package's sharding hints (``constrain``/``axis_size``) are no-ops off
-a mesh and are dropped; ``chunked_attention`` still accepts ``score_shard``
-and ignores it.
+On a mesh (``sharding.axis_rules``) the layers take DTensors: the JAX
+package's sharding hints are ``redistribute``s at the reference's sites
+(``constrain``), ``chunked_attention`` shards its scores as
+``score_shard`` says, constants are replicated DTensors (``like``), a
+product reads its weight gathered along "fsdp" and sums its partial sums
+at once (``linear``), the loss stays vocab-parallel (``nll``) and decode
+over a sequence-sharded cache combines each rank's partial softmax (flash
+decoding).  Attention runs on each rank's own shards through
+``local_map``.  Off a mesh, and on plain tensors, every hint is a no-op.
 
 Routing of ``chunked_attention``, a static contract: on a CUDA tensor with
 Sq > 1, ``q_offset == 0``, ``kv_len is None``, ``softcap is None`` and a
 value head dim no larger than the query's -- prefill and training, MLA's
 (192, 128) included -- it calls the hand-written flash-attention kernel
 (``kernels/flash_attention``), which raises on what it does not take (head
-dims above 256 or not a multiple of 4).  Everywhere else (decode's single
-query, a partly filled cache, soft-capping, a value head dim above the
-query's, which no model has, and every CPU tensor) it runs the torch
-translation below, as the JAX package has no kernel there either.
+dims above 256 or not a multiple of 4), on each rank's local heads.  But
+a query-row shard ("qrows", or its fallback) on a mesh axis of more than
+one device takes the torch translation: a rank's rows start at an
+offset, which the kernel does not take.  The clause reads the mesh, never
+the rank.  Everywhere else (decode's single query, a partly filled cache,
+soft-capping, a value head dim above the query's, which no model has, and
+every CPU tensor) it runs the torch translation below, as the JAX package
+has no kernel there either.
 The kernel route has a gradient (:class:`_FlashAttention`): its backward
 differentiates the torch translation, recomputed from the saved inputs,
 which is the function the JAX training path differentiates (the JAX kernel
@@ -27,10 +37,21 @@ from __future__ import annotations
 
 import functools
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.sharding import (axis_size, constrain, gather_fsdp, like,
+                                  reduced, replicated, reshape,
+                                  sharded_over)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -55,7 +76,10 @@ def linear_init(gen, d_in, d_out, dtype, device, scale=None, lead=()):
 
 
 def linear(p, x):
-    return x @ p["w"].to(x.dtype)
+    """``x @ w``.  On a mesh the weight is gathered along "fsdp" first, and
+    a product that contracts a sharded dim is summed across its ranks at
+    once: a partial sum is never rounded or fed on."""
+    return reduced(x @ gather_fsdp(p["w"]).to(x.dtype))
 
 
 def norm_init(d, device, dtype=torch.float32, bias=False, lead=()):
@@ -172,7 +196,7 @@ def unrounded(x, y):
 def no_aux(x):
     """The auxiliary loss of a block that has none: an f32 zero on ``x``'s
     device (the reference's ``jnp.float32(0.0)``)."""
-    return torch.zeros((), dtype=torch.float32, device=x.device)
+    return like(torch.zeros((), dtype=torch.float32, device=x.device), x)
 
 
 class _FanOut(torch.autograd.Function):
@@ -347,7 +371,7 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 def apply_rope(x, positions, theta):
     """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                    # (Dh/2,)
+    freqs = like(rope_freqs(dh, theta, x.device), x)           # (Dh/2,)
     ang = positions[..., None].to(torch.float32) * freqs       # (..., S, Dh/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -441,79 +465,223 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     Skv, KVH, Dv) -> (B, Sq, H, Dv); GQA by reshape.  ``q_offset`` is the
     absolute position of q[:, 0] relative to k[:, 0]; ``kv_len`` masks a
     partly filled cache; ``window`` keeps the last ``window`` positions.
-    ``score_shard`` is accepted and ignored (there is no mesh).  See the
-    module docstring for the kernel route."""
-    del score_shard
-    if _uses_flash_kernel(q, k, v, q_offset, kv_len, softcap):
-        return _FlashAttention.apply(q, k, v, causal, window, q_chunk)
-    return _attention_plain(q, k, v, causal=causal, window=window,
-                            q_offset=q_offset, kv_len=kv_len,
-                            q_chunk=q_chunk, softcap=softcap)
+    ``score_shard`` says how the scores shard over the "heads" axis on a
+    mesh, as the reference's: "qrows" the query rows of each chunk,
+    "heads" the KV heads where they divide it (else the q groups, KV
+    replicated), "repeat_kv" the KV heads repeated once per q head.  See
+    the module docstring for the kernel route."""
+    B, Sq, H, Dh = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    tp = axis_size("heads")
+    if (score_shard == "repeat_kv" and Sq > 1 and G > 1
+            and H % tp == 0 and tp > 1):
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+        KVH, G = H, 1
+    qg = reshape(q, B, Sq, KVH, G, Dh)
+    rows = score_shard == "qrows"
+    if score_shard in ("heads", "repeat_kv") and tp > 1 and Sq > 1:
+        if KVH % tp == 0 and KVH > 1:
+            qg = constrain(qg, "batch", None, "heads", None, None)
+            k = constrain(k, "batch", None, "heads", None)
+            v = constrain(v, "batch", None, "heads", None)
+        elif G % tp == 0 and G > 1:
+            qg = constrain(qg, "batch", None, None, "heads", None)
+            k = constrain(replicated(k, [2]), "batch", None, None, None)
+            v = constrain(replicated(v, [2]), "batch", None, None, None)
+        else:
+            rows = True     # fall back to context parallelism
+    # a query-row shard starts at an offset, which the kernel does not take
+    rows_split = rows and Sq > 1 and axis_size("attn_q") > 1
+    if (_uses_flash_kernel(q, k, v, q_offset, kv_len, softcap)
+            and not rows_split):
+        o = _on_local_blocks(
+            lambda qg, k, v, q0, k0: _flash_grouped(qg, k, v, causal,
+                                                    window, q_chunk),
+            qg, k, v)
+    elif Sq == 1 and sharded_over(k, 1) > 1:
+        o = _decode_on_seq_shards(qg, k, v, causal, window, q_offset, kv_len,
+                                  softcap)
+    else:
+        o = _attention_grouped(qg, k, v, causal=causal, window=window,
+                               q_offset=q_offset, kv_len=kv_len,
+                               q_chunk=q_chunk, softcap=softcap,
+                               shard_rows=rows)
+    return reshape(o, B, Sq, H, o.shape[-1])
 
 
-def _attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
-                     kv_len=None, q_chunk=512, softcap=None,
-                     remat_chunks=True):
-    """The torch translation of the JAX model's ``chunked_attention``.
-    Under autograd each query chunk runs under a checkpoint that saves
-    nothing, as the reference's scan body does (``jax.checkpoint`` with
+def _flash_grouped(qg, k, v, causal, window, q_chunk):
+    b, s, kvh, g, d = qg.shape
+    o = _FlashAttention.apply(qg.reshape(b, s, kvh * g, d), k, v, causal,
+                              window, q_chunk)
+    return o.reshape(b, s, kvh, g, v.shape[-1])
+
+
+def _block_layout(qg, k, v):
+    """``qg`` (B, Sq, KVH, G, Dh), ``k``, ``v`` (B, Skv, KVH, D) laid out
+    so that each rank's shards form a whole attention problem: on every
+    mesh dim of more than one device the three shard the batch or the KV
+    heads alike, or ``qg`` alone shards its rows or groups (KV
+    replicated); a mesh dim that does neither is replicated."""
+    mesh = qg.device_mesh
+    pq, pk, pv = (list(t.placements) for t in (qg, k, v))
+    dim = lambda p: p.dim if isinstance(p, Shard) else None  # noqa: E731
+    for i, size in enumerate(mesh.shape):
+        dq, dk, dv = dim(pq[i]), dim(pk[i]), dim(pv[i])
+        if size == 1 or (dq in (0, 2) and dk == dv == dq) or (
+                dq in (None, 1, 3) and dk is dv is None):
+            continue
+        if dq in (0, 2):
+            pk[i] = pv[i] = Shard(dq)
+        elif dq in (None, 1, 3):
+            pk[i] = pv[i] = Replicate()
+        else:
+            pq[i] = pk[i] = pv[i] = Replicate()
+    return (qg.redistribute(mesh, pq), k.redistribute(mesh, pk),
+            v.redistribute(mesh, pv))
+
+
+def _on_local_blocks(fn, qg, k, v, q0=0, k0=0):
+    """``fn(qg, k, v, q0, k0)`` -> (B, Sq, KVH, G, Dv) on plain tensors,
+    ``q0`` and ``k0`` the positions of the first query row and key.  On
+    DTensors, each rank runs ``fn`` on its own shards (``local_map``, in
+    the layout of :func:`_block_layout`) with its own first positions,
+    and the output comes back as a DTensor of ``qg``'s placements."""
+    if not isinstance(qg, DTensor):
+        return fn(qg, k, v, q0, k0)
+    qg, k, v = _block_layout(qg, k, v)
+    mesh = qg.device_mesh
+    _, qo = compute_local_shape_and_global_offset(qg.shape, mesh,
+                                                  qg.placements)
+    _, ko = compute_local_shape_and_global_offset(k.shape, mesh,
+                                                  k.placements)
+    # where qg alone is sharded (its rows or groups), each rank's K and V
+    # gradients are its own rows' or groups' part of the sum
+    kv_grad = [Partial() if isinstance(p, Shard) and p.dim in (1, 3) else r
+               for p, r in zip(qg.placements, k.placements)]
+    return local_map(lambda a, b, c: fn(a, b, c, q0 + qo[1], k0 + ko[1]),
+                     out_placements=list(qg.placements),
+                     in_placements=(qg.placements, k.placements,
+                                    v.placements),
+                     in_grad_placements=(qg.placements, kv_grad, kv_grad),
+                     device_mesh=mesh)(qg, k, v)
+
+
+def _decode_on_seq_shards(qg, k, v, causal, window, q_offset, kv_len,
+                          softcap):
+    """One query against a cache whose sequence dim is sharded: each rank
+    scores its own positions and keeps its shards; the ranks combine
+    their partial max, sum and output across the sequence's mesh dims
+    (flash decoding).  No cache leaf moves."""
+    mesh = k.device_mesh
+    seq_dims = [i for i, p in enumerate(k.placements)
+                if isinstance(p, Shard) and p.dim == 1]
+    kp = list(k.placements)
+    qp = [Replicate() if i in seq_dims else p for i, p in enumerate(kp)]
+    qg = qg.redistribute(mesh, qp)
+    v = v.redistribute(mesh, kp)
+    _, off = compute_local_shape_and_global_offset(k.shape, mesh, kp)
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+
+    def body(qg, k, v):
+        k_pos = off[1] + torch.arange(k.shape[1], device=k.device)
+        m = torch.ones_like(k_pos, dtype=torch.bool)
+        if causal:
+            m &= k_pos <= q_offset
+        if window is not None:
+            m &= k_pos > q_offset - window
+        if kv_len is not None:
+            m &= k_pos < kv_len
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                         k.to(torch.float32)) * scale
+        s = _softcap(s, softcap).masked_fill(~m, NEG_INF)
+        mx = s.amax(-1, keepdim=True)
+        for d in seq_dims:
+            mx = funcol.all_reduce(mx, "max", (mesh, d))
+        p = torch.exp(s - mx)
+        num = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+        den = p.sum(-1).permute(0, 3, 1, 2)[..., None]
+        for d in seq_dims:
+            num = funcol.all_reduce(num, "sum", (mesh, d))
+            den = funcol.all_reduce(den, "sum", (mesh, d))
+        return (num / den).to(v.dtype)
+
+    return local_map(body, out_placements=qp, in_placements=(qp, kp, kp),
+                     device_mesh=mesh)(qg, k, v)
+
+
+def _attention_plain(q, k, v, **kw):
+    """:func:`_attention_grouped` on ungrouped q (B, Sq, H, Dh) -> (B, Sq,
+    H, Dv): the kernel route's plain version."""
+    B, Sq, H, Dh = q.shape
+    qg = q.reshape(B, Sq, k.shape[2], H // k.shape[2], Dh)
+    return _attention_grouped(qg, k, v, **kw).flatten(2, 3)
+
+
+def _scores_block(qi, ki, vi, q0, k0, *, causal, window, kv_len, softcap,
+                  remat):
+    """One block of query rows (first position ``q0``) against keys (first
+    position ``k0``), masked, under a checkpoint that saves nothing where
+    ``remat`` and autograd is on."""
+    dev = qi.device
+    q_pos = q0 + torch.arange(qi.shape[1], device=dev)
+    k_pos = k0 + torch.arange(ki.shape[1], device=dev)
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=dev)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > q_pos[:, None] - window
+    if kv_len is not None:
+        m &= (k_pos < kv_len)[None, :]
+    if remat and torch.is_grad_enabled():
+        return checkpoint(attention_scores_ctx, qi, ki, vi,
+                          m[None, None, None], softcap, use_reentrant=False)
+    return attention_scores_ctx(qi, ki, vi, m[None, None, None], softcap)
+
+
+def _attention_grouped(qg, k, v, *, causal=True, window=None, q_offset=0,
+                       kv_len=None, q_chunk=512, softcap=None,
+                       remat_chunks=True, shard_rows=False):
+    """The torch translation of the JAX model's ``chunked_attention`` on
+    grouped q (B, Sq, KVH, G, Dh) -> (B, Sq, KVH, G, Dv).  Under autograd
+    each query chunk runs under a checkpoint that saves nothing, as the
+    reference's scan body does (``jax.checkpoint`` with
     ``nothing_saveable``): the backward recomputes a chunk's scores rather
     than keeping every chunk's.  ``remat_chunks=False`` leaves that out for
-    a caller that is itself the recompute (the kernel route's backward)."""
-    B, Sq, H, Dh = q.shape
-    Skv, KVH = k.shape[1], k.shape[2]
-    Dv = v.shape[-1]
-    G = H // KVH
-    qg = q.reshape(B, Sq, KVH, G, Dh)
-    dev = q.device
-
-    def block_mask(q_pos, k_pos):
-        m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                       device=dev)
-        if causal:
-            m &= k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            m &= k_pos[None, :] > q_pos[:, None] - window
-        return m
-
+    a caller that is itself the recompute (the kernel route's backward).
+    On DTensors each chunk runs on each rank's shards
+    (:func:`_on_local_blocks`); ``shard_rows`` first shards each chunk's
+    query rows over "attn_q" (the reference's context-parallel scores)."""
+    Sq, Skv = qg.shape[1], k.shape[1]
+    opts = dict(causal=causal, window=window, kv_len=kv_len,
+                softcap=softcap)
     if Sq == 1:
         # decode: single query, full (or ring) cache
-        q_pos = torch.tensor([q_offset], device=dev)
-        k_pos = torch.arange(Skv, device=dev)
-        m = block_mask(q_pos, k_pos)
-        if kv_len is not None:
-            m &= (k_pos < kv_len)[None, :]
-        o = attention_scores_ctx(qg, k, v, m[None, None, None], softcap)
-        return o.reshape(B, Sq, H, Dv)
-
+        return _on_local_blocks(partial(_scores_block, **opts, remat=False),
+                                qg, k, v, q_offset)
     n_chunks = max(1, math.ceil(Sq / q_chunk))
     qc = min(q_chunk, Sq)
     use_window_slice = window is not None and Skv > (window + qc)
     kv_span = min(Skv, window + qc) if use_window_slice else Skv
+    block = partial(_scores_block, **opts, remat=remat_chunks)
     outs = []
     for idx in range(n_chunks):
         qi = qg[:, idx * qc:(idx + 1) * qc]
-        q_pos = q_offset + idx * qc + torch.arange(qi.shape[1], device=dev)
+        if shard_rows:
+            qi = constrain(qi, "batch", "attn_q", None, None, None)
+        start = 0
         if use_window_slice:
             start = min(max(q_offset + idx * qc - window + 1, 0),
                         Skv - kv_span)
-            ki = k[:, start:start + kv_span]
-            vi = v[:, start:start + kv_span]
-            k_pos = start + torch.arange(kv_span, device=dev)
-        else:
-            ki, vi = k, v
-            k_pos = torch.arange(kv_span, device=dev)
-        m = block_mask(q_pos, k_pos)
-        if kv_len is not None:
-            m &= (k_pos < kv_len)[None, :]
-        if remat_chunks and torch.is_grad_enabled():
-            outs.append(checkpoint(attention_scores_ctx, qi, ki, vi,
-                                   m[None, None, None], softcap,
-                                   use_reentrant=False))
-        else:
-            outs.append(attention_scores_ctx(qi, ki, vi, m[None, None, None],
-                                             softcap))
-    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
+        outs.append(_on_local_blocks(block, qi, k[:, start:start + kv_span],
+                                     v[:, start:start + kv_span],
+                                     q_offset + idx * qc, start))
+    if len(outs) == 1:
+        return outs[0]
+    # row-sharded chunks join as whole rows
+    return torch.cat([replicated(o, [1]) for o in outs], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -561,9 +729,13 @@ def _cache_write(cfg, cache, k, v, start):
 
     Unlike the JAX package's functional update this writes the cache's
     buffers in place (they are views into the model's stacked cache), so a
-    decode step moves one position, not the whole cache."""
+    decode step moves one position, not the whole cache.  A sharded
+    buffer is written shard by shard (:func:`_write_shards`)."""
     def upd(buf, val):
-        buf[:, start:start + val.shape[1]] = val.to(buf.dtype)
+        if isinstance(buf, DTensor):
+            _write_shards(buf, val, start)
+        else:
+            buf[:, start:start + val.shape[1]] = val.to(buf.dtype)
 
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quant(k)
@@ -574,6 +746,25 @@ def _cache_write(cfg, cache, k, v, start):
         upd(cache["k"], k)
         upd(cache["v"], v)
     return cache
+
+
+def _write_shards(buf, val, start):
+    """``buf[:, start:start + n] = val`` for a DTensor ``buf`` whose dim 1
+    (the sequence) may be sharded: ``val`` takes ``buf``'s placements but
+    whole along dim 1, and each rank writes, into its own shard, the
+    positions that fall in it.  A decode step's one position lies in one
+    rank's shard; no shard moves."""
+    mesh = buf.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in buf.placements]
+    val = val.redistribute(mesh, pl).to_local()
+    shape, off = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    lo = max(start, off[1])
+    hi = min(start + val.shape[1], off[1] + shape[1])
+    if lo < hi:
+        buf.to_local()[:, lo - off[1]:hi - off[1]] = \
+            val[:, lo - start:hi - start].to(buf.dtype)
 
 
 def _cache_read(cfg, cache, dtype):
@@ -598,7 +789,7 @@ def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None,
     dtype = dtype or x.dtype
     if cross_kv is not None:
         xq, = fan_out(x, dtype, 1)
-        q = linear(p["wq"], xq).reshape(B, S, H, Dh)
+        q = reshape(linear(p["wq"], xq), B, S, H, Dh)
         if cfg.qk_norm:
             q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         o = chunked_attention(q, *cross_kv, causal=False,
@@ -606,21 +797,23 @@ def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None,
         return linear(p["wo"], o.reshape(B, S, H * Dh)), cache
     xq, xk, xv = fan_out(x, dtype, 3)
 
-    q = linear(p["wq"], xq).reshape(B, S, H, Dh)
-    k = linear(p["wk"], xk).reshape(B, S, KVH, Dh)
-    v = linear(p["wv"], xv).reshape(B, S, KVH, Dh)
+    q = reshape(linear(p["wq"], xq), B, S, H, Dh)
+    k = reshape(linear(p["wk"], xk), B, S, KVH, Dh)
+    v = reshape(linear(p["wv"], xv), B, S, KVH, Dh)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    positions = (torch.arange(S, device=x.device)[None, :] if mode != "decode"
-                 else torch.full((B, 1), pos, device=x.device))
+    positions = like(torch.arange(S, device=x.device)[None, :]
+                     if mode != "decode"
+                     else torch.full((1, 1), pos, device=x.device), x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = cache
     if mode in ("train", "prefill"):
         o = chunked_attention(q, k, v, causal=True, window=cfg.window,
-                              softcap=cfg.attn_softcap)
+                              softcap=cfg.attn_softcap,
+                              score_shard=cfg.attn_score_shard)
         if mode == "prefill":
             span = cache["k"].shape[1]
             if cfg.window and S > span:              # keep only the last window
@@ -636,6 +829,8 @@ def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None,
         slot = pos % span if cfg.window else pos
         new_cache = _cache_write(cfg, cache, k, v, slot)
         ck, cv = _cache_read(cfg, new_cache, dtype)
+        ck = constrain(ck, "batch", "kv_seq", None, None)
+        cv = constrain(cv, "batch", "kv_seq", None, None)
         if cfg.window:
             # ring buffer: the absolute position of slot i is recoverable;
             # mask unwritten and out-of-window slots
@@ -649,7 +844,8 @@ def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None,
             o = chunked_attention(q, ck, cv, causal=True, q_offset=pos,
                                   kv_len=pos + 1, softcap=cfg.attn_softcap)
 
-    o = o.reshape(B, S, H * Dh)
+    # the heads shard as wo's rows do
+    o = constrain(reshape(o, B, S, H * Dh), "batch", None, "tensor")
     return linear(p["wo"], o), new_cache
 
 
@@ -674,6 +870,7 @@ def mlp_apply(p, x, cfg, dtype=None):
     h = act(linear(p["w1"], x1))
     if "w3" in p:
         h = h * linear(p["w3"], x3)
+    h = constrain(h, "batch", None, "tensor")
     return linear(p["w2"], h)
 
 
@@ -681,14 +878,53 @@ def mlp_apply(p, x, cfg, dtype=None):
 # Loss
 # ---------------------------------------------------------------------------
 
+def nll(logits, labels):
+    """-log softmax(logits)[label] in f32, ``logits`` (..., V) whose vocab
+    may be sharded.  The gold logit comes from a compare-mask reduction,
+    not a gather: a gather along a sharded vocab would gather the logits
+    whole, the masked sum stays a partial sum and a sum across ranks (the
+    reference's ``cross_entropy``).  On whole logits the two are the same
+    bits: one term of the sum is not zero."""
+    lf = logits.to(torch.float32)
+    iota = like(torch.arange(lf.shape[-1], device=lf.device), lf)
+    gold = torch.sum(torch.where(iota == labels[..., None], lf, 0.0), dim=-1)
+    return _logsumexp(lf) - gold
+
+
+def _logsumexp(lf):
+    """log Σ exp over the last dim: ``torch.logsumexp`` on a whole vocab,
+    :class:`_ShardedLogSumExp` on a sharded one."""
+    if sharded_over(lf, -1) == 1:
+        return torch.logsumexp(lf, dim=-1)
+    return _ShardedLogSumExp.apply(lf)
+
+
+class _ShardedLogSumExp(torch.autograd.Function):
+    """log Σ exp over a DTensor's sharded last dim: the max and the sum are
+    each a (..., 1) partial reduced across the ranks, and the gradient,
+    softmax times the incoming one, is each rank's own shard: the logits
+    are never gathered."""
+
+    @staticmethod
+    def forward(ctx, lf):
+        m = reduced(lf.amax(-1, keepdim=True))
+        lse = torch.log(reduced(torch.sum(torch.exp(lf - m), dim=-1))) + \
+            m[..., 0]
+        ctx.save_for_backward(lf, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse = ctx.saved_tensors
+        return reduced(g)[..., None] * torch.exp(lf - lse[..., None])
+
+
 def cross_entropy(logits, labels, mask=None):
     """logits: (..., V); labels: (...) int.  Mean negative log-likelihood
     (masked mean when ``mask`` is given), computed in f32."""
-    lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    logits = constrain(logits, "batch", None, "tensor")
+    out = nll(logits, labels)
     if mask is not None:
-        nll = nll * mask
-        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+        out = out * mask
+        return torch.sum(out) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(out)

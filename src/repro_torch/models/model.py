@@ -26,6 +26,11 @@ does not remat.
 The decode cache is written in place: each block's new cache is copied into
 the stacked buffers of ``init_cache``, and ``pos`` is a Python int, so a
 decode step reads no device value on the host.
+
+On a mesh the dense family's LM takes DTensor params, inputs and cache
+(``launch/specs.py``'s cells): the reference's sharding hints on the
+embeddings and logits, a vocab-parallel lookup (:class:`_VocabLookup`)
+and loss (``layers.nll``); see ``models/layers.py`` for the layers.
 """
 from __future__ import annotations
 
@@ -34,12 +39,16 @@ from functools import partial
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
+from repro_torch.sharding import constrain, like, sharded_over
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
 
 
@@ -84,7 +93,7 @@ def _copy_into(dst, src):
     for k, v in src.items():
         if isinstance(v, Mapping):
             _copy_into(dst[k], v)
-        elif v.data_ptr() != dst[k].data_ptr():
+        elif v is not dst[k] and v.data_ptr() != dst[k].data_ptr():
             dst[k].copy_(v)
 
 
@@ -166,7 +175,7 @@ class LM:
             if mode == "train" and torch.is_grad_enabled():
                 # enc_out is an argument: its gradient flows from each rerun
                 repeat = _remat(repeat, cfg.remat)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = L.no_aux(x)
             for gi, (pattern, reps) in enumerate(cfg.scan_groups()):
                 # unbind once: its backward stacks the repeats' gradients
                 rows = tree_map(lambda t: t.unbind(0),
@@ -192,8 +201,9 @@ class LM:
 
     # ----------------------------------------------------------------- embed
     def _embed(self, params, tokens):
-        w = params["embed"]["w"]
-        return w[tokens].to(self.adtype) * self.cfg.scale_emb
+        x = _lookup(params["embed"]["w"], tokens)
+        return constrain(x.to(self.adtype) * self.cfg.scale_emb,
+                         "batch", None, None)
 
     def _unembed(self, params, x):
         cfg = self.cfg
@@ -207,8 +217,8 @@ class LM:
         if cfg.padded_vocab != cfg.vocab_size:   # mask padding entries
             valid = torch.arange(cfg.padded_vocab,
                                  device=x.device) < cfg.vocab_size
-            logits = logits.masked_fill(~valid, L.NEG_INF)
-        return logits
+            logits = logits.masked_fill(like(~valid, logits), L.NEG_INF)
+        return constrain(logits, "batch", None, "tensor")
 
     def _encode(self, params, frames):
         """The encoder over the frame embeddings, in mode "train", no
@@ -279,13 +289,14 @@ class LM:
             return ce + aux, {"ce": ce, "aux": aux}
 
         def chunk_nll(xc, lc, mc):
-            lf = self._unembed(params, xc).to(torch.float32)
-            gold = torch.gather(lf, -1, lc.long()[..., None])[..., 0]
-            return torch.sum((torch.logsumexp(lf, dim=-1) - gold) * mc)
+            # the chunk's model-sharded residual gathered: the unembed
+            # contracts a whole d_model
+            lf = self._unembed(params, constrain(xc, "batch", None, None))
+            return torch.sum(L.nll(lf, lc) * mc)
 
         if torch.is_grad_enabled():
             chunk_nll = _remat(chunk_nll, "full")
-        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        tot = L.no_aux(x)
         for i in range(0, S, C):
             tot = tot + chunk_nll(x[:, i:i + C], labels[:, i:i + C],
                                   mask[:, i:i + C])
@@ -313,6 +324,61 @@ class LM:
         x = self._run_groups(params, x, mode="decode", cache=cache, pos=pos)
         logits = self._unembed(params, x)
         return logits, {"groups": cache["groups"], "pos": pos + 1}
+
+
+def _lookup(w, tokens):
+    """The rows of the table ``w`` at ``tokens``.  On a vocab-sharded
+    DTensor table, the vocab-parallel lookup of :class:`_VocabLookup`
+    (``jnp.take`` under GSPMD): the table is never gathered."""
+    if isinstance(w, DTensor) and sharded_over(w, 0) > 1:
+        return _VocabLookup.apply(w, tokens)
+    return w[tokens]
+
+
+class _VocabLookup(torch.autograd.Function):
+    """Rows of a DTensor table ``w`` (V, d) whose vocab dim is sharded, at
+    DTensor ``tokens``: each rank looks up the tokens that fall in its
+    rows, zeros for the rest, and the output is the partial sum across
+    the vocab's mesh dims.  The backward scatter-adds each rank's gradient
+    rows into its own rows; across the batch's ranks they stay a partial
+    sum."""
+
+    @staticmethod
+    def forward(ctx, w, tokens):
+        mesh = w.device_mesh
+        vocab = {i for i, p in enumerate(w.placements)
+                 if isinstance(p, Shard) and p.dim == 0}
+        tokens = tokens.redistribute(mesh, [
+            Replicate() if i in vocab else p
+            for i, p in enumerate(tokens.placements)])
+        _, off = compute_local_shape_and_global_offset(w.shape, mesh,
+                                                       w.placements)
+        wl = w.to_local()
+        idx = tokens.to_local().long() - off[0]
+        ok = (idx >= 0) & (idx < wl.shape[0])
+        idx = idx.clamp(0, wl.shape[0] - 1)
+        rows = torch.where(ok[..., None], wl[idx], 0)
+        ctx.save_for_backward(idx, ok)
+        ctx.w = (w.shape, w.stride(), wl.shape, w.placements, mesh)
+        ctx.batch = tokens.placements
+        return DTensor.from_local(
+            rows, mesh, [Partial() if i in vocab else p
+                         for i, p in enumerate(tokens.placements)],
+            run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, ok = ctx.saved_tensors
+        shape, stride, local_shape, w_pl, mesh = ctx.w
+        g = g.redistribute(mesh, [p if isinstance(p, Shard) else Replicate()
+                                  for p in ctx.batch]).to_local()
+        gw = torch.zeros(local_shape, dtype=g.dtype, device=g.device)
+        gw.index_put_((idx,), torch.where(ok[..., None], g, 0),
+                      accumulate=True)
+        pl = [Partial() if isinstance(b, Shard) else p
+              for p, b in zip(w_pl, ctx.batch)]
+        return DTensor.from_local(gw, mesh, pl, run_check=False,
+                                  shape=shape, stride=stride), None
 
 
 def build_model(cfg, device=None) -> LM:

@@ -19,6 +19,13 @@ refuses any other.
 The rules live in a thread-local (:func:`axis_rules`), so library code never
 hard-codes mesh axis names.  Off a mesh every helper leaves its tensor as it
 is.
+
+The model's helpers on DTensors: :func:`constrain` (a hint becomes a
+``redistribute``), :func:`like` (a constant replicated on the mesh),
+:func:`gather_fsdp` (a weight gathered along "fsdp" before its product),
+:func:`reduced` (partial sums summed), :func:`reshape` (a view whose
+shards it cannot carry replicated first, forward and backward),
+:func:`replicated` and :func:`sharded_over`.
 """
 from __future__ import annotations
 
@@ -42,6 +49,12 @@ __all__ = [
     "logical_spec",
     "axis_size",
     "constrain",
+    "like",
+    "gather_fsdp",
+    "reduced",
+    "replicated",
+    "reshape",
+    "sharded_over",
     "mesh_axis_sizes",
     "placements",
     "shard_shape",
@@ -175,6 +188,110 @@ def axis_size(name: str) -> int:
     return _total(resolved, mesh_axis_sizes(rules.mesh))
 
 
+def like(t: torch.Tensor, ref):
+    """The constant ``t`` (made on ``ref``'s device, the same on every rank)
+    as ``ref`` is held: replicated on ``ref``'s mesh where ``ref`` is a
+    DTensor, else ``t``.  A DTensor op takes no plain tensor operand."""
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def replicated(x, dims):
+    """``x`` with every mesh dim that shards one of its tensor ``dims``
+    (negative counts from the end) replicated; ``x`` itself where none
+    does or it is a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    dims = {d % x.dim() for d in dims}
+    return _placed(x, [Replicate() if isinstance(p, Shard) and p.dim in dims
+                       else p for p in x.placements])
+
+
+def _placed(x, pl):
+    """DTensor ``x`` in the placements ``pl`` (itself where it is)."""
+    return x if list(pl) == list(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+def gather_fsdp(w):
+    """The weight ``w`` whole along the mesh axes "fsdp" resolves to
+    (ZeRO-3: a product reads its weight gathered, and the weight's
+    gradient reduce-scatters back); ``w`` itself off a mesh."""
+    if not isinstance(w, DTensor):
+        return w
+    resolved = current_rules().resolve("fsdp")
+    if resolved is None:
+        return w
+    axes = _axes(resolved)
+    return _placed(w, [Replicate() if name in axes else p for name, p in
+                       zip(w.device_mesh.mesh_dim_names, w.placements)])
+
+
+def reduced(x):
+    """``x`` with its partial sums summed across their ranks (replicated);
+    ``x`` itself where it holds none."""
+    if not isinstance(x, DTensor):
+        return x
+    return _placed(x, [Replicate() if p.is_partial() else p
+                       for p in x.placements])
+
+
+def sharded_over(x, dim: int) -> int:
+    """How many shards dim ``dim`` of ``x`` is cut into (1 for a plain
+    tensor)."""
+    if not isinstance(x, DTensor):
+        return 1
+    dim %= x.dim()
+    n = 1
+    for size, p in zip(x.device_mesh.shape, x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n *= size
+    return n
+
+
+def _carried(x, shape):
+    """DTensor ``x`` with each shard that a reshape to ``shape`` cannot
+    carry replicated.  The dims that change form one run; a shard of its
+    first dim carries where the run's first new dim divides its count."""
+    old, new = list(x.shape), list(shape)
+    a = 0
+    while a < min(len(old), len(new)) and old[a] == new[a]:
+        a += 1
+    b = 0
+    while b < min(len(old), len(new)) - a and old[-1 - b] == new[-1 - b]:
+        b += 1
+    run = range(a, len(old) - b)
+    return replicated(x, [d for d in run if d != a or a >= len(new) - b
+                          or new[a] % sharded_over(x, a)])
+
+
+class _Reshape(torch.autograd.Function):
+    """A DTensor reshape whose forward and backward each first replicate
+    the shards the view cannot carry (:func:`_carried`); the gradient
+    leaves in the input's placements."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape, ctx.placements = tuple(x.shape), x.placements
+        return _carried(x, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _carried(g, ctx.shape).reshape(ctx.shape)
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def reshape(x, *shape):
+    """``x.reshape(shape)``; on a DTensor, with the shards the view cannot
+    carry replicated first, in the forward and in the backward."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    return _Reshape.apply(x, shape)
+
+
 def placements(spec: PartitionSpec, mesh) -> list:
     """The DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
     ``Shard(d)`` where tensor dim ``d``'s entry names that mesh axis, else
@@ -237,15 +354,18 @@ def constrain(x, *names: str | None):
     """The reference's ``with_sharding_constraint`` by logical axis names.
     Off a mesh, or for a plain tensor, ``x`` as it is; a DTensor is
     redistributed to the spec's placements, a dim that does not divide its
-    mesh axes replicated."""
+    mesh axes replicated.  Axes of one device in all are left as they
+    are."""
     rules = current_rules()
     if not rules.mesh_axes or rules.mesh is None:
         return x
-    spec = rules.spec(*names)
+    sizes = mesh_axis_sizes(rules.mesh)
+    # a shard over one device is no shard: such an entry is left out
+    spec = [s if s is not None and _total(s, sizes) > 1 else None
+            for s in rules.spec(*names)]
     if all(s is None for s in spec):
         return x
-    fixed = divisible(x.shape, spec, mesh_axis_sizes(rules.mesh),
-                      replicate_ones=False)
+    fixed = divisible(x.shape, spec, sizes, replicate_ones=False)
     if all(s is None for s in fixed) or not isinstance(x, DTensor):
         return x
     return x.redistribute(rules.mesh, placements(P(*fixed), rules.mesh))

@@ -34,10 +34,15 @@ from repro_torch.launch import dryrun as D, specs as S  # noqa: E402
 from repro_torch.launch.mesh import fake_process_group, make_mesh  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ARCHS = ("qwen3-32b", "mixtral-8x22b", "mamba2-1.3b", "recurrentgemma-2b",
          "whisper-tiny", "internvl2-1b")
+DENSE = ("qwen3-32b", "granite-34b", "phi4-mini-3.8b", "minicpm-2b")
+# the train state's step and the decode cache's position, int32 scalars the
+# port keeps on the host; XLA drops the prefill cache's unread position
+HOST_SCALAR_BYTES = {"train": 4, "prefill": 0, "decode": 4}
 MESHES = {(2, 4): ("data", "model"), (2, 2, 2): ("pod", "data", "model"),
           (4, 2): ("data", "model")}
 TRAIN = ShapeConfig("smoke_train", 64, 8, "train")
@@ -68,23 +73,168 @@ def one_device_flops():
     return out
 
 
+def dense_cells(meshes=tuple(MESHES)):
+    """{(mesh shape, arch, kind): dry-run record} of the dense smoke cells
+    (train, prefill, decode) on fake meshes of 8."""
+    out = {}
+    for mesh_shape in meshes:
+        with fake_process_group(8):
+            mesh = make_mesh(mesh_shape, MESHES[mesh_shape],
+                             device_type="cpu")
+            for arch in DENSE:
+                for shape in (TRAIN, PREFILL, DECODE):
+                    cell = S.build_cell(smoke_config(arch), shape, mesh)
+                    out[(mesh_shape, arch, shape.kind)] = D.run_cell(
+                        cell, mesh_shape, D.trace_cell(cell, peak=False))
+    return out
+
+
+@pytest.fixture(scope="module")
+def dense_records():
+    return dense_cells()
+
+
+_JAX_DENSE = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, jax
+from jax.sharding import AxisType
+from repro.configs import smoke_config, ShapeConfig
+from repro.launch.dryrun import collective_stats, memory_stats
+from repro.launch.hlo_cost import analyze_hlo
+from repro.launch.specs import build_cell
+from repro.sharding import axis_rules
+
+out = {}
+shape, axes = %r
+# GSPMD's sharding hints need automatic mesh axes
+mesh = jax.make_mesh(tuple(shape), tuple(axes),
+                     axis_types=(AxisType.Auto,) * len(shape))
+for arch in %r:
+    for kind in ("train", "prefill", "decode"):
+        with axis_rules(mesh):
+            cell = build_cell(smoke_config(arch),
+                              ShapeConfig(kind, 64, 8, kind), mesh)
+            c = jax.jit(cell.step_fn, in_shardings=cell.in_shardings,
+                        out_shardings=cell.out_shardings).lower(
+                            *cell.args).compile()
+        text = c.as_text()
+        out[f"{arch}:{kind}"] = dict(
+            flops=analyze_hlo(text)["flops"],
+            args=memory_stats(c)["argument_size_in_bytes"],
+            coll=collective_stats(text)["total_bytes"])
+print(json.dumps(out))
+"""
+
+
+def jax_dense(mesh_shape):
+    """The reference's per-device product FLOPs (``hlo_cost``), argument
+    bytes and collective bytes of the dense smoke cells on ``mesh_shape``,
+    compiled in one subprocess on 8 fake host devices."""
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    arg = (list(mesh_shape), list(MESHES[mesh_shape]))
+    out = subprocess.run([sys.executable, "-c", _JAX_DENSE % (arg, DENSE)],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mesh_shape", list(MESHES), ids=_ids)
+def test_dense_cells_record_their_collectives(dense_records, mesh_shape):
+    for arch in DENSE:
+        for kind in ("train", "prefill", "decode"):
+            c = dense_records[(mesh_shape, arch, kind)]["collectives"]
+            assert c is not None and c["total_bytes"] > 0, (arch, kind)
+            assert sum(v["count"] for v in c.values()
+                       if isinstance(v, dict)) > 0
+
+
+def _shapes(rec):
+    return [tuple(s) for v in rec["collectives"].values()
+            if isinstance(v, dict) for s in v["shapes"]]
+
+
+@pytest.mark.parametrize("mesh_shape", list(MESHES), ids=_ids)
+def test_no_train_collective_moves_a_chunks_full_vocab_logits(
+        dense_records, mesh_shape):
+    """The loss stays vocab-parallel: no collective is handed or returns a
+    tensor as large as a loss chunk's logits over the whole vocab on one
+    device (its batch rows, the chunk's positions)."""
+    sizes = dict(zip(MESHES[mesh_shape], mesh_shape))
+    dp = sizes.get("pod", 1) * sizes["data"]
+    for arch in DENSE:
+        logits = (TRAIN.global_batch // dp * min(1024, TRAIN.seq_len)
+                  * smoke_config(arch).padded_vocab)
+        for s in _shapes(dense_records[(mesh_shape, arch, "train")]):
+            assert int(np.prod(s)) < logits, (arch, s)
+
+
+@pytest.mark.parametrize("mesh_shape", list(MESHES), ids=_ids)
+def test_no_decode_collective_moves_a_cache_leaf(dense_records, mesh_shape):
+    """The decode step keeps the sequence-sharded cache in place: no
+    collective is handed or returns a cache leaf, one layer's or the
+    stack's, whole or this device's shard of it."""
+    sizes = dict(zip(MESHES[mesh_shape], mesh_shape))
+    dp = sizes.get("pod", 1) * sizes["data"]
+    for arch in DENSE:
+        cfg = smoke_config(arch)
+        B, S_ = DECODE.global_batch, DECODE.seq_len
+        leaf = (cfg.n_kv_heads, cfg.head_dim)
+        banned = {(B, S_, *leaf), (B // dp, S_ // sizes["model"], *leaf)}
+        banned |= {(cfg.n_layers, *b) for b in banned}
+        for s in _shapes(dense_records[(mesh_shape, arch, "decode")]):
+            assert s not in banned, (arch, s)
+
+
+@pytest.mark.parametrize("mesh_shape", [
+    (2, 4), pytest.param((2, 2, 2), marks=pytest.mark.slow),
+    pytest.param((4, 2), marks=pytest.mark.slow)], ids=_ids)
+def test_dense_cells_per_device_flops_and_argument_bytes_equal_jax(
+        dense_records, mesh_shape):
+    """Per-device product FLOPs equal ``hlo_cost``'s on the partitioned
+    HLO, exactly (the bar is 5 %), and per-device argument bytes XLA's,
+    less the int32 scalar the port keeps on the host where XLA keeps it
+    (``HOST_SCALAR_BYTES``)."""
+    want = jax_dense(mesh_shape)
+    for arch in DENSE:
+        for kind in ("train", "prefill", "decode"):
+            rec = dense_records[(mesh_shape, arch, kind)]
+            w = want[f"{arch}:{kind}"]
+            assert rec["op_cost"]["flops"] == w["flops"], (arch, kind)
+            host = HOST_SCALAR_BYTES[kind]
+            assert rec["memory"]["argument_size_in_bytes"] + host == \
+                w["args"], (arch, kind)
+
+
 @pytest.mark.parametrize("mesh_shape", list(MESHES), ids=_ids)
 def test_train_and_decode_cells_trace_on_every_mesh(one_device_flops,
+                                                    dense_records,
                                                     mesh_shape):
+    """A dense arch's cells run on shards: per-device flops, 1 / n of the
+    one-device trace's, and their collectives.  The other families' run on
+    whole tensors: the one-device flops, collectives null."""
+    n = int(np.prod(mesh_shape))
     with fake_process_group(8):
         mesh = make_mesh(mesh_shape, MESHES[mesh_shape], device_type="cpu")
         for arch in ARCHS:
-            cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
-            trace = D.trace_cell(cell, peak=False)
-            rec = D.run_cell(cell, mesh_shape, trace)
+            if smoke_config(arch).family == "dense":
+                rec = dense_records[(mesh_shape, arch, "train")]
+                assert rec["op_cost"]["flops"] * n == one_device_flops[arch]
+                assert rec["collectives"]["total_bytes"] > 0, arch
+            else:
+                cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
+                rec = D.run_cell(cell, mesh_shape,
+                                 D.trace_cell(cell, peak=False))
+                assert rec["op_cost"]["flops"] == one_device_flops[arch]
+                assert rec["collectives"] is None, arch
+                assert smoke_config(arch).family in \
+                    rec["collectives_null_reason"], arch
             assert rec["op_cost"]["flops"] > 0, arch
-            assert rec["op_cost"]["flops"] == one_device_flops[arch], arch
-            assert rec["collectives"] is None and rec["collectives_null_reason"]
             m = rec["memory"]
             assert 0 < m["alias_size_in_bytes"] < m["argument_size_in_bytes"]
-        cell = S.build_cell(smoke_config("qwen3-32b"), DECODE, mesh)
-        rec = D.run_cell(cell, mesh_shape, D.trace_cell(cell, peak=False))
-        assert rec["memory"]["argument_size_in_bytes"] > 0
+    rec = dense_records[(mesh_shape, "qwen3-32b", "decode")]
+    assert rec["memory"]["argument_size_in_bytes"] > 0
 
 
 @pytest.mark.parametrize("mesh_shape,expect", [((2, 2, 2), True),
@@ -175,11 +325,22 @@ def test_lm_cell_on_one_device_equals_the_eager_step(shape):
         torch.set_num_threads(threads)
 
 
+def _plain(tree):
+    """``tree`` with each DTensor leaf as its local tensor."""
+    return torch.utils._pytree.tree_map(
+        lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
+
+
 def _cell_against_eager(cfg, model, shape):
+    """The cell runs on DTensors (qwen3-32b is dense); on one device its
+    outputs are the plain eager step's, bit for bit."""
     with fake_process_group(1):
         mesh = make_mesh((1, 1), device_type="cpu")
         cell = S.build_cell(cfg, shape, mesh)
         args = S.materialize(cell, "cpu", seed=5)
+        assert all(isinstance(t, DTensor) for t in
+                   torch.utils._pytree.tree_leaves(args)
+                   if isinstance(t, torch.Tensor) and t.dim() > 0)
         want_bytes = D.memory_record(
             cell, D.trace_cell(cell, peak=False)[0])["argument_size_in_bytes"]
         # every argument but the train state's host-side step (0-d)
@@ -188,37 +349,38 @@ def _cell_against_eager(cfg, model, shape):
                         if isinstance(t, torch.Tensor) and t.dim() > 0)
         assert got_bytes == want_bytes
         if shape.kind == "train":
-            state, batch = args
-            got_s, got_m = S.run_cell(cell, args)
+            state, batch = _plain(args)
+            got_s, got_m = _plain(S.run_cell(cell, args))
             want_s, want_m = S.make_train_step(model)(state, batch)
             assert torch.equal(got_m["loss"], want_m["loss"])
             for (p, a), (_, b) in zip(tree_leaves(got_s.params),
                                       tree_leaves(want_s.params)):
                 assert torch.equal(a, b), p
         elif shape.kind == "prefill":
-            params, batch, cache = args
-            got, _ = S.run_cell(cell, args)
+            params, batch, cache = _plain(args)
+            got, _ = _plain(S.run_cell(cell, args))
             want, _ = S.make_prefill_step(model)(
                 params, batch, model.init_cache(8, 64))
             assert torch.equal(got, want)
         else:
             params, cache, tok = args
-            twin = tree_map(lambda t: t.clone() if isinstance(
-                t, torch.Tensor) else t, cache)
+            twin = tree_map(lambda t: t.to_local().clone() if isinstance(
+                t, DTensor) else t, cache)
             got, want = [], []
-            t1 = t2 = tok
+            t1, t2 = tok, tok.to_local()
             for _ in range(2):
                 t1, cache = S.run_cell(cell, (params, cache, t1))
-                t2, twin = S.make_serve_step(model)(params, twin, t2)
-                got.append(t1)
+                t2, twin = S.make_serve_step(model)(_plain(params), twin, t2)
+                got.append(t1.to_local())
                 want.append(t2)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_an_lm_cell_on_a_wider_mesh_is_refused():
+    """A family other than the dense one does not run on shards yet."""
     with fake_process_group(8):
         mesh = make_mesh((2, 4), device_type="cpu")
-        cell = S.build_cell(smoke_config("qwen3-32b"), TRAIN, mesh)
+        cell = S.build_cell(smoke_config("mamba2-1.3b"), TRAIN, mesh)
         with pytest.raises(NotImplementedError, match="does not run"):
             S.run_cell(cell, cell.args)
 
@@ -238,11 +400,9 @@ def test_cli_end_to_end(tmp_path, capsys):
         if not agg:
             assert rec["op_cost"]["flops"] > 0
             assert ("peak_estimate_bytes" in rec["memory"]) == one
-        if agg or one:
-            total = rec["collectives"]["total_bytes"]
-            assert (total > 0) == (agg and not one), f
-        else:
-            assert rec["collectives"] is None
+        # qwen3-32b is dense: its LM cells run on shards too
+        total = rec["collectives"]["total_bytes"]
+        assert (total > 0) == (not one), f
     assert D.cell_filename("mamba2-1.3b", "train_4k", (2, 16, 16)) == \
         "mamba2-1.3b__train_4k__pod2x16x16.json"
 

@@ -448,6 +448,70 @@ def test_flash_attention_route_has_the_plain_gradient(cuda, B, S, Skv, H,
     _assert_grads_equal(got, want, 1e-6)
 
 
+@pytest.mark.parametrize("B,S,H,KVH,D,dt,shard", [
+    (2, 300, 8, 2, 128, "bf16", "qrows"),       # tc instance
+    (2, 300, 8, 2, 128, "bf16", "repeat_kv"),
+    (1, 200, 4, 1, 64, "f32", "heads"),         # mma instance, MQA
+])
+def test_flash_attention_route_on_dtensors_has_the_plain_gradient(
+        cuda, B, S, H, KVH, D, dt, shard):
+    """The kernel route on DTensor q, k, v on the (1, 1) cuda mesh: one
+    launch through ``local_map`` on the local heads, a DTensor out, and the
+    gradient of autograd through the plain translation on plain tensors
+    (a mesh axis of one device is no shard, so every score-shard mode
+    takes the kernel): expected bit-identical, 1e-6 allowed."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    from repro_torch.models import layers
+    from repro_torch.sharding import axis_rules
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v, do = (_randn(cuda, *s, seed=i, dtype=dtype) for i, s in
+                   enumerate([(B, S, H, D), (B, S, KVH, D), (B, S, KVH, D),
+                              (B, S, H, D)]))
+    with local_process_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        rep = [Replicate(), Replicate()]
+        ins = _leaves(q, k, v)
+        dins = [DTensor.from_local(t, mesh, rep) for t in ins]
+        before = FK.flash_attention_call.launches
+        with axis_rules(mesh):
+            o = layers.chunked_attention(*dins, causal=True,
+                                         score_shard=shard)
+        assert isinstance(o, DTensor) and o.grad_fn is not None
+        assert FK.flash_attention_call.launches == before + 1
+        got = torch.autograd.grad(o, ins, DTensor.from_local(do, mesh, rep))
+    ref = _leaves(q, k, v)
+    want = torch.autograd.grad(layers._attention_plain(*ref, causal=True),
+                               ref, do)
+    _assert_grads_equal(got, want, 1e-6)
+
+
+def test_flash_attention_at_a_shards_local_shape(cuda):
+    """B4 through the kernel route's local body (what ``local_map`` hands
+    each rank) at granite-34b's 16 x 16 prefill_32k shard: q (2, 32768, 3
+    groups of the one KV head, 128), causal, bf16 on the tc instance,
+    within one bf16 step of its plain version (512 queries at a time)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers
+    B, S, KVH, G, D = 2, 32768, 1, 3, 128
+    q, k, v = (_randn(cuda, B, S, h, D, seed=i, dtype=torch.bfloat16)
+               for i, h in enumerate((KVH * G, KVH, KVH)))
+    FK.reset_launch_counts()
+    with torch.no_grad():
+        o = layers._flash_grouped(q.reshape(B, S, KVH, G, D), k, v, True,
+                                  None, 512).reshape(B, S, KVH * G, D)
+    assert FK.flash_attention_call.launches_tc == 1
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    for b in range(B):
+        for o0 in range(0, S, 512):
+            want = t(attention_ref(t(q[b:b + 1, o0:o0 + 512]), t(k[b:b + 1]),
+                                   t(v[b:b + 1]), causal=True, q_offset=o0))
+            torch.testing.assert_close(o[b:b + 1, o0:o0 + 512].float(),
+                                       want.float(), rtol=2 ** -7, atol=1e-5)
+
+
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_rglru_route_has_the_recurrences_gradient(cuda, with_h0):
     """rg_lru_scan on the card: the backward is the reverse-time scan on the
@@ -827,47 +891,52 @@ AGG_BF16_BOUND = 2.0 ** -6
 def test_a_smoke_lm_cell_on_the_one_card_mesh_equals_the_eager_step(cuda,
                                                                     kind):
     """A smoke LM cell materialized and run on the (1, 1) cuda mesh (a
-    one-rank process group) gives the eager step builders' outputs bit for
-    bit, and its arguments take the dry run's argument bytes."""
+    one-rank process group), on DTensor arguments (phi4-mini-3.8b is
+    dense), gives the eager step builders' outputs on the plain local
+    tensors bit for bit, and its arguments take the dry run's argument
+    bytes."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.configs import ShapeConfig, smoke_config
     from repro_torch.launch import dryrun as D, specs as S
     from repro_torch.launch.mesh import local_process_group, make_mesh
     from repro_torch.models.model import LM
     from repro_torch.tree import tree_leaves, tree_map
+    plain = lambda tree: torch.utils._pytree.tree_map(  # noqa: E731
+        lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
     cfg = smoke_config("phi4-mini-3.8b")
     model = LM(cfg, "cuda")
     with local_process_group():
         mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
         cell = S.build_cell(cfg, ShapeConfig("smoke", 64, 8, kind), mesh)
         args = S.materialize(cell, "cuda", seed=5, pos=60)
+        leaves = [t for t in torch.utils._pytree.tree_leaves(args)
+                  if isinstance(t, torch.Tensor) and t.is_cuda]
+        assert all(isinstance(t, DTensor) for t in leaves)
         want_bytes = D.memory_record(
             cell, D.trace_cell(cell, peak=False)[0])["argument_size_in_bytes"]
-        assert want_bytes == sum(
-            t.numel() * t.element_size()
-            for t in torch.utils._pytree.tree_leaves(args)
-            if isinstance(t, torch.Tensor) and t.is_cuda)
+        assert want_bytes == sum(t.numel() * t.element_size() for t in leaves)
         if kind == "train":
-            got_s, got_m = S.run_cell(cell, args)
-            want_s, want_m = S.make_train_step(model)(*args)
+            got_s, got_m = plain(S.run_cell(cell, args))
+            want_s, want_m = S.make_train_step(model)(*plain(args))
             assert torch.equal(got_m["loss"], want_m["loss"])
             for (p, a), (_, b) in zip(tree_leaves(got_s.params),
                                       tree_leaves(want_s.params)):
                 assert torch.equal(a, b), p
         elif kind == "prefill":
-            params, batch, _ = args
-            got, _ = S.run_cell(cell, args)
+            params, batch, _ = plain(args)
+            got, _ = plain(S.run_cell(cell, args))
             want, _ = S.make_prefill_step(model)(
                 params, batch, model.init_cache(8, 64))
             assert torch.equal(got, want)
         else:
             params, cache, tok = args
-            twin = tree_map(lambda t: t.clone() if isinstance(
-                t, torch.Tensor) else t, cache)
-            t1 = t2 = tok
+            twin = tree_map(lambda t: t.to_local().clone() if isinstance(
+                t, DTensor) else t, cache)
+            t1, t2 = tok, tok.to_local()
             for _ in range(3):
                 t1, cache = S.run_cell(cell, (params, cache, t1))
-                t2, twin = S.make_serve_step(model)(params, twin, t2)
-                assert torch.equal(t1, t2)
+                t2, twin = S.make_serve_step(model)(plain(params), twin, t2)
+                assert torch.equal(t1.to_local(), t2)
         torch.cuda.synchronize()
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` imports ``jax`` or the
-JAX package ``repro``, and ``chip_smoke.py`` imports neither."""
+JAX package ``repro``, and neither ``chip_smoke.py`` nor the multi-rank
+tests' rank worker (``tests/torch_dist_lm_ranks.py``) imports either."""
 import ast
 import subprocess
 import sys
@@ -71,3 +72,32 @@ def test_port_sources_name_no_jax_import():
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
         bad = _imported_roots(path) & set(BLOCKED)
         assert not bad, (path, bad)
+
+
+_RANKS_PROBE = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in %r:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch_dist_lm_ranks
+print(sorted(m for m in sys.modules if m.split(".")[0] in %r))
+"""
+
+
+def test_the_rank_worker_imports_no_jax_or_repro():
+    path = ROOT / "tests" / "torch_dist_lm_ranks.py"
+    roots = _imported_roots(path)
+    assert "repro_torch" in roots
+    assert not roots & set(BLOCKED), roots & set(BLOCKED)
+    out = subprocess.run(
+        [sys.executable, "-c", _RANKS_PROBE % (BLOCKED, BLOCKED)],
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'tests'}",
+             "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
