@@ -6,7 +6,7 @@ federated simulation, the LM serving path and the LM training path.
     python3 chip_smoke.py --ssd-precision   # only the SSD precision probe
     python3 chip_smoke.py --probe           # only B4 f32's and B5's probe
     python3 chip_smoke.py --dist            # only phase l
-    python3 chip_smoke.py --shards          # only phases l and m
+    python3 chip_smoke.py --shards          # only phases l, m and n
 
 Phases, each printing its lines; no phase's failure is caught:
 
@@ -30,7 +30,11 @@ Phases, each printing its lines; no phase's failure is caught:
               4096, its plain version a batch row at a time,
               deepseek-v2-lite-16b's MLA prefill of 4 x 4096 positions, 16
               heads, q/k head dim 192 and v 128 on the wgmma instance, and
-              v narrower than q/k on the mma.sync one) and at ragged ones
+              v narrower than q/k on the mma.sync one; phi4-mini-3.8b's
+              and phase n's three families' prefill_32k rows (1 x 32768,
+              the plain version 512 queries at a time) and train_4k steps
+              (8 x 4096), and B5 at recurrentgemma-2b's two) and at ragged
+              ones
   4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
               beside the least time the card could take (bound_ms)
@@ -152,12 +156,26 @@ Phases, each printing its lines; no phase's failure is caught:
               of qwen3-32b's and granite-34b's 16 x 16 prefill_32k shards
               through the route's local body, against its plain version,
               with its bound and SDPA's ms ([shards] lines)
- 17. result   one JSON line of per-kernel numbers (B4 as two rows, one
+ 17. families (n) the vlm, encdec and hybrid families on DTensor shards:
+              internvl2-1b's, whisper-tiny's and recurrentgemma-2b's
+              train_4k, prefill_32k and decode_32k cells at published
+              widths, batch cut as phase l's (8, 1, 4), on the (1, 1) cuda
+              mesh, on plain tensors and then on DTensor arguments from one
+              seed, bit-equal (B4 and B5 launched as the block kinds
+              reckon: recurrentgemma-2b's 8 local-attention and 18 rec
+              layers, B5 54 a train step, 18 a prefill, 0 in decode), the
+              two runs' times and ratio; B5 at the local shape of
+              recurrentgemma-2b's 16 x 16 prefill_32k shard, (2, 32768,
+              160) f32, through the route's local body, against its plain
+              version, with its bound ([families] lines)
+ 18. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance, the bf16 row with whisper's two shapes,
-              mixtral's, deepseek's, phi4-mini's and the two shards'; each
-              row with its training, uplink, downlink, health, vlm, encdec,
-              moe, mla, dist and shards launches), the nvidia-smi line, and
-              last the contract line {"ok": true, "device": {...}}
+              mixtral's, deepseek's, phi4-mini's and the two shards', and
+              phase n's shapes' errors; B5's with its shard shape and
+              phase n's shapes' errors; each row with its training, uplink,
+              downlink, health, vlm, encdec, moe, mla, dist, shards and
+              families launches), the nvidia-smi line, and last the
+              contract line {"ok": true, "device": {...}}
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
 why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
@@ -569,6 +587,12 @@ DEEPSEEK = dict(H=16, D=192, Dv=128)
 # kv heads, full causal; its prefill_32k row and its train_4k step (8 x 4096)
 PHI4 = dict(H=24, KVH=8, D=128, prompt=32768, train=(8, 4096))
 RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
+# phase n's attention and scan shapes: (H, KVH, D, window) of each family's
+# causal attention, at its prefill_32k row and its train_4k step (8 x 4096)
+FAMILY_B4 = {"internvl2-1b": (*VLM_HEADS, 64, None),
+             "whisper-tiny": (WHISPER["H"], WHISPER["H"], WHISPER["D"], None),
+             "recurrentgemma-2b": (RG["H"], RG["KVH"], RG["D"], RG["window"])}
+CELL_ROWS = ((1, PHI4["prompt"]), PHI4["train"])
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 SSD_CASES = [  # B, NH, S, hd, ds, chunk, h0
     (SERVE_BATCH, MB["NH"], SERVE_PROMPT, MB["hd"], MB["ds"], MB["chunk"],
@@ -710,7 +734,8 @@ def phase_parity_lm(torch):
          PHI4["D"], True, None, bf16),                   # phi4-mini's prefill
         (*PHI4["train"], PHI4["train"][1], PHI4["H"], PHI4["KVH"], PHI4["D"],
          True, None, bf16),                              # ... its train step
-    ]
+    ] + [(B, Sq, Sq, H, KVH, D, True, W, bf16) for B, Sq in CELL_ROWS
+         for H, KVH, D, W in FAMILY_B4.values()]         # phase n's
     for i, (B, Sq, Skv, H, KVH, D, causal, window, dt, *Dv) in enumerate(
             flash_cases):
         Dv = Dv[0] if Dv else None
@@ -731,6 +756,9 @@ def phase_parity_lm(torch):
             errs["flash_attention_deepseek"] = e
         if (H, KVH, D) == (PHI4["H"], PHI4["KVH"], PHI4["D"]):
             errs[f"flash_attention_phi4_{B}x{Sq}"] = e
+        for arch, heads in FAMILY_B4.items():
+            if (B, Sq) in CELL_ROWS and (H, KVH, D, window) == heads:
+                errs[f"flash_attention_{arch}_{B}x{Sq}"] = e
         torch.cuda.synchronize()
         log(f"[parity] flash_attention B={B} Sq={Sq} Skv={Skv} H={H} "
             f"KVH={KVH} D={D} Dv={Dv or D} causal={causal} window={window} "
@@ -743,6 +771,8 @@ def phase_parity_lm(torch):
         (2, 17, 2560, bf16, False),                      # S < one tile
         (2, 300, 36, f32, True),                         # TMA, ragged C
         (1, 777, 70, bf16, True),                        # cp.async, bf16
+        (1, PHI4["prompt"], RG["C"], f32, True),         # phase n's prefill
+        (*PHI4["train"], RG["C"], f32, False),           # ... its train step
     ]
     for i, (B, Sl, C, dt, with_h0) in enumerate(rg_cases):
         log_a, b = _rglru_inputs(torch, B, Sl, C, dt, 20 + i)
@@ -756,6 +786,8 @@ def phase_parity_lm(torch):
         e = max(_max_err(torch, h, hr, 1e-5, 1e-5),
                 _max_err(torch, hl, hlr, 1e-5, 1e-5))
         errs.setdefault("rglru_scan", e)
+        if C == RG["C"] and (B, Sl) in CELL_ROWS:
+            errs[f"rglru_scan_{B}x{Sl}"] = e
         torch.cuda.synchronize()
         log(f"[parity] rglru_scan B={B} S={Sl} C={C} {str(dt)[6:]} "
             f"h0={with_h0} ({route}): max|d| {e:.3e}")
@@ -3594,83 +3626,128 @@ SHARD_B4 = {"qwen3-32b": (2, 32768, 4, 1, 128),
             "granite-34b": (2, 32768, 1, 3, 128)}
 
 
-def _shard_cell(torch, mesh, name, first, plain):
-    """m (i). One of phase l's phi4-mini-3.8b cells again, from the same
-    seed, on the (1, 1) cuda mesh with DTensor arguments (materialize's
-    own): its first run's outputs equal phase l's plain-tensor run's bit
-    for bit, B4 launches as phase l's, and its time beside phase l's (the
-    train step and the prefill run twice, the second timed; decode's 8
-    steps, all but the first)."""
+def _lm_launches():
+    """(B4's launches, of which on the tensor-core instance; B5's)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    return (FK.flash_attention_call.launches,
+            FK.flash_attention_call.launches_tc, RK.rglru_scan_call.launches)
+
+
+def _cell_runs(torch, mesh, arch, name, dtensor):
+    """One of ``arch``'s cells at its published widths and sequence length,
+    its batch cut to DIST_CUTS', on the (1, 1) cuda mesh from DIST_SEED,
+    on DTensor arguments (materialize's own) or on their local tensors: a
+    train step and one more from its state, a prefill three times,
+    DIST_DECODE_STEPS decode steps.  B4's and B5's launches are checked
+    against the block kinds' reckoning (``_per_step`` in training, with
+    B5's reverse scan in the backward; ``_per_forward`` in a prefill; none
+    in decode), all of B4's on its tensor-core instance.  Returns the
+    first run's outputs on the host and dict(ms: the warm runs' median,
+    walls_ms, b4_per_run, b5_per_run, runs)."""
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import SHAPES, ShapeConfig, get_config
-    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch import specs as SP
-    from repro_torch.tree import tree_leaves
-    cfg = get_config(DIST)
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch)
     pub = SHAPES[name]
     shape = ShapeConfig(name, pub.seq_len, DIST_CUTS[name], pub.kind)
     cell = SP.build_cell(cfg, shape, mesh)
+    if not SP.on_shards(cell):
+        raise AssertionError(f"{arch}: its cells do not run on shards")
     args = SP.materialize(cell, "cuda", DIST_SEED,
                           pos=shape.seq_len - DIST_DECODE_STEPS)
-    leaves = [t for t in torch.utils._pytree.tree_leaves(args)
-              if isinstance(t, torch.Tensor) and t.dim() > 0]
-    if not all(isinstance(t, DTensor) for t in leaves):
-        raise AssertionError(f"{name}: materialize gave plain tensors")
-    local = lambda t: t.to_local().cpu()  # noqa: E731
+    if not all(isinstance(t, DTensor) for t in
+               torch.utils._pytree.tree_leaves(args)
+               if isinstance(t, torch.Tensor) and t.dim() > 0):
+        raise AssertionError(f"{arch} {name}: materialize gave plain "
+                             "tensors")
+    if not dtensor:
+        args = _local_args(torch, args)
+    local = lambda t: (t.to_local() if isinstance(t, DTensor)  # noqa: E731
+                       else t).cpu()
     _reset_lm_counts()
-    walls = []
     if shape.kind == "train":
         (state, met), _ = _sync_s(torch, lambda: SP.run_cell(cell, args))
-        same = torch.equal(local(met["loss"]), first["loss"]) and all(
-            torch.equal(local(a), b) for (_, a), (_, b) in
-            zip(tree_leaves(state.params), tree_leaves(first["params"])))
+        first = dict(loss=local(met["loss"]),
+                     params=tree_map(local, state.params))
         batch = args[1]
         del args
         (state, met), w = _sync_s(torch, lambda: SP.run_cell(
             cell, (state, batch)))
-        walls.append(w)
-        runs = 2
+        if not math.isfinite(float(local(met["loss"]))):
+            raise AssertionError(f"{arch} {name}: loss {met['loss']}")
+        walls, runs = [w], 2
         del state, met, batch
     elif shape.kind == "prefill":
         (logits, _), _ = _sync_s(torch, lambda: SP.run_cell(cell, args))
-        same = torch.equal(local(logits), first["logits"])
+        first = dict(logits=local(logits))
         del logits
-        _, w = _sync_s(torch, lambda: SP.run_cell(cell, args))
-        walls.append(w)
-        runs = 2
+        walls = [_sync_s(torch, lambda: SP.run_cell(cell, args))[1]
+                 for _ in range(2)]
+        if not torch.isfinite(first["logits"]).all():
+            raise AssertionError(f"{arch} {name}: logits not finite")
+        runs = 3
         del args
     else:
         params, cache, tok = args
         del args
-        toks = []
+        toks, walls = [], []
         for _ in range(DIST_DECODE_STEPS):
             (tok, cache), w = _sync_s(torch, lambda: SP.run_cell(
                 cell, (params, cache, tok)))
             walls.append(w)
             toks.append(local(tok))
-        same = torch.equal(torch.cat(toks, 1), first["tokens"])
-        walls = walls[1:]
-        runs = DIST_DECODE_STEPS
+        first = dict(tokens=torch.cat(toks, 1))
+        walls, runs = walls[1:], DIST_DECODE_STEPS
         del params, cache, tok
     torch.cuda.synchronize()
-    per_run = {"train": 2 * cfg.n_layers, "prefill": cfg.n_layers,
-               "decode": 0}[shape.kind]
-    launched = FK.flash_attention_call.launches
-    if launched != per_run * runs:
-        raise AssertionError(f"{name} on DTensors: B4 launched {launched} "
-                             f"in {runs} runs, expected {per_run} a run")
-    if not same:
+    per = (_per_step(cfg) if shape.kind == "train" else _per_forward(cfg)
+           if shape.kind == "prefill" else dict.fromkeys(KERNEL_OF_BLOCK
+                                                         .values(), 0))
+    b4 = per["flash_attention"]
+    b5 = per["rglru_scan"] + (_decoder_layers(cfg)["rglru_scan"]
+                              if shape.kind == "train" else 0)
+    launched, tc, rg = _lm_launches()
+    if (launched, tc, rg) != (b4 * runs, b4 * runs, b5 * runs):
+        raise AssertionError(
+            f"{arch} {name} on {'DTensor' if dtensor else 'plain'} "
+            f"arguments: B4 {launched} ({tc} tc), B5 {rg} in {runs} runs, "
+            f"expected B4 {b4} (all tc) and B5 {b5} a run")
+    torch.cuda.empty_cache()
+    return first, dict(batch=shape.global_batch, of=pub.global_batch,
+                       seq=shape.seq_len,
+                       ms=sorted(walls)[len(walls) // 2] * 1e3,
+                       walls_ms=[w * 1e3 for w in walls], b4_per_run=b4,
+                       b5_per_run=b5, runs=runs)
+
+
+def _same_outputs(torch, a, b):
+    """Whether two runs' first outputs (``_cell_runs``') equal bit for
+    bit."""
+    a, b = (torch.utils._pytree.tree_leaves(t) for t in (a, b))
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _shard_cell(torch, mesh, name, first, plain):
+    """m (i). One of phase l's phi4-mini-3.8b cells again, from the same
+    seed, on DTensor arguments (``_cell_runs``): its first run's outputs
+    equal phase l's plain-tensor run's bit for bit, and its time beside
+    phase l's."""
+    got, run = _cell_runs(torch, mesh, DIST, name, dtensor=True)
+    if not _same_outputs(torch, got, first):
         raise AssertionError(f"{name} on DTensors: the outputs differ from "
                              "phase l's plain-tensor run")
-    ms = sorted(walls)[len(walls) // 2] * 1e3
+    ms = run["ms"]
     log(f"[shards] {DIST} {name} on the (1, 1) mesh, DTensor arguments: "
-        f"{'step' if shape.kind != 'decode' else 'decode step'} {ms:.2f} ms"
+        f"{'step' if name != 'decode_32k' else 'decode step'} {ms:.2f} ms"
         f" (warm), phase l's plain tensors {plain['ms']:.2f} ms (ratio "
-        f"{ms / plain['ms']:.4f}); B4 {per_run} a run; outputs equal phase "
-        f"l's bit for bit")
-    torch.cuda.empty_cache()
-    return dict(ms=ms, plain_tensor_ms=plain["ms"], b4_per_run=per_run,
-                b4_launches=launched, walls_ms=[x * 1e3 for x in walls])
+        f"{ms / plain['ms']:.4f}); B4 {run['b4_per_run']} a run; outputs "
+        f"equal phase l's bit for bit")
+    return dict(ms=ms, plain_tensor_ms=plain["ms"],
+                b4_per_run=run["b4_per_run"],
+                b4_launches=run["b4_per_run"] * run["runs"],
+                walls_ms=run["walls_ms"])
 
 
 def _shard_b4(torch, arch):
@@ -3748,6 +3825,104 @@ def phase_shards(torch, firsts, dist):
                     c["b4_launches"] for c in cells.values())})
 
 
+# ------------ phase n: the vlm, encdec and hybrid families on DTensor shards
+
+FAMILIES = ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b")
+# B5's local problem on recurrentgemma-2b's 16 x 16 prefill_32k shard: the
+# batch of 32 over 16 "batch" shards, 32768 positions, the 2560 channels
+# over 16 "tensor" shards; (B, S, C) f32
+SHARD_B5 = (2, 32768, 160)
+
+
+def _family_cell(torch, mesh, arch, name):
+    """n (i). One of ``arch``'s cells (``_cell_runs``), first on plain
+    tensors and then on DTensor arguments from the same seed: the two
+    runs' outputs equal bit for bit; each run's warm ms and their
+    ratio."""
+    plain_first, plain = _cell_runs(torch, mesh, arch, name, dtensor=False)
+    first, run = _cell_runs(torch, mesh, arch, name, dtensor=True)
+    if not _same_outputs(torch, plain_first, first):
+        raise AssertionError(f"{arch} {name}: the DTensor run's outputs "
+                             "differ from the plain tensors'")
+    ms, b4, b5 = run["ms"], run["b4_per_run"], run["b5_per_run"]
+    log(f"[families] {arch} {name} cut to batch {run['batch']} (of "
+        f"{run['of']}), seq {run['seq']}, on the (1, 1) mesh: "
+        f"{'step' if name != 'decode_32k' else 'decode step'} on DTensor "
+        f"arguments {ms:.2f} ms, on plain tensors {plain['ms']:.2f} ms "
+        f"(ratio {ms / plain['ms']:.4f}; warm, median); B4 {b4} a run (all "
+        f"tc), B5 {b5} a run; the outputs equal bit for bit")
+    return dict(batch=run["batch"], of=run["of"], seq=run["seq"], ms=ms,
+                plain_tensor_ms=plain["ms"], ratio=ms / plain["ms"],
+                b4_per_run=b4, b5_per_run=b5,
+                b4_launches=2 * b4 * run["runs"],
+                b5_launches=2 * b5 * run["runs"], walls_ms=run["walls_ms"],
+                plain_walls_ms=plain["walls_ms"])
+
+
+def _shard_b5(torch):
+    """n (ii). B5 at recurrentgemma-2b's 16 x 16 prefill_32k shard's local
+    problem (``SHARD_B5``), through the route's local body
+    (``blocks._scan_local``, what ``local_map`` hands each rank): against
+    its plain version (the sequential recurrence) within 1e-5, on the TMA
+    route, its ms, its bound and the plain version's ms."""
+    from repro_torch.kernels.rglru import kernel as RK, ref as RR
+    from repro_torch.models import blocks
+    B, S, C = SHARD_B5
+    log_a, b = _rglru_inputs(torch, B, S, C, torch.float32, 81)
+    h0 = _randn(torch, B, C, seed=82)
+    route = RK.route(4, S, C, log_a.data_ptr(), b.data_ptr())
+    if route != "tma":
+        raise AssertionError(f"B5 at the shard's shape takes {route}")
+    RK.rglru_scan_call.launches = 0
+    with torch.no_grad():
+        h, hl = blocks._scan_local(log_a, b, h0)
+        (hr, hlr), plain_s = _sync_s(torch, lambda: RR.rglru_scan_ref(
+            torch.exp(log_a), b, h0))
+    if RK.rglru_scan_call.launches != 1:
+        raise AssertionError("the local body did not launch B5 once")
+    err = max(_max_err(torch, h, hr, 1e-5, 1e-5),
+              _max_err(torch, hl, hlr, 1e-5, 1e-5))
+    del h, hl, hr, hlr
+    with torch.no_grad():
+        ms = _time_ms(torch, lambda: blocks._scan_local(log_a, b, h0))
+    nbytes = (3 * log_a.numel() + 2 * h0.numel()) * 4
+    bound, by = _bound_ms(nbytes, 3 * log_a.numel())
+    log(f"[families] B5 at recurrentgemma-2b's 16 x 16 prefill_32k shard "
+        f"({B}, {S}, {C}) f32 with h0, through the route's local body "
+        f"({route}): max|d| {err:.3e} against the plain version; "
+        f"kernel_ms={ms:.4f} bound_ms={bound:.4f} ({by}) "
+        f"plain_ms={plain_s * 1e3:.2f} bound/kernel={bound / ms:.4f}")
+    del log_a, b, h0
+    torch.cuda.empty_cache()
+    return dict(shape=[B, S, C], route=route, max_abs_err=err, ms=ms,
+                bound_ms=bound, bound_by=by, plain_ms=plain_s * 1e3,
+                library_ms=None)
+
+
+def phase_families(torch):
+    """n. The vlm, encdec and hybrid families' LM step on DTensor shards,
+    on the card: (i) the train_4k, prefill_32k and decode_32k cells of
+    internvl2-1b, whisper-tiny and recurrentgemma-2b at their published
+    widths, batch cut, on the (1, 1) cuda mesh, on plain tensors and then
+    on DTensor arguments from one seed, bit-equal (``_family_cell``);
+    (ii) B5 at a 16 x 16 shard's local shape (``_shard_b5``)."""
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    t0 = time.perf_counter()
+    cells = {}
+    with local_process_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for arch in FAMILIES:
+            for name in DIST_CUTS:
+                cells[f"{arch}:{name}"] = _family_cell(torch, mesh, arch,
+                                                       name)
+    b5 = _shard_b5(torch)
+    took = time.perf_counter() - t0
+    log(f"[families] phase took {took:.1f} s")
+    return dict(cells=cells, b5=b5, phase_s=took, lm_launches={
+        "flash_attention": sum(c["b4_launches"] for c in cells.values()),
+        "rglru_scan": sum(c["b5_launches"] for c in cells.values())})
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -3820,6 +3995,8 @@ def main() -> int:
         if sys.argv[1:] == ["--shards"]:
             shards = phase_shards(torch, firsts, dist)
             log(f"[shards] summary: {json.dumps(shards)}")
+            families = phase_families(torch)
+            log(f"[families] summary: {json.dumps(families)}")
         return 0
     errs = phase_parity(torch)
     errs.update(phase_parity_lm(torch))
@@ -3838,6 +4015,7 @@ def main() -> int:
     mla = phase_mla(torch)
     firsts, dist = phase_dist(torch)
     shards = phase_shards(torch, firsts, dist)
+    families = phase_families(torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -3881,7 +4059,8 @@ def main() -> int:
             "mla_prefill": mla["serve_launches"]["flash_attention_tc"],
             "mla_step": mla["step"]["launches_tc"],
             "dist_cells": dist["lm_launches"]["flash_attention"],
-            "shards_cells": shards["lm_launches"]["flash_attention"]},
+            "shards_cells": shards["lm_launches"]["flash_attention"],
+            "families_cells": families["lm_launches"]["flash_attention"]},
         "flash_attention_f32_mma": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"],
             "vlm_smoke": vlm["smoke_serve_mma"]
@@ -3893,7 +4072,9 @@ def main() -> int:
             "mla_smoke": mla["smoke_serve_mma"]
             + mla["smoke_train"]["flash_attention_mma"]},
         "rglru_scan": {"smoke_card_vs_cpu": smoke_launches["rglru_scan"],
-                       "mla": mla["lm_launches"]["rglru_scan"]},
+                       "mla": mla["lm_launches"]["rglru_scan"],
+                       "families_cells": families["lm_launches"][
+                           "rglru_scan"]},
         "ssd_forward": {
             "mla": mla["lm_launches"]["ssd_forward"],
             "train_step": train_step["launches"]["ssd_forward"],
@@ -3960,8 +4141,17 @@ def main() -> int:
                                      f"{PHI4['prompt']}"],
                     train_max_abs_err=errs["flash_attention_phi4_{}x{}"
                                            .format(*PHI4["train"])]),
-                "shard_shapes": shards["b4"]}
-               if kname == "flash_attention_bf16_tc" else {}),
+                "shard_shapes": shards["b4"],
+                "family_shapes_max_abs_err": {
+                    k[16:]: v for k, v in errs.items()
+                    if k.startswith("flash_attention_")
+                    and k.split("_")[2] in FAMILY_B4}}
+               if kname == "flash_attention_bf16_tc" else
+               {"shard_shape": families["b5"],
+                "family_shapes_max_abs_err": {
+                    k[11:]: v for k, v in errs.items()
+                    if k.startswith("rglru_scan_")}}
+               if kname == "rglru_scan" else {}),
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
         f"memory MiB: {peak:.1f}")
@@ -3976,6 +4166,7 @@ def main() -> int:
     log(f"[mla] summary: {json.dumps(mla)}")
     log(f"[dist] summary: {json.dumps(dist)}")
     log(f"[shards] summary: {json.dumps(shards)}")
+    log(f"[families] summary: {json.dumps(families)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

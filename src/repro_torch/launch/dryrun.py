@@ -17,10 +17,11 @@ cell it records:
     (flash attention's chunked scores among them), so the estimate is the
     plain path's;
   * ``collectives``: per kind count and bytes.  The SEAFL aggregation
-    cells and the dense family's LM cells run on DTensors with meta local
-    shards and record the collectives they dispatch.  The other families'
-    LM steps run on whole tensors (their layers do not run on shards yet),
-    so on a mesh of more than one device their collectives are not known:
+    cells and the LM cells of the dense, vlm, encdec and hybrid families
+    (``specs.on_shards``) run on DTensors with meta local shards and
+    record the collectives they dispatch.  The ssm and moe families' LM
+    steps run on whole tensors (their blocks do not run on shards yet), so
+    on a mesh of more than one device their collectives are not known:
     ``null``, with the reason;
   * ``trace_seconds``, the counterpart of ``lower_seconds`` and
     ``compile_seconds``.
@@ -129,8 +130,8 @@ def run_cell(cell, mesh_shape, trace) -> dict:
         rec["collectives"] = None
         rec["collectives_null_reason"] = (
             f"the {cell.cfg.family} family's LM step runs on whole tensors, "
-            "not on shards, so the collectives a sharded step needs are not "
-            "known yet")
+            "not on shards (its blocks do not take DTensors yet), so the "
+            "collectives a sharded step needs are not known yet")
     else:
         rec["collectives"] = collectives_record(cost)
     return rec

@@ -9,11 +9,12 @@ the meta device: the full-size configs are traced there (``launch/dryrun.py``),
 never allocated.  :func:`materialize` makes seeded real arguments for a cell
 and :func:`run_cell` runs it.
 
-The SEAFL aggregation cell and the dense family's LM cells run on DTensors
-(:func:`on_shards`), on any mesh.  The other families' LM steps do not run
-on shards yet: on a mesh of more than one device their cells are traced on
-whole tensors (their per-device bytes come from the placements) and
-:func:`run_cell` refuses them.
+The SEAFL aggregation cell and the LM cells of the dense, vlm, encdec and
+hybrid families run on DTensors (:func:`on_shards`: every block kind of
+theirs takes shards), on any mesh.  The ssm and moe families' LM steps do
+not run on shards yet: on a mesh of more than one device their cells are
+traced on whole tensors (their per-device bytes come from the placements)
+and :func:`run_cell` refuses them.
 
 Scalars the port keeps on the host are not device arguments: a train
 state's ``step`` (an int32 on the CPU) and a cache's ``pos`` (a Python
@@ -31,6 +32,7 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
+from repro_torch.models.layers import argmax
 from repro_torch.optim import TrainState, sgd
 from repro_torch.sharding import (AxisRules, NamedSharding, PartitionSpec as P,
                                   axis_rules, divisible, mesh_axis_sizes,
@@ -112,7 +114,7 @@ def make_prefill_step(model):
 def make_serve_step(model):
     def serve_step(params, cache, tokens):
         logits, cache = model.decode_step(params, tokens, cache)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        nxt = argmax(logits[:, -1]).to(torch.int32)
         return nxt[:, None], cache
     return serve_step
 
@@ -437,11 +439,19 @@ def materialize(cell: CellSpec, device, seed: int = 0, *, pos=None,
     return place(args, ins, dtensor=on_shards(cell))
 
 
+# the block kinds whose layers take DTensor shards
+SHARDED_BLOCKS = frozenset({"attn_mlp", "attn", "rec"})
+
+
 def on_shards(cell) -> bool:
-    """Whether ``cell`` runs on DTensor shards: the aggregation cells and
-    the dense family's LM cells.  The other families' LM steps take whole
-    tensors (their layers do not run on shards yet)."""
-    return cell.kind == "agg" or cell.cfg.family == "dense"
+    """Whether ``cell`` runs on DTensor shards: the aggregation cells, and
+    an LM cell whose scan groups hold only block kinds that run on shards
+    (``SHARDED_BLOCKS``: the dense, vlm, encdec and hybrid families).  The
+    ssm and moe families' LM steps take whole tensors (their blocks do not
+    run on shards yet)."""
+    return cell.kind == "agg" or all(
+        b in SHARDED_BLOCKS
+        for pattern, _ in cell.cfg.scan_groups() for b in pattern)
 
 
 def _cache_dims(cell):
@@ -512,12 +522,13 @@ def _materialize_agg(cell, params, gen, buffer):
 
 def run_cell(cell: CellSpec, args):
     """Run ``cell``'s step on ``args`` (from :func:`materialize`).  An LM
-    cell of a family other than the dense one, on a mesh of more than one
-    device, raises: its step does not run on shards yet, and the unsharded
-    step is never run in its place."""
+    cell of the ssm or moe family (one not :func:`on_shards`), on a mesh of
+    more than one device, raises: its step does not run on shards yet, and
+    the unsharded step is never run in its place."""
     if not on_shards(cell) and cell.mesh.size() > 1:
         raise NotImplementedError(
-            f"{cell.name}: the LM step does not run on a mesh of "
-            f"{cell.mesh.size()} devices yet (its layers take whole tensors)")
+            f"{cell.name}: the {cell.cfg.family} family's LM step does not "
+            f"run on a mesh of {cell.mesh.size()} devices yet (its blocks "
+            "take whole tensors)")
     with axis_rules(cell.mesh):
         return cell.step_fn(*args)

@@ -34,9 +34,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models import layers as L
-from repro_torch.sharding import constrain
+from repro_torch.sharding import (axis_size, constrain, gather_fsdp,
+                                  per_shard, reduced, replicated,
+                                  sharded_over)
 
 # ---------------------------------------------------------------------------
 # causal depthwise conv1d (RG-LRU / Mamba2 frontends)
@@ -55,7 +59,7 @@ def causal_conv1d(p, x):
     the bias add, unrounded in f32 (:func:`layers.unrounded`): the RG-LRU
     gate reads it so, everything else in x's dtype."""
     W = p["w"].shape[0]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = per_shard(lambda t: F.pad(t, (0, 0, W - 1, 0)), x, whole=[1])
     S = x.shape[1]
     out = sum(xp[:, j:j + S] * p["w"][j].to(x.dtype) for j in range(W))
     return L.unrounded(out, p["b"].to(x.dtype))
@@ -425,14 +429,52 @@ def rec_cache(cfg, batch, max_len, dtype, device, lead=()):
                                 dtype=dtype, device=device)}
 
 
+def _channel_linear(p, x):
+    """``x @ w`` for an ``x`` (B, S, C) whose channels shard over "tensor"
+    (the gates' input): on a mesh the weight is read with its rows
+    sharded as ``x``'s channels, and the partial sums are reduce-scattered
+    onto the output's channel shards, so that no rank gathers ``x``."""
+    w = constrain(gather_fsdp(p["w"]), "tensor", None)
+    return constrain(x @ w.to(x.dtype), "batch", None, "tensor")
+
+
+def _column_halves(p, x):
+    """``torch.chunk(x @ w, 2, dim=-1)``: in_proj's xb and z, their
+    channels sharded over "tensor" as the reference's hint shards xb.  On
+    a mesh whose "tensor" axis splits the channels, xb's lie on the first
+    half of the ranks, so a rank moves the smaller of two tensors.  Where
+    it holds fewer rows of ``x`` than the weight has (a decode step), the
+    product's output channels are gathered and split.  Else the weight's
+    columns are gathered and laid out as each rank's block of xb's
+    channels beside its block of z's: the one product leaves both halves'
+    channel shards on each rank, split there, and no (B, S, 2 rnn_width)
+    activation is gathered, forward or backward."""
+    w = gather_fsdp(p["w"])
+    (d, c2), t = w.shape, axis_size("tensor")
+    rows = math.prod(x.shape[:-1]) // math.prod(
+        sharded_over(x, i) for i in range(x.dim() - 1))
+    if isinstance(w, DTensor) and t > 1 and c2 % (2 * t) == 0 and rows >= d:
+        w = replicated(w, [-1]).reshape(d, 2, t, c2 // (2 * t))
+        w = constrain(w.transpose(1, 2).reshape(d, c2), None, "tensor")
+        xz = constrain(reduced(x @ w.to(x.dtype)), "batch", None, "tensor")
+        pl = list(xz.placements)
+        return local_map(lambda v: tuple(torch.chunk(v, 2, dim=-1)),
+                         out_placements=(pl, pl), in_placements=(pl,),
+                         in_grad_placements=(pl,),
+                         device_mesh=xz.device_mesh)(xz)
+    xz = replicated(reduced(x @ w.to(x.dtype)), [-1])
+    return tuple(constrain(h, "batch", None, "tensor")
+                 for h in torch.chunk(xz, 2, dim=-1))
+
+
 def rg_lru_gates(p, xb32, dtype):
     """Returns (log_a, b_in) in f32 for h_t = a_t h_{t-1} + b_t, from the
     conv's output unrounded in f32: the gate products read it in ``dtype``,
     the input gate unrounded, as the reference's (:func:`layers.unrounded`)."""
     xa, xx, xw = L.fan_out(xb32, dtype, 3, wide=(2,), f32_last=False)
-    r = torch.sigmoid(L.linear(p["a_gate"], xa).to(torch.float32))
-    i = torch.sigmoid(L.linear(p["x_gate"], xx).to(torch.float32))
-    log_a = RG_C * r * F.logsigmoid(p["rg_a"].to(torch.float32))
+    r = torch.sigmoid(_channel_linear(p["a_gate"], xa).to(torch.float32))
+    i = torch.sigmoid(_channel_linear(p["x_gate"], xx).to(torch.float32))
+    log_a = RG_C * r * per_shard(F.logsigmoid, p["rg_a"].to(torch.float32))
     gated = i * xw
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * gated
@@ -489,9 +531,23 @@ def rg_lru_scan(log_a, b, h0=None):
     function returns h alone, and its prefill cache takes h[:, -1].
 
     CUDA: the RG-LRU kernel, which exponentiates ``log_a`` in registers.
-    CPU: the sequential recurrence."""
-    if log_a.device.type == "cuda":
-        return _RGLRUScan.apply(log_a, b, h0)
+    CPU: the sequential recurrence.  On DTensors each rank runs the same
+    on its own batch rows and channels (:func:`_scan_on_local_channels`)."""
+    if isinstance(b, DTensor):
+        return _scan_on_local_channels(log_a, b, h0)
+    return _scan_local(log_a, b, h0)
+
+
+def _uses_rglru_kernel(x):
+    return x.device.type == "cuda"
+
+
+def _scan_local(log_a, b, h0):
+    """:func:`rg_lru_scan` on plain tensors: the kernel (:class:`_RGLRUScan`)
+    on CUDA, the sequential recurrence on the CPU."""
+    if _uses_rglru_kernel(log_a):
+        return _RGLRUScan.apply(log_a.contiguous(), b.contiguous(),
+                                None if h0 is None else h0.contiguous())
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     if h0 is None:
         h0 = torch.zeros((log_a.shape[0], log_a.shape[2]),
@@ -499,12 +555,38 @@ def rg_lru_scan(log_a, b, h0=None):
     return rglru_scan_ref(torch.exp(log_a.to(torch.float32)), b, h0)
 
 
+def _scan_on_local_channels(log_a, b, h0):
+    """The scan on DTensors ``log_a``, ``b`` (B, S, C) and ``h0`` (B, C) or
+    None: the recurrence never mixes channels or batch rows, so each rank
+    scans its own (``local_map`` over :func:`_scan_local`, the kernel on
+    the card).  The inputs take ``b``'s placements with the sequence whole
+    (a shard of it, or a partial sum, replicated), ``h0`` the same on its
+    (B, C); ``h`` comes out in those placements and ``h_last`` in
+    ``h0``'s, and so do their gradients: no rank reads another's
+    channels."""
+    mesh = b.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+          for p in b.placements]
+    pl0 = [Shard(min(p.dim, 1)) if isinstance(p, Shard) else p for p in pl]
+    log_a, b = (t.redistribute(mesh, pl) for t in (log_a, b))
+    if h0 is None:
+        fn, ins, args = (lambda la, bb: _scan_local(la, bb, None),
+                         (pl, pl), (log_a, b))
+    else:
+        fn, ins, args = (_scan_local, (pl, pl, pl0),
+                         (log_a, b, h0.redistribute(mesh, pl0)))
+    return local_map(fn, out_placements=(pl, pl0), in_placements=ins,
+                     in_grad_placements=ins, device_mesh=mesh)(*args)
+
+
 def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
               enc_out=None):
     x, x_in = L.block_input(x, cfg)
-    u = L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype)
-    xz = L.linear(p["in_proj"], u)
-    xb, z = torch.chunk(xz, 2, dim=-1)
+    # the products read the residual stream whole along its sequence, as
+    # in attn_mlp_apply
+    u = constrain(L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype),
+                  "batch", None, None)
+    xb, z = _column_halves(p["in_proj"], u)
 
     new_cache = cache
     if mode == "decode":
@@ -519,15 +601,18 @@ def rec_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
         h, h_last = rg_lru_scan(log_a, b, h0)
         if mode == "prefill":
             new_cache = {"h": h_last,
-                         "conv": xz[:, -(cfg.conv_width - 1):, :cfg.rnn_width]
+                         "conv": xb[:, -(cfg.conv_width - 1):]
                          .to(cache["conv"].dtype)}
 
     out = L.linear(p["out_proj"], L.product(h, L.gelu(z), x.dtype))
     x, mid = L.rounded_pair(L.unrounded(x, out), x.dtype)
     m = L.mlp_apply(p["mlp"],
-                    L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
+                    constrain(L.rmsnorm(p["ln2"], mid, cfg.norm_eps,
+                                        torch.float32),
+                              "batch", None, None),
                     cfg, x.dtype)
-    return L.unrounded(x, m), new_cache, L.no_aux(x)
+    x = constrain(L.unrounded(x, m), "batch", "resid", None)
+    return x, new_cache, L.no_aux(x)
 
 
 # ---------------------------------------------------------------------------

@@ -50,7 +50,7 @@ from torch.distributed.tensor._utils import \
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.sharding import (axis_size, constrain, gather_fsdp, like,
-                                  reduced, replicated, reshape,
+                                  per_shard, reduced, replicated, reshape,
                                   sharded_over)
 
 # ---------------------------------------------------------------------------
@@ -569,11 +569,13 @@ def _on_local_blocks(fn, qg, k, v, q0=0, k0=0):
 
 
 def _decode_on_seq_shards(qg, k, v, causal, window, q_offset, kv_len,
-                          softcap):
+                          softcap, valid=None):
     """One query against a cache whose sequence dim is sharded: each rank
     scores its own positions and keeps its shards; the ranks combine
     their partial max, sum and output across the sequence's mesh dims
-    (flash decoding).  No cache leaf moves."""
+    (flash decoding).  No cache leaf moves.  ``valid`` (Skv,), the slots
+    a ring buffer lets the query see, stands in for the mask of
+    ``causal``, ``window`` and ``kv_len``."""
     mesh = k.device_mesh
     seq_dims = [i for i, p in enumerate(k.placements)
                 if isinstance(p, Shard) and p.dim == 1]
@@ -587,6 +589,8 @@ def _decode_on_seq_shards(qg, k, v, causal, window, q_offset, kv_len,
     def body(qg, k, v):
         k_pos = off[1] + torch.arange(k.shape[1], device=k.device)
         m = torch.ones_like(k_pos, dtype=torch.bool)
+        if valid is not None:
+            m &= valid[k_pos]
         if causal:
             m &= k_pos <= q_offset
         if window is not None:
@@ -819,8 +823,9 @@ def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None,
             if cfg.window and S > span:              # keep only the last window
                 # ring-align so that slot (pos % span) is consistent with decode
                 shift = S % span
-                k_keep = torch.roll(k[:, -span:], shift, dims=1)
-                v_keep = torch.roll(v[:, -span:], shift, dims=1)
+                k_keep, v_keep = (per_shard(
+                    lambda x: torch.roll(x, shift, dims=1), t[:, -span:],
+                    whole=[1]) for t in (k, v))
                 new_cache = _cache_write(cfg, cache, k_keep, v_keep, 0)
             else:
                 new_cache = _cache_write(cfg, cache, k, v, 0)
@@ -837,9 +842,15 @@ def attn_apply(p, x, cfg, *, mode="train", cache=None, pos=None, dtype=None,
             k_pos_abs = pos - ((slot - torch.arange(span, device=x.device))
                                % span)
             m = (k_pos_abs >= 0) & (k_pos_abs >= pos - (cfg.window - 1))
-            qg = q.reshape(B, 1, KVH, H // KVH, Dh)
-            o = attention_scores_ctx(qg, ck, cv, m[None, None, None, None, :],
-                                     cfg.attn_softcap).reshape(B, 1, H, Dh)
+            qg = reshape(q, B, 1, KVH, H // KVH, Dh)
+            if sharded_over(ck, 1) > 1:
+                o = _decode_on_seq_shards(qg, ck, cv, False, None, pos, None,
+                                          cfg.attn_softcap, valid=m)
+            else:
+                o = attention_scores_ctx(
+                    qg, ck, cv, like(m[None, None, None, None, :], ck),
+                    cfg.attn_softcap)
+            o = reshape(o, B, 1, H, Dh)
         else:
             o = chunked_attention(q, ck, cv, causal=True, q_offset=pos,
                                   kv_len=pos + 1, softcap=cfg.attn_softcap)
@@ -917,6 +928,37 @@ class _ShardedLogSumExp(torch.autograd.Function):
     def backward(ctx, g):
         lf, lse = ctx.saved_tensors
         return reduced(g)[..., None] * torch.exp(lf - lse[..., None])
+
+
+def argmax(x):
+    """The index of the largest entry along the last dim, the first such
+    index where several tie (``torch.argmax``'s answer).  On a DTensor
+    whose last dim is sharded, each rank takes its own shard's largest
+    entry and the ranks reduce it across the vocab's mesh dims: the max,
+    then the least index that reaches it.  No logits are gathered (and
+    DTensor's own argmax over a sharded dim fails on a batch of one)."""
+    if sharded_over(x, -1) == 1:
+        return torch.argmax(x, dim=-1)
+    mesh, last = x.device_mesh, x.dim() - 1
+    vocab = [i for i, p in enumerate(x.placements)
+             if isinstance(p, Shard) and p.dim == last]
+    _, off = compute_local_shape_and_global_offset(x.shape, mesh,
+                                                   x.placements)
+    out = [Replicate() if i in vocab else p
+           for i, p in enumerate(x.placements)]
+
+    def body(t):
+        m, i = torch.max(t, dim=-1)
+        top = m
+        for d in vocab:
+            top = funcol.all_reduce(top, "max", (mesh, d))
+        i = torch.where(m == top, i + off[last], torch.iinfo(i.dtype).max)
+        for d in vocab:
+            i = funcol.all_reduce(i, "min", (mesh, d))
+        return i
+
+    return local_map(body, out_placements=out, in_placements=(x.placements,),
+                     device_mesh=mesh)(x)
 
 
 def cross_entropy(logits, labels, mask=None):

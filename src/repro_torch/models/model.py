@@ -39,6 +39,7 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
@@ -48,7 +49,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
-from repro_torch.sharding import constrain, like, sharded_over
+from repro_torch.sharding import (constrain, gather_fsdp, like, per_shard,
+                                  sharded_over)
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
 
 
@@ -89,12 +91,22 @@ def _remat(fn, remat: str):
 
 def _copy_into(dst, src):
     """Copy the leaves of ``src`` into the matching leaves of ``dst`` in
-    place, skipping a leaf that already is the destination's storage."""
+    place, skipping a leaf that already is the destination's storage.  A
+    DTensor leaf is first laid out in its destination's placements, so
+    each rank writes its own shard."""
     for k, v in src.items():
         if isinstance(v, Mapping):
             _copy_into(dst[k], v)
-        elif v is not dst[k] and v.data_ptr() != dst[k].data_ptr():
+        elif v is not dst[k] and _ptr(v) != _ptr(dst[k]):
+            if isinstance(v, DTensor):
+                v = v.redistribute(v.device_mesh, dst[k].placements)
             dst[k].copy_(v)
+
+
+def _ptr(t):
+    """The address of ``t``'s data (a DTensor's: its local shard's; the
+    DTensor itself reports 0)."""
+    return (t.to_local() if isinstance(t, DTensor) else t).data_ptr()
 
 
 def reads_encoder(cfg) -> bool:
@@ -236,8 +248,13 @@ class LM:
     def _prepend_vision(self, params, x, image_embeds):
         """The projected image embeddings (cast to the activation dtype
         before the product) in front of the token embeddings ``x``."""
-        img = L.linear(params["patch_proj"], image_embeds.to(self.adtype))
-        return torch.cat([img, x], dim=1)
+        # patch_proj's output dim shards over "fsdp", as the batch does:
+        # the weight is read whole along it and sharded over "tensor"
+        # instead, so that each rank projects its own rows' share of the
+        # output, which the rows then read whole
+        w = constrain(gather_fsdp(params["patch_proj"]["w"]), None, "tensor")
+        img = L.linear({"w": w}, image_embeds.to(self.adtype))
+        return torch.cat([constrain(img, "batch", None, None), x], dim=1)
 
     def _stream(self, params, batch):
         """(the decoder's input stream, the encoder's output or None): the
@@ -277,9 +294,8 @@ class LM:
                                   pos=None, enc_out=enc_out)
         labels = batch["labels"]
         if self.cfg.family == "vlm":          # no loss on image positions
-            labels = torch.cat([torch.full(
-                (labels.shape[0], self.cfg.n_img_tokens), -1,
-                dtype=labels.dtype, device=labels.device), labels], dim=1)
+            labels = per_shard(lambda t: F.pad(
+                t, (self.cfg.n_img_tokens, 0), value=-1), labels, whole=[1])
         mask = (labels >= 0).to(torch.float32)
         labels = torch.clamp(labels, min=0)
         S = x.shape[1]

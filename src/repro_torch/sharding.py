@@ -22,6 +22,7 @@ is.
 
 The model's helpers on DTensors: :func:`constrain` (a hint becomes a
 ``redistribute``), :func:`like` (a constant replicated on the mesh),
+:func:`per_shard` (an op DTensor has no rule for, on each rank's shard),
 :func:`gather_fsdp` (a weight gathered along "fsdp" before its product),
 :func:`reduced` (partial sums summed), :func:`reshape` (a view whose
 shards it cannot carry replicated first, forward and backward),
@@ -39,6 +40,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 __all__ = [
     "AxisRules",
@@ -50,6 +52,7 @@ __all__ = [
     "axis_size",
     "constrain",
     "like",
+    "per_shard",
     "gather_fsdp",
     "reduced",
     "replicated",
@@ -197,6 +200,22 @@ def like(t: torch.Tensor, ref):
     mesh = ref.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def per_shard(fn, x, whole=()):
+    """``fn(x)`` for an ``fn`` that acts on each slice of ``x`` along the
+    dims ``whole`` alone (elementwise where ``whole`` is empty) and that
+    DTensor has no rule for, in some torch versions or at all (a log
+    sigmoid's backward, a pad, a roll).  On a DTensor, ``fn`` runs on each
+    rank's own shard, the dims ``whole`` read whole first, and so does its
+    gradient; on a plain tensor, ``fn(x)``."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    pl = list(replicated(x, list(whole)).placements) if whole else \
+        list(x.placements)
+    return local_map(fn, out_placements=pl, in_placements=(pl,),
+                     in_grad_placements=(pl,), device_mesh=x.device_mesh)(
+                         _placed(x, pl))
 
 
 def replicated(x, dims):

@@ -10,8 +10,13 @@ for tier-1.
   ``seafl_aggregate_from_params`` and the flat engine's on the same seeded
   inputs (JAX's within 1e-5, the flat engine's within the bf16 bound
   ``AGG_BF16_BOUND``).
+* The LM cells of the families that run on shards (dense, and
+  internvl2-1b, whisper-tiny and recurrentgemma-2b: ``SHARDED``) record
+  their collectives, and their per-device product FLOPs and argument
+  bytes equal the reference's partitioned HLO's.
 * An LM cell run on a one-device mesh equals the eager step builders, bit
-  for bit; on a mesh of more than one device it is refused.
+  for bit; an ssm or moe cell on a mesh of more than one device is
+  refused.
 * The CLI runs end to end; importing it sets up no process group.
 """
 import json
@@ -26,7 +31,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core import aggregation as JA  # noqa: E402
-from repro_torch.configs import ShapeConfig, smoke_config  # noqa: E402
+from repro_torch.configs import (ShapeConfig, list_configs,  # noqa: E402
+                                 smoke_config)
 from repro_torch.core.aggregation import SeaflHyper  # noqa: E402
 from repro_torch.core.packer import ParamPacker  # noqa: E402
 from repro_torch.kernels.seafl_agg import ops  # noqa: E402
@@ -40,9 +46,13 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ARCHS = ("qwen3-32b", "mixtral-8x22b", "mamba2-1.3b", "recurrentgemma-2b",
          "whisper-tiny", "internvl2-1b")
 DENSE = ("qwen3-32b", "granite-34b", "phi4-mini-3.8b", "minicpm-2b")
-# the train state's step and the decode cache's position, int32 scalars the
-# port keeps on the host; XLA drops the prefill cache's unread position
-HOST_SCALAR_BYTES = {"train": 4, "prefill": 0, "decode": 4}
+# every config whose LM runs on shards: the dense family's, and the vlm,
+# encdec and hybrid configs (their blocks are attn_mlp, attn and rec)
+SHARDED = DENSE + ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b")
+# the train state's step and the cache's position, int32 scalars the port
+# keeps on the host (the reference's compile keeps every argument, read or
+# not: a prefill's position, an encdec config's frames and encoder)
+HOST_SCALAR_BYTES = {"train": 4, "prefill": 4, "decode": 4}
 MESHES = {(2, 4): ("data", "model"), (2, 2, 2): ("pod", "data", "model"),
           (4, 2): ("data", "model")}
 TRAIN = ShapeConfig("smoke_train", 64, 8, "train")
@@ -74,14 +84,14 @@ def one_device_flops():
 
 
 def dense_cells(meshes=tuple(MESHES)):
-    """{(mesh shape, arch, kind): dry-run record} of the dense smoke cells
-    (train, prefill, decode) on fake meshes of 8."""
+    """{(mesh shape, arch, kind): dry-run record} of the smoke cells (train,
+    prefill, decode) of every config in ``SHARDED`` on fake meshes of 8."""
     out = {}
     for mesh_shape in meshes:
         with fake_process_group(8):
             mesh = make_mesh(mesh_shape, MESHES[mesh_shape],
                              device_type="cpu")
-            for arch in DENSE:
+            for arch in SHARDED:
                 for shape in (TRAIN, PREFILL, DECODE):
                     cell = S.build_cell(smoke_config(arch), shape, mesh)
                     out[(mesh_shape, arch, shape.kind)] = D.run_cell(
@@ -97,13 +107,37 @@ def dense_records():
 _JAX_DENSE = r"""
 import os
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-import json, jax
+import json, re, jax
 from jax.sharding import AxisType
 from repro.configs import smoke_config, ShapeConfig
 from repro.launch.dryrun import collective_stats, memory_stats
 from repro.launch.hlo_cost import analyze_hlo
 from repro.launch.specs import build_cell
 from repro.sharding import axis_rules
+
+# the products the backward runs outside every loop (a vlm config's:
+# patch_proj's weight gradient alone)
+TOP = 'op_name="jit(train_step)/transpose(jvp())/dot_general"'
+
+
+def top_backward_dot_flops(text):
+    dims = lambda d: [int(x) for x in d.split(",") if x]
+    shapes = {m[0]: dims(m[1]) for m in
+              re.findall(r"%%(\S+) = \w+\[([\d,]*)\]", text)}
+    total = 0
+    for line in text.splitlines():
+        if " dot(" not in line or TOP not in line:
+            continue
+        m = re.search(r"= \w+\[([\d,]*)\]\S* dot\(%%([^,)\s]+), .*"
+                      r"lhs_contracting_dims=\{([\d,]*)\}", line)
+        n = 2
+        for d in dims(m.group(1)):
+            n *= d
+        for d in dims(m.group(3)):
+            n *= shapes[m.group(2)][d]
+        total += n
+    return total
+
 
 out = {}
 shape, axes = %r
@@ -115,12 +149,14 @@ for arch in %r:
         with axis_rules(mesh):
             cell = build_cell(smoke_config(arch),
                               ShapeConfig(kind, 64, 8, kind), mesh)
+            # every argument kept, read or not, as the port holds them
             c = jax.jit(cell.step_fn, in_shardings=cell.in_shardings,
-                        out_shardings=cell.out_shardings).lower(
-                            *cell.args).compile()
+                        out_shardings=cell.out_shardings,
+                        keep_unused=True).lower(*cell.args).compile()
         text = c.as_text()
         out[f"{arch}:{kind}"] = dict(
             flops=analyze_hlo(text)["flops"],
+            top_backward_dot_flops=top_backward_dot_flops(text),
             args=memory_stats(c)["argument_size_in_bytes"],
             coll=collective_stats(text)["total_bytes"])
 print(json.dumps(out))
@@ -128,21 +164,22 @@ print(json.dumps(out))
 
 
 def jax_dense(mesh_shape):
-    """The reference's per-device product FLOPs (``hlo_cost``), argument
-    bytes and collective bytes of the dense smoke cells on ``mesh_shape``,
+    """The reference's per-device product FLOPs (``hlo_cost``), the FLOPs
+    of the products its backward runs outside every loop, argument bytes
+    and collective bytes of the ``SHARDED`` smoke cells on ``mesh_shape``,
     compiled in one subprocess on 8 fake host devices."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     arg = (list(mesh_shape), list(MESHES[mesh_shape]))
-    out = subprocess.run([sys.executable, "-c", _JAX_DENSE % (arg, DENSE)],
+    out = subprocess.run([sys.executable, "-c", _JAX_DENSE % (arg, SHARDED)],
                          env=env, capture_output=True, text=True,
-                         timeout=600)
+                         timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("mesh_shape", list(MESHES), ids=_ids)
 def test_dense_cells_record_their_collectives(dense_records, mesh_shape):
-    for arch in DENSE:
+    for arch in SHARDED:
         for kind in ("train", "prefill", "decode"):
             c = dense_records[(mesh_shape, arch, kind)]["collectives"]
             assert c is not None and c["total_bytes"] > 0, (arch, kind)
@@ -163,7 +200,7 @@ def test_no_train_collective_moves_a_chunks_full_vocab_logits(
     device (its batch rows, the chunk's positions)."""
     sizes = dict(zip(MESHES[mesh_shape], mesh_shape))
     dp = sizes.get("pod", 1) * sizes["data"]
-    for arch in DENSE:
+    for arch in SHARDED:
         logits = (TRAIN.global_batch // dp * min(1024, TRAIN.seq_len)
                   * smoke_config(arch).padded_vocab)
         for s in _shapes(dense_records[(mesh_shape, arch, "train")]):
@@ -172,19 +209,21 @@ def test_no_train_collective_moves_a_chunks_full_vocab_logits(
 
 @pytest.mark.parametrize("mesh_shape", list(MESHES), ids=_ids)
 def test_no_decode_collective_moves_a_cache_leaf(dense_records, mesh_shape):
-    """The decode step keeps the sequence-sharded cache in place: no
-    collective is handed or returns a cache leaf, one layer's or the
-    stack's, whole or this device's shard of it."""
-    sizes = dict(zip(MESHES[mesh_shape], mesh_shape))
-    dp = sizes.get("pod", 1) * sizes["data"]
-    for arch in DENSE:
-        cfg = smoke_config(arch)
-        B, S_ = DECODE.global_batch, DECODE.seq_len
-        leaf = (cfg.n_kv_heads, cfg.head_dim)
-        banned = {(B, S_, *leaf), (B // dp, S_ // sizes["model"], *leaf)}
-        banned |= {(cfg.n_layers, *b) for b in banned}
-        for s in _shapes(dense_records[(mesh_shape, arch, "decode")]):
-            assert s not in banned, (arch, s)
+    """The decode step keeps the cache in place (the KV cache sharded
+    along its sequence, the RG-LRU state and conv window along their
+    channels): no collective is handed or returns a cache leaf, one
+    layer's or the stack's, whole or this device's shard of it."""
+    with fake_process_group(8):
+        mesh = make_mesh(mesh_shape, MESHES[mesh_shape], device_type="cpu")
+        for arch in SHARDED:
+            cell = S.build_cell(smoke_config(arch), DECODE, mesh)
+            banned = set()
+            for t, sh in S.sharded_leaves(cell.args[1],
+                                          cell.in_shardings[1]):
+                for shape in (tuple(t.shape), sh.shard_shape(t.shape)):
+                    banned |= {shape, shape[1:]}
+            for s in _shapes(dense_records[(mesh_shape, arch, "decode")]):
+                assert s not in banned, (arch, s)
 
 
 @pytest.mark.parametrize("mesh_shape", [
@@ -194,14 +233,30 @@ def test_dense_cells_per_device_flops_and_argument_bytes_equal_jax(
         dense_records, mesh_shape):
     """Per-device product FLOPs equal ``hlo_cost``'s on the partitioned
     HLO, exactly (the bar is 5 %), and per-device argument bytes XLA's,
-    less the int32 scalar the port keeps on the host where XLA keeps it
-    (``HOST_SCALAR_BYTES``)."""
+    less the int32 scalar the port keeps on the host
+    (``HOST_SCALAR_BYTES``).
+
+    One product is held apart: a vlm train step's weight gradient of
+    patch_proj, the one product its backward runs outside the layers'
+    loop.  XLA splits it over 4 of the 8 devices on (2, 4) and (4, 2)
+    (on (2, 4) the 4-wide "model" axis as 2 x 2, which DTensor placements
+    cannot express) and over 8 on (2, 2, 2); the port splits it over all
+    8 on every mesh.  It is checked at its 1 / n share of the whole
+    product, XLA's no smaller, and every other product exactly."""
     want = jax_dense(mesh_shape)
-    for arch in DENSE:
+    n = int(np.prod(mesh_shape))
+    for arch in SHARDED:
         for kind in ("train", "prefill", "decode"):
             rec = dense_records[(mesh_shape, arch, kind)]
             w = want[f"{arch}:{kind}"]
-            assert rec["op_cost"]["flops"] == w["flops"], (arch, kind)
+            flops = w["flops"]
+            cfg = smoke_config(arch)
+            if cfg.family == "vlm" and kind == "train":
+                share = (2 * TRAIN.global_batch * cfg.n_img_tokens
+                         * cfg.vision_embed_dim * cfg.d_model) // n
+                assert w["top_backward_dot_flops"] >= share, mesh_shape
+                flops += share - w["top_backward_dot_flops"]
+            assert rec["op_cost"]["flops"] == flops, (arch, kind)
             host = HOST_SCALAR_BYTES[kind]
             assert rec["memory"]["argument_size_in_bytes"] + host == \
                 w["args"], (arch, kind)
@@ -211,14 +266,15 @@ def test_dense_cells_per_device_flops_and_argument_bytes_equal_jax(
 def test_train_and_decode_cells_trace_on_every_mesh(one_device_flops,
                                                     dense_records,
                                                     mesh_shape):
-    """A dense arch's cells run on shards: per-device flops, 1 / n of the
-    one-device trace's, and their collectives.  The other families' run on
-    whole tensors: the one-device flops, collectives null."""
+    """The cells of a dense, vlm, encdec or hybrid arch run on shards:
+    per-device flops, 1 / n of the one-device trace's, and their
+    collectives.  The ssm and moe families' run on whole tensors: the
+    one-device flops, collectives null, with the family in the reason."""
     n = int(np.prod(mesh_shape))
     with fake_process_group(8):
         mesh = make_mesh(mesh_shape, MESHES[mesh_shape], device_type="cpu")
         for arch in ARCHS:
-            if smoke_config(arch).family == "dense":
+            if arch in SHARDED:
                 rec = dense_records[(mesh_shape, arch, "train")]
                 assert rec["op_cost"]["flops"] * n == one_device_flops[arch]
                 assert rec["collectives"]["total_bytes"] > 0, arch
@@ -376,13 +432,69 @@ def _cell_against_eager(cfg, model, shape):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def test_layernorm_and_the_ungated_mlp_stay_on_their_shards():
+    """whisper-tiny's LayerNorm with a bias and an ungated GeLU MLP (w1
+    ``("fsdp", "tensor")``, w2 ``("tensor", "fsdp")``) on DTensor meta
+    arguments on the fake (2, 4) mesh: the norm keeps its input's
+    placements and hands no tensor to a collective; the MLP runs 1 / 8 of
+    its products a device, its GeLU on the hidden dim's "tensor" shards
+    (no collective is handed or returns the (B, S, d_ff) hidden, whole or
+    a data shard of it), and its output comes back whole along d_model."""
+    from repro_torch.launch.op_cost import trace_step
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import (axis_rules, named_sharding,
+                                      param_pspecs, placements, P)
+    cfg = smoke_config("whisper-tiny")
+    B, S_, d, f = 8, 64, cfg.d_model, cfg.d_ff
+    meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    p = {"ln": L.norm_init(d, "meta", bias=True),
+         "mlp": L.mlp_init(None, cfg, torch.float32, "meta", gated=False)}
+    with fake_process_group(8):
+        mesh = make_mesh((2, 4), device_type="cpu")
+        with axis_rules(mesh) as rules:
+            sh = named_sharding(mesh, param_pspecs(p, rules))
+            tp = S.place(p, sh)
+            x = DTensor.from_local(
+                meta(B // 2, S_, d), mesh,
+                placements(P("data", None, None), mesh), run_check=False,
+                shape=(B, S_, d), stride=(S_ * d, d, 1))
+            y, norm, _ = trace_step(L.layernorm, tp["ln"], x, 1e-6)
+            assert y.placements == x.placements
+            assert norm["coll_total_bytes"] == 0
+            out, cost, _ = trace_step(L.mlp_apply, tp["mlp"], x, cfg)
+    assert cost["flops"] * 8 == 2 * 2 * B * S_ * d * f
+    assert out.shape == (B, S_, d) and \
+        all(not pl.is_shard(2) for pl in out.placements)
+    hidden = {(B, S_, f), (B // 2, S_, f)}
+    for shapes in cost["coll_shapes"].values():
+        assert not hidden & {tuple(s) for s in shapes}
+
+
 def test_an_lm_cell_on_a_wider_mesh_is_refused():
-    """A family other than the dense one does not run on shards yet."""
+    """The ssm family does not run on shards yet."""
     with fake_process_group(8):
         mesh = make_mesh((2, 4), device_type="cpu")
         cell = S.build_cell(smoke_config("mamba2-1.3b"), TRAIN, mesh)
         with pytest.raises(NotImplementedError, match="does not run"):
             S.run_cell(cell, cell.args)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
+def test_a_moe_cell_is_refused_and_only_the_ssm_and_moe_ones(arch):
+    """The moe family's blocks do not run on shards either: its cells on a
+    mesh of 8 are refused; every config of the other families runs on
+    shards, the ssm one aside."""
+    with fake_process_group(8):
+        mesh = make_mesh((2, 4), device_type="cpu")
+        cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
+        assert not S.on_shards(cell)
+        with pytest.raises(NotImplementedError, match="does not run"):
+            S.run_cell(cell, cell.args)
+        for other in list_configs():
+            fam = smoke_config(other).family
+            assert S.on_shards(S.build_cell(smoke_config(other), TRAIN,
+                                            mesh)) == (fam not in
+                                                       ("ssm", "moe")), other
 
 
 def test_cli_end_to_end(tmp_path, capsys):

@@ -1,7 +1,8 @@
-"""One rank of ``test_torch_dist_lm.py``: the dense family's LM cells on a
-(2, 2) ('data', 'model') mesh of 4 gloo ranks on the CPU, on DTensor
-shards.  It imports ``repro_torch`` and never JAX: the test hands it the
-JAX parameters and inputs as numpy files.
+"""One rank of ``test_torch_dist_lm.py``: the LM cells of the families
+that run on shards (dense, vlm, encdec, hybrid) on a (2, 2) ('data',
+'model') mesh of 4 gloo ranks on the CPU, on DTensor shards.  It imports
+``repro_torch`` and never JAX: the test hands it the JAX parameters and
+inputs as numpy files.
 
     python tests/torch_dist_lm_ranks.py <workdir> <rank> <world>
 
@@ -26,10 +27,12 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs import ShapeConfig, get_config, smoke_config
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rglru import kernel as RK
+from repro_torch.kernels.rglru.ref import rglru_scan_ref
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.op_cost import trace_step
-from repro_torch.models import layers as L
+from repro_torch.models import blocks, layers as L
 from repro_torch.models.model import LM, from_jax_lm_params, nest_params
 from repro_torch.optim import TrainState
 from repro_torch.sharding import axis_rules
@@ -41,13 +44,15 @@ F32 = dict(param_dtype="float32", dtype="float32")
 def case_config(case):
     """A case's f32 smoke config with its full config's score-shard mode
     (the smoke configs all take the default, "qrows"), and the remat
-    policy, microbatches and KV-cache dtype the case names, if any."""
+    policy, microbatches, KV-cache dtype and RG-LRU width the case names,
+    if any."""
     cfg = smoke_config(case["arch"])
     return cfg.replace(
         **F32, attn_score_shard=get_config(case["arch"]).attn_score_shard,
         remat=case.get("remat", cfg.remat),
         train_microbatches=case.get("microbatches", cfg.train_microbatches),
-        kv_cache_dtype=case.get("kv_cache_dtype", cfg.kv_cache_dtype))
+        kv_cache_dtype=case.get("kv_cache_dtype", cfg.kv_cache_dtype),
+        rnn_width=case.get("rnn_width", cfg.rnn_width))
 
 
 def _whole(t):
@@ -98,24 +103,61 @@ class KernelStandIn:
         FK.flash_attention_call, L._uses_flash_kernel = self.saved
 
 
+class RGLRUStandIn:
+    """The RG-LRU kernel's route taken on the CPU, as on the card: every
+    scan goes to the kernel's wrapper, here its plain version, which
+    counts its launches, refuses anything but a rank's local tensors and
+    records the (batch rows, channels) of each call."""
+
+    def __init__(self):
+        self.launches, self.shapes = 0, set()
+
+    def __call__(self, log_a, b, h0=None):
+        assert not isinstance(b, DTensor), "the kernel takes local tensors"
+        assert log_a.is_contiguous() and b.is_contiguous()
+        self.launches += 1
+        self.shapes.add((b.shape[0], b.shape[2]))
+        if h0 is None:
+            h0 = torch.zeros((b.shape[0], b.shape[2]), dtype=torch.float32)
+        return rglru_scan_ref(torch.exp(log_a), b, h0)
+
+    def __enter__(self):
+        self.saved = RK.rglru_scan_call, blocks._uses_rglru_kernel
+        RK.rglru_scan_call = self
+        blocks._uses_rglru_kernel = lambda x: True
+        return self
+
+    def __exit__(self, *exc):
+        RK.rglru_scan_call, blocks._uses_rglru_kernel = self.saved
+
+
 def run_case(case, mesh, workdir):
     """(outputs, per step collectives) of one case on ``mesh``; a "flash"
-    case with the kernel route's stand-in, its launches in the outputs."""
+    or "rglru" case with that kernel route's stand-in, its launches (and
+    the RG-LRU scans' local shapes) in the outputs."""
     if case.get("flash"):
         with KernelStandIn() as kernel:
             out, colls = _run_case(case, mesh, workdir)
         return {**out, "launches": np.asarray(kernel.launches)}, colls
+    if case.get("rglru"):
+        with RGLRUStandIn() as kernel:
+            out, colls = _run_case(case, mesh, workdir)
+        return {**out, "launches": np.asarray(kernel.launches),
+                "scan_shapes": np.asarray(sorted(kernel.shapes))}, colls
     return _run_case(case, mesh, workdir)
 
 
 def _run_case(case, mesh, workdir):
     cfg, params, data = _load(workdir, case)
     B, Sq = data["tokens"].shape
+    if "image_embeds" in data:          # the image positions come first
+        Sq += data["image_embeds"].shape[1]
+    # the model inputs of a prompt: tokens, and image embeddings or frames
+    prompt = {k: v for k, v in data.items() if k != "labels"}
     if case["kind"] == "train":
         cell = S.build_cell(cfg, ShapeConfig("t", Sq, B, "train"), mesh)
-        batch = {"tokens": data["tokens"], "labels": data["labels"]}
         args = S.place((TrainState(torch.zeros((), dtype=torch.int32),
-                                   params, ()), batch), cell.in_shardings)
+                                   params, ()), data), cell.in_shardings)
         (state, metrics), cost, _ = trace_step(S.run_cell, cell, args)
         out = {"loss": _whole(metrics["loss"])}
         out.update({f"param/{p}": _whole(t)
@@ -124,8 +166,7 @@ def _run_case(case, mesh, workdir):
     if case["kind"] == "prefill":
         cell = S.build_cell(cfg, ShapeConfig("p", Sq, B, "prefill"), mesh)
         cache = LM(cfg, "cpu").init_cache(B, Sq)
-        args = S.place((params, {"tokens": data["tokens"]}, cache),
-                       cell.in_shardings)
+        args = S.place((params, prompt, cache), cell.in_shardings)
         (logits, _), cost, _ = trace_step(S.run_cell, cell, args)
         return {"logits": _whole(logits)}, [_coll(cost)]
     # decode: the prompt prefilled into a cache of max_len positions, then
@@ -134,10 +175,11 @@ def _run_case(case, mesh, workdir):
     cell = S.build_cell(cfg, ShapeConfig("d", max_len, B, "decode"), mesh)
     params, cache = S.place((params, LM(cfg, "cpu").init_cache(B, max_len)),
                             cell.in_shardings[:2])
-    tokens = S.place(data["tokens"], cell.in_shardings[2])
+    # the prompt's inputs shard their batch as the decode cell's tokens do
+    prompt = {k: S.place(v, cell.in_shardings[2]) for k, v in prompt.items()}
     with axis_rules(mesh):
         logits, cache = S.make_prefill_step(LM(cfg, "cpu"))(
-            params, {"tokens": tokens}, cache)
+            params, prompt, cache)
     tok = S.place(torch.argmax(torch.from_numpy(_whole(logits))[:, -1],
                                -1).to(torch.int32)[:, None],
                   cell.in_shardings[2])
