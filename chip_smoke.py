@@ -33,8 +33,10 @@ Phases, each printing its lines; no phase's failure is caught:
               v narrower than q/k on the mma.sync one; phi4-mini-3.8b's
               and phase n's three families' prefill_32k rows (1 x 32768,
               the plain version 512 queries at a time) and train_4k steps
-              (8 x 4096), and B5 at recurrentgemma-2b's two) and at ragged
-              ones
+              (8 x 4096), B5 at recurrentgemma-2b's two, and B6 at
+              mamba2-1.3b's prefill_32k row, 1 x 32768 with h0; its
+              train_4k microbatch, 4 x 4096, is the serving shape) and at
+              ragged ones
   4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
               beside the least time the card could take (bound_ms)
@@ -71,9 +73,10 @@ Phases, each printing its lines; no phase's failure is caught:
               full width: bf16, topk:0.01 and int8 encode and decode one
               seeded (P,) delta on the card (wire bytes as reckoned, the
               first and last 8 chunks equal to the CPU encode); the cohort
-              trainer under the topk:0.01 uplink (2 clients, K = 2) to one
-              aggregation (B1/B2 once, B6 as reckoned, both uploaders'
-              EF residuals); that server's ~16 GB checkpoint saved
+              trainer at published widths cut to 12 layers (CUT_LAYERS,
+              P = 4.13e8) under the topk:0.01 uplink (2 clients, K = 2) to
+              one aggregation (B1/B2 once, B6 as reckoned, both uploaders'
+              EF residuals); that server's ~5 GB checkpoint saved
               (async, then wait) to a temporary directory and restored into
               a fresh server on the card, bit-equal
   9. downlink (f) the version-tracked downlink at mamba2-1.3b's full
@@ -83,7 +86,8 @@ Phases, each printing its lines; no phase's failure is caught:
               fold, an int8 delta: wire bytes as reckoned, the first and
               last 8 chunks equal to the CPU encode, each client's
               apply_dispatch equal to held_flat); then the cohort trainer
-              with the topk:0.01 downlink and cohorts on (2 clients, K = 2,
+              at 12 layers (CUT_LAYERS) with the topk:0.01 downlink and
+              cohorts on (2 clients, K = 2,
               raw f32 uplink) to 2 aggregations: downlink bytes, full /
               delta counts, cache hits, edge merges and B1/B2/B6 launches
               as reckoned, with round walls, resident state, peak memory
@@ -156,23 +160,27 @@ Phases, each printing its lines; no phase's failure is caught:
               of qwen3-32b's and granite-34b's 16 x 16 prefill_32k shards
               through the route's local body, against its plain version,
               with its bound and SDPA's ms ([shards] lines)
- 17. families (n) the vlm, encdec and hybrid families on DTensor shards:
-              internvl2-1b's, whisper-tiny's and recurrentgemma-2b's
-              train_4k, prefill_32k and decode_32k cells at published
-              widths, batch cut as phase l's (8, 1, 4), on the (1, 1) cuda
-              mesh, on plain tensors and then on DTensor arguments from one
-              seed, bit-equal (B4 and B5 launched as the block kinds
-              reckon: recurrentgemma-2b's 8 local-attention and 18 rec
-              layers, B5 54 a train step, 18 a prefill, 0 in decode), the
-              two runs' times and ratio; B5 at the local shape of
-              recurrentgemma-2b's 16 x 16 prefill_32k shard, (2, 32768,
-              160) f32, through the route's local body, against its plain
-              version, with its bound ([families] lines)
+ 17. families (n) the vlm, encdec, hybrid and ssm families on DTensor
+              shards: internvl2-1b's, whisper-tiny's, recurrentgemma-2b's
+              and mamba2-1.3b's train_4k, prefill_32k and decode_32k cells
+              at published widths, batch cut as phase l's (8, 1, 4), on the
+              (1, 1) cuda mesh, on plain tensors and then on DTensor
+              arguments from one seed, bit-equal (B4, B5 and B6 launched as
+              the block kinds reckon: recurrentgemma-2b's 8 local-attention
+              and 18 rec layers, B5 54 a train step, 18 a prefill;
+              mamba2-1.3b's 48 ssd layers, B6 48 x 2 x 2 = 192 a train step
+              of 2 microbatches, 48 a prefill; none in decode), the two
+              runs' times and ratio; B5 and B6 at the local shapes of a 16
+              x 16 prefill_32k shard, recurrentgemma-2b's (2, 32768, 160)
+              f32 and mamba2-1.3b's (2, 32768, 4 heads of 64, B/C 128) f32
+              with h0, through the routes' local bodies, against their
+              plain versions, with their bounds ([families] lines)
  18. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance, the bf16 row with whisper's two shapes,
               mixtral's, deepseek's, phi4-mini's and the two shards', and
-              phase n's shapes' errors; B5's with its shard shape and
-              phase n's shapes' errors; each row with its training, uplink,
+              phase n's shapes' errors; B5's and B6's with their shard
+              shapes and phase n's shapes' errors; each row with its
+              training, uplink,
               downlink, health, vlm, encdec, moe, mla, dist, shards and
               families launches), the nvidia-smi line, and last the
               contract line {"ok": true, "device": {...}}
@@ -594,12 +602,17 @@ FAMILY_B4 = {"internvl2-1b": (*VLM_HEADS, 64, None),
              "recurrentgemma-2b": (RG["H"], RG["KVH"], RG["D"], RG["window"])}
 CELL_ROWS = ((1, PHI4["prompt"]), PHI4["train"])
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
+# B6's rows of phase n: its prefill_32k row and its train_4k microbatch (8
+# x 4096 in 2 microbatches), the serving shape
+MB_ROWS = ((1, PHI4["prompt"]), (SERVE_BATCH, SERVE_PROMPT))
 SSD_CASES = [  # B, NH, S, hd, ds, chunk, h0
     (SERVE_BATCH, MB["NH"], SERVE_PROMPT, MB["hd"], MB["ds"], MB["chunk"],
      False),                                             # the slice's shape
     (2, 8, 1000, 64, 128, 128, True),
     (1, 4, 77, 32, 64, 64, False),
     (1, 2, 300, 128, 32, 100, True),
+    (1, MB["NH"], PHI4["prompt"], MB["hd"], MB["ds"], MB["chunk"],
+     True),                                              # phase n's prefill
 ]
 
 
@@ -804,6 +817,9 @@ def phase_parity_lm(torch):
             scale = max(1.0, float(want.abs().max()))
             e = max(e, _max_err(torch, got, want, 1e-4, 1e-4 * scale))
         errs.setdefault("ssd_forward", e)
+        if (NH, hd, ds, chunk) == (MB["NH"], MB["hd"], MB["ds"],
+                                   MB["chunk"]) and (B, Sl) in MB_ROWS:
+            errs[f"ssd_forward_{B}x{Sl}"] = e
         torch.cuda.synchronize()
         log(f"[parity] ssd_forward B={B} NH={NH} S={Sl} hd={hd} ds={ds} "
             f"chunk={chunk} h0={with_h0}: max|d| {e:.3e} (|y| <= "
@@ -2032,6 +2048,17 @@ WIRE_BYTES = {"f32": 5_376_537_040, "bf16": 2_688_432_592,
 UPLINK = dict(n_clients=2, concurrency=2, buffer_size=2, seq_len=512,
               batch_size=4, shard_seqs=8, local_epochs=1)
 UPLINK_SPEC = "topk:0.01"
+# the uplink's and the downlink's cohort trainers (and the uplink's
+# checkpoint) run mamba2-1.3b at published widths cut to this depth: the
+# flat size, and the wire bytes of one (P,) payload, reckoned as above
+CUT_LAYERS = 12
+P_CUT = 413_478_144
+CUT_WIRE_BYTES = {"f32": 1_654_013_536, "topk:0.01": 33_161_040}
+
+
+def _cut_mamba2():
+    from repro_torch.configs import get_config
+    return get_config("mamba2-1.3b").replace(n_layers=CUT_LAYERS)
 
 
 def _sync_s(torch, fn):
@@ -2118,15 +2145,15 @@ def _timed_method(torch, obj, name, acc):
 
 
 def _uplink_cohort_full(torch):
-    """The cohort trainer under the top-k uplink at full width, to one
-    aggregation of both clients' updates: wire bytes, launches of B1, B2
-    and B6, both uploaders' EF residuals, a finite global."""
+    """The cohort trainer under the top-k uplink at published widths and
+    ``CUT_LAYERS`` layers, to one aggregation of both clients' updates:
+    flat size and wire bytes, launches of B1, B2 and B6, both uploaders'
+    EF residuals, a finite global."""
     from repro_torch.kernels.seafl_agg import kernel as K
     from repro_torch.launch.train import build_lm_fl
     from repro_torch.runtime.simulator import FLSimulation, SimConfig
     model, server, clients, eval_fn = build_lm_fl(
-        "mamba2-1.3b", smoke=False, device="cuda", compression=UPLINK_SPEC,
-        **UPLINK)
+        _cut_mamba2(), device="cuda", compression=UPLINK_SPEC, **UPLINK)
     steps = _count_batches(clients)
     spent = {}
     for name in ("encode_update", "ingest_payload"):
@@ -2143,8 +2170,11 @@ def _uplink_cohort_full(torch):
     evals = sum("acc" in h for h in sim.history)
     cfg = model.cfg
     want_b6 = _trainer_launches(cfg, steps[0], evals)["ssd_forward"]
+    if server.global_flat.numel() != P_CUT:
+        raise AssertionError(f"P = {server.global_flat.numel()}, expected "
+                             f"{P_CUT}")
     if server.total_aggregations != 1 or \
-            server.bytes_uploaded != 2 * WIRE_BYTES[UPLINK_SPEC]:
+            server.bytes_uploaded != 2 * CUT_WIRE_BYTES[UPLINK_SPEC]:
         raise AssertionError(f"{server.total_aggregations} aggregations, "
                              f"{server.bytes_uploaded} uplink bytes")
     if (seafl["sim_partials_from_params"], seafl["weighted_agg"]) != (1, 1):
@@ -2163,7 +2193,8 @@ def _uplink_cohort_full(torch):
                ingest_s=spent["ingest_payload"],
                sgd_steps=steps[0], evals=evals, seafl_launches=seafl,
                launches=launched, heldout_ce=-hist[-1]["acc"])
-    log(f"[uplink] cohort trainer, {UPLINK_SPEC} uplink, P={P_MAMBA2}: one "
+    log(f"[uplink] cohort trainer, {UPLINK_SPEC} uplink, {CUT_LAYERS} "
+        f"layers, P={P_CUT}: one "
         f"aggregation, wall {wall:.3f} s, peak {peak:.2f} GiB, uplink "
         f"{server.bytes_uploaded} bytes, encode {rec['encode_s']:.3f} s "
         f"({rec['encode_s'] / wall:.2%} of the wall), ingest "
@@ -2237,9 +2268,10 @@ def _checkpoint_full(torch, box):
 
 
 def phase_uplink(torch):
-    """e. Uplink codecs and checkpoint at full width: the lossy codecs on a
-    (P,) delta, the cohort trainer under the top-k uplink to one
-    aggregation, and its server's ~16 GB checkpoint saved and restored."""
+    """e. Uplink codecs and checkpoint: the lossy codecs on a (P,) delta at
+    full width, the cohort trainer under the top-k uplink at
+    ``CUT_LAYERS`` layers to one aggregation, and its server's ~5 GB
+    checkpoint saved and restored."""
     t0 = time.perf_counter()
     codecs = _uplink_codecs_full(torch)
     server, cohort = _uplink_cohort_full(torch)
@@ -2366,8 +2398,8 @@ def _downlink_session_full(torch):
 
 
 def _downlink_cohort_full(torch):
-    """(ii) The cohort trainer at full width with the top-k downlink and
-    cohorts on: 2 clients, both in flight, K = 2, raw f32 uplink, 2
+    """(ii) The cohort trainer at published widths and ``CUT_LAYERS``
+    layers with the top-k downlink and cohorts on: 2 clients, both in flight, K = 2, raw f32 uplink, 2
     aggregations.  Reckoned before the run: each client's first dispatch is
     a full f32 snapshot (the second a cache hit), the hop 0 -> 1 is
     encoded once and shared (the round-2 hop is encoded, not delivered
@@ -2379,9 +2411,8 @@ def _downlink_cohort_full(torch):
     from repro_torch.launch.train import build_lm_fl, summary_record
     from repro_torch.runtime.simulator import FLSimulation, SimConfig
     model, server, clients, eval_fn = build_lm_fl(
-        "mamba2-1.3b", smoke=False, device="cuda",
-        dispatch_compression=DOWN_SPEC, dispatch_history=2, cohorts="on",
-        **DOWNLINK)
+        _cut_mamba2(), device="cuda", dispatch_compression=DOWN_SPEC,
+        dispatch_history=2, cohorts="on", **DOWNLINK)
     steps = _count_batches(clients)
     spent = {}
     for name in ("encode_dispatch", "dispatch_model", "_edge_absorb"):
@@ -2405,11 +2436,11 @@ def _downlink_cohort_full(torch):
     evals = sum("acc" in h for h in sim.history)
     cfg = model.cfg
     want_b6 = _trainer_launches(cfg, steps[0], evals)["ssd_forward"]
-    want_down = 2 * WIRE_BYTES["f32"] + 2 * WIRE_BYTES[DOWN_SPEC]
+    want_down = 2 * CUT_WIRE_BYTES["f32"] + 2 * CUT_WIRE_BYTES[DOWN_SPEC]
     disp, cs = server.dispatch, server.cohort_stats()
     summary = summary_record(server, sim)
     if server.total_aggregations != DOWN_ROUNDS or \
-            server.bytes_uploaded != 2 * DOWN_ROUNDS * WIRE_BYTES["f32"]:
+            server.bytes_uploaded != 2 * DOWN_ROUNDS * CUT_WIRE_BYTES["f32"]:
         raise AssertionError(f"{server.total_aggregations} aggregations, "
                              f"{server.bytes_uploaded} uplink bytes")
     if server.bytes_downloaded != want_down:
@@ -2442,7 +2473,7 @@ def _downlink_cohort_full(torch):
                resident_state_bytes=resident, summary=summary,
                heldout_ce=[-h["acc"] for h in hist])
     log(f"[downlink] cohort trainer, {DOWN_SPEC} downlink, cohorts on, "
-        f"P={P_MAMBA2}: round walls {[round(w, 3) for w in walls]} s "
+        f"{CUT_LAYERS} layers, P={P_CUT}: round walls {[round(w, 3) for w in walls]} s "
         f"(profiled), kernels busy {[round(b, 1) for b in busy]} ms, idle "
         f"share {[round(i, 4) for i in idle]}, peak {peak:.2f} GiB; "
         f"downlink {server.bytes_downloaded} bytes, dispatch full "
@@ -2460,9 +2491,9 @@ def _downlink_cohort_full(torch):
 
 
 def phase_downlink(torch):
-    """f. The version-tracked downlink at full width: the dispatch session
-    alone on (P,) versions, then the cohort trainer with the top-k
-    downlink, cohorts and the edge tier."""
+    """f. The version-tracked downlink: the dispatch session alone on (P,)
+    versions at full width, then the cohort trainer at ``CUT_LAYERS``
+    layers with the top-k downlink, cohorts and the edge tier."""
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     session = _downlink_session_full(torch)
@@ -3627,11 +3658,13 @@ SHARD_B4 = {"qwen3-32b": (2, 32768, 4, 1, 128),
 
 
 def _lm_launches():
-    """(B4's launches, of which on the tensor-core instance; B5's)."""
+    """(B4's launches, of which on the tensor-core instance; B5's; B6's)."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.ssd import kernel as SK
     return (FK.flash_attention_call.launches,
-            FK.flash_attention_call.launches_tc, RK.rglru_scan_call.launches)
+            FK.flash_attention_call.launches_tc, RK.rglru_scan_call.launches,
+            SK.ssd_forward_call.launches)
 
 
 def _cell_runs(torch, mesh, arch, name, dtensor):
@@ -3639,12 +3672,13 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
     its batch cut to DIST_CUTS', on the (1, 1) cuda mesh from DIST_SEED,
     on DTensor arguments (materialize's own) or on their local tensors: a
     train step and one more from its state, a prefill three times,
-    DIST_DECODE_STEPS decode steps.  B4's and B5's launches are checked
-    against the block kinds' reckoning (``_per_step`` in training, with
-    B5's reverse scan in the backward; ``_per_forward`` in a prefill; none
-    in decode), all of B4's on its tensor-core instance.  Returns the
-    first run's outputs on the host and dict(ms: the warm runs' median,
-    walls_ms, b4_per_run, b5_per_run, runs)."""
+    DIST_DECODE_STEPS decode steps.  B4's, B5's and B6's launches are
+    checked against the block kinds' reckoning (``_per_step`` in each
+    microbatch of a train step, with B5's reverse scan in the backward;
+    ``_per_forward`` in a prefill; none in decode), all of B4's on its
+    tensor-core instance.  Returns the first run's outputs on the host and
+    dict(ms: the warm runs' median, walls_ms, b4_per_run, b5_per_run,
+    b6_per_run, runs)."""
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import SHAPES, ShapeConfig, get_config
     from repro_torch.launch import specs as SP
@@ -3705,21 +3739,25 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
     per = (_per_step(cfg) if shape.kind == "train" else _per_forward(cfg)
            if shape.kind == "prefill" else dict.fromkeys(KERNEL_OF_BLOCK
                                                          .values(), 0))
-    b4 = per["flash_attention"]
-    b5 = per["rglru_scan"] + (_decoder_layers(cfg)["rglru_scan"]
-                              if shape.kind == "train" else 0)
-    launched, tc, rg = _lm_launches()
-    if (launched, tc, rg) != (b4 * runs, b4 * runs, b5 * runs):
+    micro = cfg.train_microbatches if shape.kind == "train" else 1
+    b4 = per["flash_attention"] * micro
+    b5 = (per["rglru_scan"] + (_decoder_layers(cfg)["rglru_scan"]
+                               if shape.kind == "train" else 0)) * micro
+    b6 = per["ssd_forward"] * micro
+    launched, tc, rg, sd = _lm_launches()
+    if (launched, tc, rg, sd) != (b4 * runs, b4 * runs, b5 * runs,
+                                  b6 * runs):
         raise AssertionError(
             f"{arch} {name} on {'DTensor' if dtensor else 'plain'} "
-            f"arguments: B4 {launched} ({tc} tc), B5 {rg} in {runs} runs, "
-            f"expected B4 {b4} (all tc) and B5 {b5} a run")
+            f"arguments: B4 {launched} ({tc} tc), B5 {rg}, B6 {sd} in "
+            f"{runs} runs, expected B4 {b4} (all tc), B5 {b5} and B6 {b6} "
+            "a run")
     torch.cuda.empty_cache()
     return first, dict(batch=shape.global_batch, of=pub.global_batch,
                        seq=shape.seq_len,
                        ms=sorted(walls)[len(walls) // 2] * 1e3,
                        walls_ms=[w * 1e3 for w in walls], b4_per_run=b4,
-                       b5_per_run=b5, runs=runs)
+                       b5_per_run=b5, b6_per_run=b6, runs=runs)
 
 
 def _same_outputs(torch, a, b):
@@ -3825,13 +3863,17 @@ def phase_shards(torch, firsts, dist):
                     c["b4_launches"] for c in cells.values())})
 
 
-# ------------ phase n: the vlm, encdec and hybrid families on DTensor shards
+# ------ phase n: the vlm, encdec, hybrid and ssm families on DTensor shards
 
-FAMILIES = ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b")
+FAMILIES = ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b",
+            "mamba2-1.3b")
 # B5's local problem on recurrentgemma-2b's 16 x 16 prefill_32k shard: the
 # batch of 32 over 16 "batch" shards, 32768 positions, the 2560 channels
 # over 16 "tensor" shards; (B, S, C) f32
 SHARD_B5 = (2, 32768, 160)
+# B6's on mamba2-1.3b's: the batch of 32 over 16, 32768 positions, the 64
+# heads over 16; (B, S, NH, hd) f32 with B and C (B, S, ds) whole
+SHARD_B6 = (2, 32768, MB["NH"] // 16, MB["hd"])
 
 
 def _family_cell(torch, mesh, arch, name):
@@ -3844,18 +3886,20 @@ def _family_cell(torch, mesh, arch, name):
     if not _same_outputs(torch, plain_first, first):
         raise AssertionError(f"{arch} {name}: the DTensor run's outputs "
                              "differ from the plain tensors'")
-    ms, b4, b5 = run["ms"], run["b4_per_run"], run["b5_per_run"]
+    ms, b4, b5, b6 = (run["ms"], run["b4_per_run"], run["b5_per_run"],
+                      run["b6_per_run"])
     log(f"[families] {arch} {name} cut to batch {run['batch']} (of "
         f"{run['of']}), seq {run['seq']}, on the (1, 1) mesh: "
         f"{'step' if name != 'decode_32k' else 'decode step'} on DTensor "
         f"arguments {ms:.2f} ms, on plain tensors {plain['ms']:.2f} ms "
         f"(ratio {ms / plain['ms']:.4f}; warm, median); B4 {b4} a run (all "
-        f"tc), B5 {b5} a run; the outputs equal bit for bit")
+        f"tc), B5 {b5} a run, B6 {b6} a run; the outputs equal bit for bit")
     return dict(batch=run["batch"], of=run["of"], seq=run["seq"], ms=ms,
                 plain_tensor_ms=plain["ms"], ratio=ms / plain["ms"],
-                b4_per_run=b4, b5_per_run=b5,
+                b4_per_run=b4, b5_per_run=b5, b6_per_run=b6,
                 b4_launches=2 * b4 * run["runs"],
-                b5_launches=2 * b5 * run["runs"], walls_ms=run["walls_ms"],
+                b5_launches=2 * b5 * run["runs"],
+                b6_launches=2 * b6 * run["runs"], walls_ms=run["walls_ms"],
                 plain_walls_ms=plain["walls_ms"])
 
 
@@ -3899,13 +3943,69 @@ def _shard_b5(torch):
                 library_ms=None)
 
 
+def _shard_b6(torch):
+    """n (iii). B6 at mamba2-1.3b's 16 x 16 prefill_32k shard's local
+    problem (``SHARD_B6``), through the route's local body
+    (``blocks._ssd_local``, what ``local_map`` hands each rank; x a view
+    of in_proj's head block beside B|C, as the model hands it, chunk 128,
+    with h0): against its plain version (the sequential SSM) within 1e-4 of
+    the output's scale, its ms, its bound (phase 4's count: the causal
+    pairs of W X and of C B^T, which the shard's 4 heads share, at the
+    3xTF32 rate) and the plain version's ms."""
+    from repro_torch.kernels.ssd import kernel as SK, ref as SR
+    from repro_torch.models import blocks
+    B, S, NH, hd = SHARD_B6
+    ds, Q = MB["ds"], MB["chunk"]
+    xbc = _randn(torch, B, S, NH * hd + 2 * ds, seed=83)
+    x = xbc[..., :NH * hd].view(B, S, NH, hd)
+    Bm, Cm = xbc[..., NH * hd:NH * hd + ds], xbc[..., NH * hd + ds:]
+    gen = torch.Generator(device="cuda").manual_seed(84)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, NH, generator=gen, device="cuda"))
+    a = -torch.linspace(1.0, 16.0, MB["NH"], device="cuda")[:NH]
+    h0 = _randn(torch, B, NH, hd, ds, seed=85)
+    SK.ssd_forward_call.launches = 0
+    with torch.no_grad():
+        y, st = blocks._ssd_local(x, dt, a, Bm, Cm, Q, h0)
+        (yr, sr), plain_s = _sync_s(torch, lambda: SR.ssd_ref(
+            x.transpose(1, 2), dt.transpose(1, 2), a, Bm, Cm, h0))
+    if SK.ssd_forward_call.launches != 1:
+        raise AssertionError("the local body did not launch B6 once")
+    err = 0.0
+    for got, want in ((y.transpose(1, 2), yr), (st, sr)):
+        scale = max(1.0, float(want.abs().max()))
+        err = max(err, _max_err(torch, got, want, 1e-4, 1e-4 * scale))
+    del y, st, yr, sr
+    with torch.no_grad():
+        ms = _time_ms(torch, lambda: blocks._ssd_local(x, dt, a, Bm, Cm, Q,
+                                                       h0))
+    lens = [min(Q, S - c) for c in range(0, S, Q)]
+    flops = sum(hd * L * (L + 1) * NH + 4 * L * hd * ds * NH
+                + ds * L * (L + 1) for L in lens) * B
+    nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + Bm.numel()
+                  + Cm.numel() + 2 * h0.numel())
+    bound, by = _bound_ms(nbytes, flops, F32_TC_FLOPS_PER_S)
+    log(f"[families] B6 at mamba2-1.3b's 16 x 16 prefill_32k shard, x ({B}, "
+        f"{S}, {NH}, {hd}), B/C ({B}, {S}, {ds}) f32, chunk {Q}, with h0, "
+        f"through the route's local body: max|d| {err:.3e} against the "
+        f"plain version; kernel_ms={ms:.4f} bound_ms={bound:.4f} ({by}, "
+        f"{nbytes / 1e6:.1f} MB, {flops:.4g} flop) "
+        f"plain_ms={plain_s * 1e3:.2f} bound/kernel={bound / ms:.4f}")
+    del xbc, x, Bm, Cm, dt, h0
+    torch.cuda.empty_cache()
+    return dict(shape=[B, S, NH, hd], ds=ds, chunk=Q, max_abs_err=err,
+                ms=ms, bound_ms=bound, bound_by=by, plain_ms=plain_s * 1e3,
+                library_ms=None)
+
+
 def phase_families(torch):
-    """n. The vlm, encdec and hybrid families' LM step on DTensor shards,
-    on the card: (i) the train_4k, prefill_32k and decode_32k cells of
-    internvl2-1b, whisper-tiny and recurrentgemma-2b at their published
-    widths, batch cut, on the (1, 1) cuda mesh, on plain tensors and then
-    on DTensor arguments from one seed, bit-equal (``_family_cell``);
-    (ii) B5 at a 16 x 16 shard's local shape (``_shard_b5``)."""
+    """n. The vlm, encdec, hybrid and ssm families' LM step on DTensor
+    shards, on the card: (i) the train_4k, prefill_32k and decode_32k
+    cells of internvl2-1b, whisper-tiny, recurrentgemma-2b and
+    mamba2-1.3b at their published widths, batch cut, on the (1, 1) cuda
+    mesh, on plain tensors and then on DTensor arguments from one seed,
+    bit-equal (``_family_cell``); (ii) B5 and (iii) B6 at a 16 x 16
+    shard's local shape (``_shard_b5``, ``_shard_b6``)."""
     from repro_torch.launch.mesh import local_process_group, make_mesh
     t0 = time.perf_counter()
     cells = {}
@@ -3916,11 +4016,13 @@ def phase_families(torch):
                 cells[f"{arch}:{name}"] = _family_cell(torch, mesh, arch,
                                                        name)
     b5 = _shard_b5(torch)
+    b6 = _shard_b6(torch)
     took = time.perf_counter() - t0
     log(f"[families] phase took {took:.1f} s")
-    return dict(cells=cells, b5=b5, phase_s=took, lm_launches={
+    return dict(cells=cells, b5=b5, b6=b6, phase_s=took, lm_launches={
         "flash_attention": sum(c["b4_launches"] for c in cells.values()),
-        "rglru_scan": sum(c["b5_launches"] for c in cells.values())})
+        "rglru_scan": sum(c["b5_launches"] for c in cells.values()),
+        "ssd_forward": sum(c["b6_launches"] for c in cells.values())})
 
 
 def phase_lm_cost(torch):
@@ -4082,7 +4184,8 @@ def main() -> int:
             "smoke_card_vs_cpu": smoke_launches["ssd_forward"],
             "uplink_topk": uplink["cohort"]["launches"]["ssd_forward"],
             "downlink_cohorts": down["launches"]["ssd_forward"],
-            "health": health["cohort"]["launches"]["ssd_forward"]},
+            "health": health["cohort"]["launches"]["ssd_forward"],
+            "families_cells": families["lm_launches"]["ssd_forward"]},
     }
 
     src = "src/repro_torch/kernels/seafl_agg/csrc/seafl_agg.cu"
@@ -4151,7 +4254,12 @@ def main() -> int:
                 "family_shapes_max_abs_err": {
                     k[11:]: v for k, v in errs.items()
                     if k.startswith("rglru_scan_")}}
-               if kname == "rglru_scan" else {}),
+               if kname == "rglru_scan" else
+               {"shard_shape": families["b6"],
+                "family_shapes_max_abs_err": {
+                    k[12:]: v for k, v in errs.items()
+                    if k.startswith("ssd_forward_")}}
+               if kname == "ssd_forward" else {}),
         })
     log(f"[e2e] per-round wall s: {[round(w, 4) for w in walls]}  peak "
         f"memory MiB: {peak:.1f}")

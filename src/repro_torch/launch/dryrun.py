@@ -17,11 +17,11 @@ cell it records:
     (flash attention's chunked scores among them), so the estimate is the
     plain path's;
   * ``collectives``: per kind count and bytes.  The SEAFL aggregation
-    cells and the LM cells of the dense, vlm, encdec and hybrid families
-    (``specs.on_shards``) run on DTensors with meta local shards and
-    record the collectives they dispatch.  The ssm and moe families' LM
-    steps run on whole tensors (their blocks do not run on shards yet), so
-    on a mesh of more than one device their collectives are not known:
+    cells and the LM cells of the dense, vlm, encdec, hybrid and ssm
+    families (``specs.on_shards``) run on DTensors with meta local shards
+    and record the collectives they dispatch.  The moe family's LM steps
+    run on whole tensors (its blocks do not run on shards yet), so on a
+    mesh of more than one device their collectives are not known:
     ``null``, with the reason;
   * ``trace_seconds``, the counterpart of ``lower_seconds`` and
     ``compile_seconds``.

@@ -9,9 +9,9 @@ the meta device: the full-size configs are traced there (``launch/dryrun.py``),
 never allocated.  :func:`materialize` makes seeded real arguments for a cell
 and :func:`run_cell` runs it.
 
-The SEAFL aggregation cell and the LM cells of the dense, vlm, encdec and
-hybrid families run on DTensors (:func:`on_shards`: every block kind of
-theirs takes shards), on any mesh.  The ssm and moe families' LM steps do
+The SEAFL aggregation cell and the LM cells of the dense, vlm, encdec,
+hybrid and ssm families run on DTensors (:func:`on_shards`: every block
+kind of theirs takes shards), on any mesh.  The moe family's LM steps do
 not run on shards yet: on a mesh of more than one device their cells are
 traced on whole tensors (their per-device bytes come from the placements)
 and :func:`run_cell` refuses them.
@@ -440,15 +440,15 @@ def materialize(cell: CellSpec, device, seed: int = 0, *, pos=None,
 
 
 # the block kinds whose layers take DTensor shards
-SHARDED_BLOCKS = frozenset({"attn_mlp", "attn", "rec"})
+SHARDED_BLOCKS = frozenset({"attn_mlp", "attn", "rec", "ssd"})
 
 
 def on_shards(cell) -> bool:
     """Whether ``cell`` runs on DTensor shards: the aggregation cells, and
     an LM cell whose scan groups hold only block kinds that run on shards
-    (``SHARDED_BLOCKS``: the dense, vlm, encdec and hybrid families).  The
-    ssm and moe families' LM steps take whole tensors (their blocks do not
-    run on shards yet)."""
+    (``SHARDED_BLOCKS``: the dense, vlm, encdec, hybrid and ssm families).
+    The moe family's LM steps take whole tensors (its blocks do not run on
+    shards yet)."""
     return cell.kind == "agg" or all(
         b in SHARDED_BLOCKS
         for pattern, _ in cell.cfg.scan_groups() for b in pattern)
@@ -522,9 +522,9 @@ def _materialize_agg(cell, params, gen, buffer):
 
 def run_cell(cell: CellSpec, args):
     """Run ``cell``'s step on ``args`` (from :func:`materialize`).  An LM
-    cell of the ssm or moe family (one not :func:`on_shards`), on a mesh of
-    more than one device, raises: its step does not run on shards yet, and
-    the unsharded step is never run in its place."""
+    cell of the moe family (one not :func:`on_shards`), on a mesh of more
+    than one device, raises: its step does not run on shards yet, and the
+    unsharded step is never run in its place."""
     if not on_shards(cell) and cell.mesh.size() > 1:
         raise NotImplementedError(
             f"{cell.name}: the {cell.cfg.family} family's LM step does not "

@@ -23,8 +23,10 @@ Kernel routes: on CUDA tensors ``rg_lru_scan`` launches the RG-LRU kernel
 (``kernels/rglru``) and ``ssd_chunked`` the SSD kernel (``kernels/ssd``);
 on CPU tensors ``rg_lru_scan`` runs the sequential recurrence and
 ``ssd_chunked`` the torch translation of the JAX model function.  These
-functions are the only place the model picks a route.  Both kernel routes
-have a gradient: the RG-LRU scan's is the reverse-time recurrence, run by
+functions are the only place the model picks a route; on DTensors each
+rank takes it on its own shards (``local_map``): the RG-LRU scan on its
+channels, the SSD scan on its heads.  Both kernel routes have a
+gradient: the RG-LRU scan's is the reverse-time recurrence, run by
 the same kernel (:func:`rg_lru_scan_backward`); the SSD kernel's
 differentiates the torch translation, recomputed from the saved inputs.
 """
@@ -34,12 +36,12 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models import layers as L
 from repro_torch.sharding import (axis_size, constrain, gather_fsdp,
-                                  per_shard, reduced, replicated,
+                                  per_shard, reduced, replicated, reshape,
                                   sharded_over)
 
 # ---------------------------------------------------------------------------
@@ -445,26 +447,63 @@ def _column_halves(p, x):
     half of the ranks, so a rank moves the smaller of two tensors.  Where
     it holds fewer rows of ``x`` than the weight has (a decode step), the
     product's output channels are gathered and split.  Else the weight's
-    columns are gathered and laid out as each rank's block of xb's
-    channels beside its block of z's: the one product leaves both halves'
-    channel shards on each rank, split there, and no (B, S, 2 rnn_width)
-    activation is gathered, forward or backward."""
+    columns are laid out as each rank's block of xb's channels beside its
+    block of z's (:func:`_columns_by_rank`): the one product leaves both
+    halves' channel shards on each rank, split there, and no (B, S,
+    2 rnn_width) activation is gathered, forward or backward."""
     w = gather_fsdp(p["w"])
     (d, c2), t = w.shape, axis_size("tensor")
-    rows = math.prod(x.shape[:-1]) // math.prod(
-        sharded_over(x, i) for i in range(x.dim() - 1))
-    if isinstance(w, DTensor) and t > 1 and c2 % (2 * t) == 0 and rows >= d:
-        w = replicated(w, [-1]).reshape(d, 2, t, c2 // (2 * t))
-        w = constrain(w.transpose(1, 2).reshape(d, c2), None, "tensor")
-        xz = constrain(reduced(x @ w.to(x.dtype)), "batch", None, "tensor")
-        pl = list(xz.placements)
-        return local_map(lambda v: tuple(torch.chunk(v, 2, dim=-1)),
-                         out_placements=(pl, pl), in_placements=(pl,),
-                         in_grad_placements=(pl,),
-                         device_mesh=xz.device_mesh)(xz)
+    if isinstance(w, DTensor) and t > 1 and c2 % (2 * t) == 0 and \
+            _rows(x) >= d:
+        xz = constrain(reduced(x @ _columns_by_rank(w, (c2 // 2, c2 // 2))
+                               .to(x.dtype)), "batch", None, "tensor")
+        return _local_split(xz, [c2 // (2 * t)] * 2)
     xz = replicated(reduced(x @ w.to(x.dtype)), [-1])
     return tuple(constrain(h, "batch", None, "tensor")
                  for h in torch.chunk(xz, 2, dim=-1))
+
+
+def _rows(x):
+    """The rows of ``x`` (all dims but the last) that this rank holds."""
+    return math.prod(x.shape[:-1]) // math.prod(
+        sharded_over(x, i) for i in range(x.dim() - 1))
+
+
+def _rank_blocks(t, parts, n, inverse=False):
+    """``t`` (..., sum(parts)) with its last dim's consecutive parts (of
+    the sizes ``parts``, each a multiple of ``n``) laid out as ``n`` rank
+    blocks, block r holding the r-th n-th of every part in their order;
+    ``inverse`` lays such blocks out as the parts again."""
+    lead, k = t.shape[:-1], [q // n for q in parts]
+    if not inverse:
+        return torch.cat([q.reshape(*lead, n, q.shape[-1] // n) for q in
+                          torch.split(t, list(parts), -1)], -1
+                         ).reshape(*lead, -1)
+    blocks = t.reshape(*lead, n, sum(k))
+    return torch.cat([q.reshape(*lead, -1) for q in
+                      torch.split(blocks, k, -1)], -1)
+
+
+def _columns_by_rank(w, parts):
+    """The weight ``w`` (a DTensor whose last dim shards over "tensor")
+    with its last dim's ``parts`` laid out as each rank's block of each
+    (:func:`_rank_blocks`), that dim sharded over "tensor" again: rank r
+    holds the r-th "tensor" share of every part.  Its gradient comes back
+    in ``w``'s placements."""
+    t = axis_size("tensor")
+    return constrain(_rank_blocks(replicated(w, [-1]), parts, t),
+                     *[None] * (w.dim() - 1), "tensor")
+
+
+def _local_split(v, sizes):
+    """``torch.split(v, sizes, -1)`` of each rank's shard of the DTensor
+    ``v`` (its last dim sharded), each part a DTensor of ``v``'s
+    placements."""
+    pl = list(v.placements)
+    return local_map(lambda u: tuple(torch.split(u, sizes, -1)),
+                     out_placements=tuple(pl for _ in sizes),
+                     in_placements=(pl,), in_grad_placements=(pl,),
+                     device_mesh=v.device_mesh)(v)
 
 
 def rg_lru_gates(p, xb32, dtype):
@@ -648,14 +687,74 @@ def ssd_cache(cfg, batch, max_len, dtype, device, lead=()):
                                  din + 2 * ds), dtype=dtype, device=device)}
 
 
-def _ssd_split(p, u, cfg):
+def _ssd_split(p, u, cfg, mode):
+    """in_proj's output as (z, xbc, dt, heads).  On plain tensors, and
+    where ``heads`` is False, the slices of ``u @ w`` in their own order:
+    z and dt with their channels sharded over "tensor" (the reference's
+    hint on z), xbc whole.
+
+    In train and prefill, on a mesh whose "tensor" axis splits every part
+    (z, x, B|C, dt), a rank holding at least as many rows of ``u`` as the
+    weight has takes in_proj's columns laid out as its block of each part
+    (:func:`_columns_by_rank`): the one product leaves on each rank its
+    own heads' z, x and dt and a "tensor" share of B|C, and no (B, S,
+    width) activation moves.  Then ``heads`` is True and ``xbc`` is in that
+    layout: each rank's x beside its share of B|C (:func:`_ssd_conv` reads
+    it so).  Where a rank holds fewer rows, the product's output is
+    gathered and split instead; so it is in a decode step, whatever its
+    rows, since its conv reads xbc in the conv cache's channel order."""
     din, ds = cfg.d_inner, cfg.ssm_state
     nh = din // cfg.ssm_head_dim
-    zxbcdt = L.linear(p["in_proj"], u)
+    parts = (din, din, 2 * ds, nh)
+    w, t = gather_fsdp(p["in_proj"]["w"]), axis_size("tensor")
+    d = w.shape[0]
+    if mode != "decode" and isinstance(w, DTensor) and t > 1 and \
+            _rows(u) >= d and all(q % t == 0 for q in parts):
+        zxbcdt = constrain(reduced(u @ _columns_by_rank(w, parts).to(u.dtype)),
+                           "batch", None, "tensor")
+        z, xbc, dt = _local_split(
+            zxbcdt, [din // t, (din + 2 * ds) // t, nh // t])
+        return z, xbc, dt, True
+    zxbcdt = replicated(reduced(u @ w.to(u.dtype)), [-1])
     z = zxbcdt[..., :din]
     xbc = zxbcdt[..., din:din + din + 2 * ds]
     dt = zxbcdt[..., -nh:]
-    return z, xbc, dt
+    return (constrain(z, "batch", None, "tensor"), xbc,
+            constrain(dt, "batch", None, "tensor"), False)
+
+
+def _ssd_conv(p, xbc, cfg, heads):
+    """The causal conv and SiLU of in_proj's x|B|C part, split as (xs
+    (B, S, nh, hd) f32, B (B, S, ds) f32, C (B, S, ds) f32).  With
+    ``heads`` (:func:`_ssd_split`'s layout) the conv's weight and bias
+    take the same layout, each rank convolves its own channels, and only
+    B|C is gathered across "tensor": xs stays on each rank's heads."""
+    din, ds = cfg.d_inner, cfg.ssm_state
+    B, S = xbc.shape[:2]
+    nh, hd = din // cfg.ssm_head_dim, cfg.ssm_head_dim
+    dtype = xbc.dtype
+    if heads:
+        t = axis_size("tensor")
+        conv = {k: _columns_by_rank(v, (din, 2 * ds)) for k, v in p.items()}
+        xbc = L.silu(causal_conv1d(conv, xbc).to(dtype))
+        xc, bc = _local_split(xbc, [din // t, 2 * ds // t])
+        bc = replicated(bc, [-1])
+    else:
+        xbc = L.silu(causal_conv1d(p, xbc).to(dtype))
+        xc, bc = xbc[..., :din], xbc[..., din:]
+    return (reshape(xc, B, S, nh, hd).to(torch.float32),
+            bc[..., :ds].to(torch.float32), bc[..., ds:].to(torch.float32))
+
+
+def _conv_cache(xbc, cfg, heads):
+    """The conv cache's last inputs, in its own channel order, from
+    ``xbc`` (B, W - 1, C) in :func:`_ssd_split`'s layout."""
+    if not heads:
+        return xbc
+    din, ds = cfg.d_inner, cfg.ssm_state
+    xbc = _rank_blocks(replicated(xbc, [-1]), (din, 2 * ds),
+                       axis_size("tensor"), inverse=True)
+    return constrain(xbc, "batch", None, "tensor")
 
 
 def _ssd_chunked_plain(x, dt, a, B_mat, C_mat, chunk, h0=None):
@@ -717,10 +816,70 @@ def ssd_chunked(x, dt, a, B_mat, C_mat, chunk, h0=None):
     (B,nh,hd,ds)), all f32.
 
     CUDA: the SSD kernel, which reads this layout through strides and
-    writes y in it.  CPU: the torch translation of the JAX model function."""
-    if x.device.type == "cuda":
+    writes y in it.  CPU: the torch translation of the JAX model function.
+    On DTensors each rank runs the same on its own batch rows and heads
+    (:func:`_ssd_on_local_heads`)."""
+    if isinstance(x, DTensor):
+        return _ssd_on_local_heads(x, dt, a, B_mat, C_mat, chunk, h0)
+    return _ssd_local(x, dt, a, B_mat, C_mat, chunk, h0)
+
+
+def _uses_ssd_kernel(x):
+    return x.device.type == "cuda"
+
+
+def _ssd_local(x, dt, a, B_mat, C_mat, chunk, h0=None):
+    """:func:`ssd_chunked` on plain tensors: the kernel
+    (:class:`_SSDChunked`) on CUDA, the torch translation on the CPU."""
+    if _uses_ssd_kernel(x):
         return _SSDChunked.apply(x, dt, a, B_mat, C_mat, chunk, h0)
     return _ssd_chunked_plain(x, dt, a, B_mat, C_mat, chunk, h0)
+
+
+def _ssd_on_local_heads(x, dt, a, B_mat, C_mat, chunk, h0):
+    """The SSD scan on DTensors: ``x`` (B, S, nh, hd) and ``dt`` (B, S, nh)
+    sharded on their batch rows and heads, ``a`` (nh,) on its heads,
+    ``B_mat`` and ``C_mat`` (B, S, ds) on their batch rows alone, ``h0``
+    (B, nh, hd, ds) or None.  The heads never mix, so each rank scans its
+    own (``local_map`` over :func:`_ssd_local`, the kernel on the card):
+    ``y`` comes out in ``x``'s placements, the state in (batch, heads)
+    ones, ``h0``'s.  All heads read B and C, so their gradients are each
+    rank's partial sums over its heads (``Partial`` across the mesh dims
+    that shard the heads), and so is ``a``'s across those that shard the
+    batch.  C B^T does not depend on the head: each rank computes it for
+    every chunk of its own batch rows, as the kernel does."""
+    mesh = x.device_mesh
+    bat = [isinstance(p, Shard) and p.dim == 0 for p in x.placements]
+    hds = [isinstance(p, Shard) and p.dim == 2 for p in x.placements]
+    pick = lambda on_b, on_h, other=Replicate(): [  # noqa: E731
+        on_b if b else on_h if h else other for b, h in zip(bat, hds)]
+    rep = Replicate()
+    pl_x = pick(Shard(0), Shard(2))
+    pl_bc = pick(Shard(0), rep)
+    pl_a = pick(rep, Shard(0))
+    pl_h = pick(Shard(0), Shard(1))
+    grad_bc = pick(Shard(0), Partial())
+    grad_a = pick(Partial(), Shard(0))
+    # a redistribute to the placements a tensor has would reduce its
+    # gradient's partial sums in the backward
+    x, dt, a, B_mat, C_mat = (
+        v if list(v.placements) == q else v.redistribute(mesh, q)
+        for v, q in zip((x, dt, a, B_mat, C_mat),
+                        (pl_x, pl_x, pl_a, pl_bc, pl_bc)))
+    ins, grads = [pl_x, pl_x, pl_a, pl_bc, pl_bc], \
+        [pl_x, pl_x, grad_a, grad_bc, grad_bc]
+    args = [x, dt, a, B_mat, C_mat]
+    if h0 is not None:
+        ins.append(pl_h)
+        grads.append(pl_h)
+        args.append(h0 if list(h0.placements) == pl_h
+                    else h0.redistribute(mesh, pl_h))
+
+    def body(*v):
+        return _ssd_local(*v[:5], chunk, *v[5:])
+
+    return local_map(body, out_placements=(pl_x, pl_h), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh)(*args)
 
 
 SSD_BACKWARD_RANGE = "ssd_chunked_backward"
@@ -762,15 +921,22 @@ def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
     din, ds = cfg.d_inner, cfg.ssm_state
     nh, hd = din // cfg.ssm_head_dim, cfg.ssm_head_dim
     x, x_in = L.block_input(x, cfg)
-    u = L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype)
-    z, xbc, dt = _ssd_split(p, u, cfg)
+    # in_proj reads the residual stream whole along its sequence, as in
+    # attn_mlp_apply
+    u = constrain(L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, x.dtype),
+                  "batch", None, None)
+    z, xbc, dt, heads = _ssd_split(p, u, cfg, mode)
 
     a = -torch.exp(p["a_log"])                            # (nh,) negative
     new_cache = cache
     if mode == "decode":
+        # the conv's window in the cache's own channel order; its one new
+        # row is then split onto the heads
+        xbc = constrain(xbc, "batch", None, "tensor")
         xbc, conv_state = conv1d_step(p["conv"], xbc, cache["conv"])
-        xbc = L.silu(xbc.to(x.dtype))                     # (B, 1, C)
-        xs = xbc[:, 0, :din].reshape(B, nh, hd).to(torch.float32)
+        xbc = replicated(L.silu(xbc.to(x.dtype)), [-1])   # (B, 1, C)
+        xs = constrain(reshape(xbc[:, 0, :din], B, nh, hd),
+                       "batch", "tensor", None).to(torch.float32)
         Bm = xbc[:, 0, din:din + ds].to(torch.float32)
         Cm = xbc[:, 0, din + ds:].to(torch.float32)
         dtv = F.softplus(dt[:, 0].to(torch.float32) + p["dt_bias"])
@@ -779,30 +945,38 @@ def ssd_apply(p, x, cfg, *, mode="train", cache=None, pos=None,
                  + torch.einsum("bh,bhd,bs->bhds", dtv, xs, Bm))
         y = torch.einsum("bs,bhds->bhd", Cm, S_new) \
             + p["D"][None, :, None] * xs
-        y = y.reshape(B, 1, din)
+        # (B, din) first: heads sharded merge with their dims, not after
+        # an inserted dim of one
+        y = reshape(y, B, din)[:, None]
         new_cache = {"ssm": S_new, "conv": conv_state}
     else:
         xbc_raw = xbc
-        xbc = L.silu(causal_conv1d(p["conv"], xbc).to(x.dtype))
-        xs = xbc[..., :din].reshape(B, S, nh, hd).to(torch.float32)
-        Bm = xbc[..., din:din + ds].to(torch.float32)
-        Cm = xbc[..., din + ds:].to(torch.float32)
-        dtv = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+        xs, Bm, Cm = _ssd_conv(p["conv"], xbc, cfg, heads)
+        # SSD head parallelism, the reference's hints
+        xs = constrain(xs, "batch", None, "tensor", None)
+        dtv = constrain(F.softplus(dt.to(torch.float32) + p["dt_bias"]),
+                        "batch", None, "tensor")
         h0 = cache["ssm"] if cache is not None else None
         chunk = min(cfg.ssm_chunk, S)
         y, S_final = ssd_chunked(xs, dtv, a, Bm, Cm, chunk, h0)
         y = y + p["D"][None, None, :, None] * xs
-        y = y.reshape(B, S, din)
+        y = reshape(y, B, S, din)
         if mode == "prefill":
             new_cache = {"ssm": S_final,
-                         "conv": xbc_raw[:, -(cfg.conv_width - 1):]
+                         "conv": _conv_cache(
+                             xbc_raw[:, -(cfg.conv_width - 1):], cfg, heads)
                          .to(cache["conv"].dtype)}
 
     # out_norm reads the gated product unrounded (layers.product)
     y = L.product(y, L.silu(z), x.dtype, unrounded=True)
     y = L.rmsnorm(p["out_norm"], y, cfg.norm_eps, x.dtype)
-    out = L.linear(p["out_proj"], y)
-    return L.unrounded(x, out), new_cache, L.no_aux(x)
+    # out_proj's partial sums over the heads reduce-scatter at once onto
+    # the residual stream's shards (the reference's hint below), or are
+    # all-reduced where it shards nothing (a decode step)
+    out = reduced(constrain(y @ gather_fsdp(p["out_proj"]["w"])
+                            .to(y.dtype), "batch", "resid", None))
+    x = constrain(L.unrounded(x, out), "batch", "resid", None)
+    return x, new_cache, L.no_aux(x)
 
 
 # ---------------------------------------------------------------------------

@@ -95,7 +95,13 @@ def rmsnorm(p, x, eps=1e-6, dtype=None):
     input is a low-precision sum or product that XLA keeps in f32 (see
     :func:`unrounded`)."""
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    if sharded_over(x, -1) > 1:
+        # over a dim sharded across ranks (the ssm block's out_norm over
+        # its heads): the ranks' partial sums of squares, summed at once
+        var = reduced(torch.sum(torch.square(xf), dim=-1, keepdim=True)) \
+            / x.shape[-1]
+    else:
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
     return out.to(dtype or x.dtype)
 

@@ -11,12 +11,11 @@ for tier-1.
   inputs (JAX's within 1e-5, the flat engine's within the bf16 bound
   ``AGG_BF16_BOUND``).
 * The LM cells of the families that run on shards (dense, and
-  internvl2-1b, whisper-tiny and recurrentgemma-2b: ``SHARDED``) record
-  their collectives, and their per-device product FLOPs and argument
-  bytes equal the reference's partitioned HLO's.
+  internvl2-1b, whisper-tiny, recurrentgemma-2b and mamba2-1.3b:
+  ``SHARDED``) record their collectives, and their per-device product
+  FLOPs and argument bytes equal the reference's partitioned HLO's.
 * An LM cell run on a one-device mesh equals the eager step builders, bit
-  for bit; an ssm or moe cell on a mesh of more than one device is
-  refused.
+  for bit; a moe cell on a mesh of more than one device is refused.
 * The CLI runs end to end; importing it sets up no process group.
 """
 import json
@@ -47,8 +46,10 @@ ARCHS = ("qwen3-32b", "mixtral-8x22b", "mamba2-1.3b", "recurrentgemma-2b",
          "whisper-tiny", "internvl2-1b")
 DENSE = ("qwen3-32b", "granite-34b", "phi4-mini-3.8b", "minicpm-2b")
 # every config whose LM runs on shards: the dense family's, and the vlm,
-# encdec and hybrid configs (their blocks are attn_mlp, attn and rec)
-SHARDED = DENSE + ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b")
+# encdec, hybrid and ssm configs (their blocks are attn_mlp, attn, rec and
+# ssd)
+SHARDED = DENSE + ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b",
+                   "mamba2-1.3b")
 # the train state's step and the cache's position, int32 scalars the port
 # keeps on the host (the reference's compile keeps every argument, read or
 # not: a prefill's position, an encdec config's frames and encoder)
@@ -70,6 +71,30 @@ AGG_BF16_BOUND = 2.0 ** -6
 
 def _ids(s):
     return "x".join(map(str, s))
+
+
+def _mesh_sizes(mesh_shape):
+    """(the ranks that split the batch, the ranks of "model") of a mesh."""
+    sizes = dict(zip(MESHES[mesh_shape], mesh_shape))
+    return sizes.get("pod", 1) * sizes["data"], sizes["model"]
+
+
+def ssd_cb_flops(cfg, shape, dp):
+    """The FLOPs of the SSD scan's C B^T products on one device that holds
+    1 / ``dp`` of the batch rows, as the port's route runs them: each rank
+    computes C B^T, (B, nc, Q, ds) by (B, nc, Q, ds) -> (B, nc, Q, Q), for
+    every chunk of its rows, whatever share of the heads it holds (the
+    kernel on the card computes it for its heads itself).  A train step
+    runs it in the forward and its checkpoint's rerun, and its backward
+    two products of the same size (C's and B's gradients); a prefill runs
+    it once, a decode step not at all."""
+    if cfg.family != "ssm" or shape.kind == "decode":
+        return 0
+    q = min(cfg.ssm_chunk, shape.seq_len)
+    nc = -(-shape.seq_len // q)
+    products = 4 if shape.kind == "train" else 1
+    return (products * cfg.n_layers * 2 * (shape.global_batch // dp) * nc
+            * q * q * cfg.ssm_state)
 
 
 @pytest.fixture(scope="module")
@@ -118,6 +143,16 @@ from repro.sharding import axis_rules
 # the products the backward runs outside every loop (a vlm config's:
 # patch_proj's weight gradient alone)
 TOP = 'op_name="jit(train_step)/transpose(jvp())/dot_general"'
+# the SSD scan's C B^T einsum, named in its products' op_name
+CB = "bcqs,bcks->bcqk/dot_general"
+
+
+# the FLOPs of the products that name the C B^T einsum, loops counted: the
+# whole HLO's less that with those products made copies
+def cb_dot_flops(text):
+    cut = "\n".join(line.replace(" dot(", " copy(") if CB in line else line
+                    for line in text.splitlines())
+    return analyze_hlo(text)["flops"] - analyze_hlo(cut)["flops"]
 
 
 def top_backward_dot_flops(text):
@@ -157,6 +192,7 @@ for arch in %r:
         out[f"{arch}:{kind}"] = dict(
             flops=analyze_hlo(text)["flops"],
             top_backward_dot_flops=top_backward_dot_flops(text),
+            cb_dot_flops=cb_dot_flops(text),
             args=memory_stats(c)["argument_size_in_bytes"],
             coll=collective_stats(text)["total_bytes"])
 print(json.dumps(out))
@@ -165,7 +201,8 @@ print(json.dumps(out))
 
 def jax_dense(mesh_shape):
     """The reference's per-device product FLOPs (``hlo_cost``), the FLOPs
-    of the products its backward runs outside every loop, argument bytes
+    of the products its backward runs outside every loop and of those that
+    name the SSD scan's C B^T, argument bytes
     and collective bytes of the ``SHARDED`` smoke cells on ``mesh_shape``,
     compiled in one subprocess on 8 fake host devices."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
@@ -198,8 +235,7 @@ def test_no_train_collective_moves_a_chunks_full_vocab_logits(
     """The loss stays vocab-parallel: no collective is handed or returns a
     tensor as large as a loss chunk's logits over the whole vocab on one
     device (its batch rows, the chunk's positions)."""
-    sizes = dict(zip(MESHES[mesh_shape], mesh_shape))
-    dp = sizes.get("pod", 1) * sizes["data"]
+    dp, _ = _mesh_sizes(mesh_shape)
     for arch in SHARDED:
         logits = (TRAIN.global_batch // dp * min(1024, TRAIN.seq_len)
                   * smoke_config(arch).padded_vocab)
@@ -211,8 +247,9 @@ def test_no_train_collective_moves_a_chunks_full_vocab_logits(
 def test_no_decode_collective_moves_a_cache_leaf(dense_records, mesh_shape):
     """The decode step keeps the cache in place (the KV cache sharded
     along its sequence, the RG-LRU state and conv window along their
-    channels): no collective is handed or returns a cache leaf, one
-    layer's or the stack's, whole or this device's shard of it."""
+    channels, the SSD state along its heads): no collective is handed or
+    returns a cache leaf, one layer's or the stack's, whole or this
+    device's shard of it."""
     with fake_process_group(8):
         mesh = make_mesh(mesh_shape, MESHES[mesh_shape], device_type="cpu")
         for arch in SHARDED:
@@ -242,9 +279,20 @@ def test_dense_cells_per_device_flops_and_argument_bytes_equal_jax(
     (on (2, 4) the 4-wide "model" axis as 2 x 2, which DTensor placements
     cannot express) and over 8 on (2, 2, 2); the port splits it over all
     8 on every mesh.  It is checked at its 1 / n share of the whole
-    product, XLA's no smaller, and every other product exactly."""
+    product, XLA's no smaller, and every other product exactly.
+
+    So are an ssm config's C B^T products (:func:`ssd_cb_flops`).  XLA
+    splits them over the "model" ranks too (by chunk, or by the
+    contraction over ds); the port's route computes them on each rank for its own batch
+    rows, as the kernel does.  They are checked at that share: the port's
+    FLOPs are XLA's plus the (1 - 1 / model) of it that XLA spreads over
+    the other "model" ranks; the products that XLA's HLO names as C B^T
+    come to no more than that 1 / model share (XLA keeps the name on some
+    of them only: on (2, 4), of a train step's four in each layer, the
+    rerun's and the backward's two, and none of a prefill's)."""
     want = jax_dense(mesh_shape)
     n = int(np.prod(mesh_shape))
+    dp, n_h = _mesh_sizes(mesh_shape)
     for arch in SHARDED:
         for kind in ("train", "prefill", "decode"):
             rec = dense_records[(mesh_shape, arch, kind)]
@@ -256,6 +304,11 @@ def test_dense_cells_per_device_flops_and_argument_bytes_equal_jax(
                          * cfg.vision_embed_dim * cfg.d_model) // n
                 assert w["top_backward_dot_flops"] >= share, mesh_shape
                 flops += share - w["top_backward_dot_flops"]
+            cb = ssd_cb_flops(cfg, {"train": TRAIN, "prefill": PREFILL,
+                                    "decode": DECODE}[kind], dp)
+            assert w["cb_dot_flops"] * n_h <= cb and cb % n_h == 0, \
+                (arch, kind)
+            flops += cb - cb // n_h
             assert rec["op_cost"]["flops"] == flops, (arch, kind)
             host = HOST_SCALAR_BYTES[kind]
             assert rec["memory"]["argument_size_in_bytes"] + host == \
@@ -266,17 +319,23 @@ def test_dense_cells_per_device_flops_and_argument_bytes_equal_jax(
 def test_train_and_decode_cells_trace_on_every_mesh(one_device_flops,
                                                     dense_records,
                                                     mesh_shape):
-    """The cells of a dense, vlm, encdec or hybrid arch run on shards:
-    per-device flops, 1 / n of the one-device trace's, and their
-    collectives.  The ssm and moe families' run on whole tensors: the
-    one-device flops, collectives null, with the family in the reason."""
+    """The cells of a dense, vlm, encdec, hybrid or ssm arch run on
+    shards: per-device flops, 1 / n of the one-device trace's (an ssm
+    config's C B^T products, :func:`ssd_cb_flops`, 1 / the batch's ranks
+    of them: every rank computes them for its own rows), and their
+    collectives.  The moe family's run on whole tensors: the one-device
+    flops, collectives null, with the family in the reason."""
     n = int(np.prod(mesh_shape))
+    dp, _ = _mesh_sizes(mesh_shape)
     with fake_process_group(8):
         mesh = make_mesh(mesh_shape, MESHES[mesh_shape], device_type="cpu")
         for arch in ARCHS:
             if arch in SHARDED:
                 rec = dense_records[(mesh_shape, arch, "train")]
-                assert rec["op_cost"]["flops"] * n == one_device_flops[arch]
+                cfg = smoke_config(arch)
+                cb = ssd_cb_flops(cfg, TRAIN, dp)
+                assert (rec["op_cost"]["flops"] - cb) * n == \
+                    one_device_flops[arch] - ssd_cb_flops(cfg, TRAIN, 1)
                 assert rec["collectives"]["total_bytes"] > 0, arch
             else:
                 cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
@@ -471,19 +530,29 @@ def test_layernorm_and_the_ungated_mlp_stay_on_their_shards():
 
 
 def test_an_lm_cell_on_a_wider_mesh_is_refused():
-    """The ssm family does not run on shards yet."""
+    """Of the LM cells on a mesh of 8, the moe family's alone are refused
+    (its blocks do not run on shards yet); the ssm family's run there, on
+    DTensor shards: mamba2-1.3b's train step on (2, 4) returns its
+    metrics and the updated parameters in their placements."""
     with fake_process_group(8):
         mesh = make_mesh((2, 4), device_type="cpu")
-        cell = S.build_cell(smoke_config("mamba2-1.3b"), TRAIN, mesh)
+        cell = S.build_cell(smoke_config("mixtral-8x22b"), TRAIN, mesh)
         with pytest.raises(NotImplementedError, match="does not run"):
             S.run_cell(cell, cell.args)
+        cell = S.build_cell(smoke_config("mamba2-1.3b"), TRAIN, mesh)
+        assert S.on_shards(cell)
+        state, metrics = S.run_cell(cell, S.materialize(cell, "meta"))
+    assert isinstance(metrics["loss"], DTensor)
+    for (path, p), (_, sh) in zip(tree_leaves(state.params),
+                                  tree_leaves(cell.in_shardings[0].params)):
+        assert tuple(p.placements) == tuple(sh.placements), path
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
 def test_a_moe_cell_is_refused_and_only_the_ssm_and_moe_ones(arch):
-    """The moe family's blocks do not run on shards either: its cells on a
-    mesh of 8 are refused; every config of the other families runs on
-    shards, the ssm one aside."""
+    """The moe family's blocks do not run on shards: its cells on a mesh
+    of 8 are refused; every config of the other families (the ssm one
+    too, since its block runs on shards) runs on shards."""
     with fake_process_group(8):
         mesh = make_mesh((2, 4), device_type="cpu")
         cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
@@ -493,8 +562,7 @@ def test_a_moe_cell_is_refused_and_only_the_ssm_and_moe_ones(arch):
         for other in list_configs():
             fam = smoke_config(other).family
             assert S.on_shards(S.build_cell(smoke_config(other), TRAIN,
-                                            mesh)) == (fam not in
-                                                       ("ssm", "moe")), other
+                                            mesh)) == (fam != "moe"), other
 
 
 def test_cli_end_to_end(tmp_path, capsys):

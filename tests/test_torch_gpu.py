@@ -615,6 +615,83 @@ def test_a_rec_block_on_dtensors_equals_plain_tensors(cuda):
         torch.cuda.synchronize()
 
 
+def test_an_ssd_block_on_dtensors_equals_plain_tensors(cuda):
+    """mamba2-1.3b's ssd block (its smoke config, bf16) in training on
+    DTensor arguments of the (1, 1) cuda mesh: the output and every
+    gradient, of the parameters and of the input, equal the plain
+    tensors' bit for bit, and B6 runs through the sharded route
+    (``local_map``) once: its backward differentiates the plain
+    version."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    from repro_torch.models import blocks
+    from repro_torch.sharding import axis_rules
+    from repro_torch.tree import tree_leaves
+    cfg = smoke_config("mamba2-1.3b")
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    p = blocks.ssd_init(gen, cfg, torch.bfloat16, cuda)
+    x = torch.randn(2, 96, cfg.d_model, generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    dy = torch.randn(2, 96, cfg.d_model, generator=gen, device=cuda)
+    paths = [k for k, _ in tree_leaves(p)]
+
+    def run(wrap):
+        leaves = _leaves(x, *(t for _, t in tree_leaves(p)))
+        tree = {}
+        for path, t in zip(paths, leaves[1:]):
+            node = tree
+            *head, last = path.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = wrap(t)
+        before = SK.ssd_forward_call.launches
+        y, _, _ = blocks.ssd_apply(tree, wrap(leaves[0]), cfg, mode="train")
+        grads = torch.autograd.grad(y, leaves, wrap(dy))
+        return y, grads, SK.ssd_forward_call.launches - before
+
+    want_y, want_g, n = run(lambda t: t)
+    assert n == 1
+    with local_process_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        rep = [Replicate(), Replicate()]
+        with axis_rules(mesh):
+            y, got_g, n = run(lambda t: DTensor.from_local(t, mesh, rep))
+        assert isinstance(y, DTensor) and n == 1
+        assert torch.equal(y.to_local(), want_y)
+        for path, g, w in zip(["x"] + paths, got_g, want_g):
+            assert torch.equal(g, w), path
+        torch.cuda.synchronize()
+
+
+def test_ssd_local_body_at_a_head_shard_shape(cuda):
+    """B6 through the sharded route's local body (``blocks._ssd_local``,
+    what ``local_map`` hands each rank) at mamba2-1.3b's 16 x 16
+    prefill_32k shard: 2 batch rows of 32768 positions, 64 / 16 = 4 heads
+    of 64, B and C (2, 32768, 128) whole, chunk 128, with h0; x a view of
+    in_proj's head block, as the model hands it.  One launch, within
+    ``test_ssd_matches_plain``'s 1e-4 of the output's scale of its plain
+    version."""
+    from repro_torch.kernels.ssd import kernel as SK, ref as R
+    from repro_torch.models import blocks
+    B, S, NH, hd, ds, chunk = 2, 32768, 4, 64, 128, 128
+    xbc = _randn(cuda, B, S, NH * hd + 2 * ds, seed=10)
+    x = xbc[..., :NH * hd].view(B, S, NH, hd)
+    Bm, Cm = xbc[..., NH * hd:NH * hd + ds], xbc[..., NH * hd + ds:]
+    dt = torch.rand(B, S, NH, device=cuda) * 0.19 + 0.01
+    a = -(torch.rand(NH, device=cuda) * 1.5 + 0.5)
+    h0 = _randn(cuda, B, NH, hd, ds, seed=11)
+    before = SK.ssd_forward_call.launches
+    with torch.no_grad():
+        y, st = blocks._ssd_local(x, dt, a, Bm, Cm, chunk, h0)
+    assert SK.ssd_forward_call.launches == before + 1
+    yr, sr = R.ssd_ref(x.transpose(1, 2), dt.transpose(1, 2), a, Bm, Cm, h0)
+    for got, want in ((y.transpose(1, 2), yr), (st, sr)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_ssd_route_has_the_plain_gradient(cuda, with_h0):
     """ssd_chunked on the card: the backward differentiates the plain

@@ -1,6 +1,7 @@
-"""One rank of ``test_torch_dist_lm.py``: the LM cells of the families
-that run on shards (dense, vlm, encdec, hybrid) on a (2, 2) ('data',
-'model') mesh of 4 gloo ranks on the CPU, on DTensor shards.  It imports
+"""One rank of ``test_torch_dist_lm.py`` and ``test_torch_dist_ssm.py``:
+the LM cells of the families that run on shards (dense, vlm, encdec,
+hybrid, ssm) on a (2, 2) ('data', 'model') mesh of 4 gloo ranks on the
+CPU, on DTensor shards.  It imports
 ``repro_torch`` and never JAX: the test hands it the JAX parameters and
 inputs as numpy files.
 
@@ -29,6 +30,8 @@ from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru import kernel as RK
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.kernels.ssd import kernel as SK
+from repro_torch.kernels.ssd.ref import ssd_ref
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.op_cost import trace_step
@@ -44,15 +47,16 @@ F32 = dict(param_dtype="float32", dtype="float32")
 def case_config(case):
     """A case's f32 smoke config with its full config's score-shard mode
     (the smoke configs all take the default, "qrows"), and the remat
-    policy, microbatches, KV-cache dtype and RG-LRU width the case names,
-    if any."""
+    policy, microbatches, KV-cache dtype, RG-LRU width and SSD inner
+    width the case names, if any."""
     cfg = smoke_config(case["arch"])
     return cfg.replace(
         **F32, attn_score_shard=get_config(case["arch"]).attn_score_shard,
         remat=case.get("remat", cfg.remat),
         train_microbatches=case.get("microbatches", cfg.train_microbatches),
         kv_cache_dtype=case.get("kv_cache_dtype", cfg.kv_cache_dtype),
-        rnn_width=case.get("rnn_width", cfg.rnn_width))
+        rnn_width=case.get("rnn_width", cfg.rnn_width),
+        d_inner=case.get("d_inner", cfg.d_inner))
 
 
 def _whole(t):
@@ -131,20 +135,49 @@ class RGLRUStandIn:
         RK.rglru_scan_call, blocks._uses_rglru_kernel = self.saved
 
 
+class SSDStandIn:
+    """The SSD kernel's route taken on the CPU, as on the card: every
+    chunked scan goes to the kernel's wrapper, here its plain version,
+    which counts its launches, refuses anything but a rank's local
+    tensors and records the (batch rows, heads) of each call."""
+
+    def __init__(self):
+        self.launches, self.shapes = 0, set()
+
+    def __call__(self, x, dt, a, Bm, Cm, *, chunk, h0=None):
+        assert not isinstance(x, DTensor), "the kernel takes local tensors"
+        assert x.stride(3) == 1 and Bm.stride(2) == 1 and Cm.stride(2) == 1
+        self.launches += 1
+        self.shapes.add((x.shape[0], x.shape[1]))
+        return ssd_ref(x, dt, a, Bm, Cm, h0)
+
+    def __enter__(self):
+        self.saved = SK.ssd_forward_call, blocks._uses_ssd_kernel
+        SK.ssd_forward_call = self
+        blocks._uses_ssd_kernel = lambda x: True
+        return self
+
+    def __exit__(self, *exc):
+        SK.ssd_forward_call, blocks._uses_ssd_kernel = self.saved
+
+
+STAND_INS = {"flash": KernelStandIn, "rglru": RGLRUStandIn,
+             "ssd": SSDStandIn}
+
+
 def run_case(case, mesh, workdir):
-    """(outputs, per step collectives) of one case on ``mesh``; a "flash"
-    or "rglru" case with that kernel route's stand-in, its launches (and
-    the RG-LRU scans' local shapes) in the outputs."""
-    if case.get("flash"):
-        with KernelStandIn() as kernel:
-            out, colls = _run_case(case, mesh, workdir)
-        return {**out, "launches": np.asarray(kernel.launches)}, colls
-    if case.get("rglru"):
-        with RGLRUStandIn() as kernel:
-            out, colls = _run_case(case, mesh, workdir)
-        return {**out, "launches": np.asarray(kernel.launches),
-                "scan_shapes": np.asarray(sorted(kernel.shapes))}, colls
-    return _run_case(case, mesh, workdir)
+    """(outputs, per step collectives) of one case on ``mesh``; a "flash",
+    "rglru" or "ssd" case with that kernel route's stand-in, its launches
+    (and the RG-LRU and SSD scans' local shapes) in the outputs."""
+    route = next((k for k in STAND_INS if case.get(k)), None)
+    if route is None:
+        return _run_case(case, mesh, workdir)
+    with STAND_INS[route]() as kernel:
+        out, colls = _run_case(case, mesh, workdir)
+    out["launches"] = np.asarray(kernel.launches)
+    if route != "flash":
+        out["scan_shapes"] = np.asarray(sorted(kernel.shapes))
+    return out, colls
 
 
 def _run_case(case, mesh, workdir):
