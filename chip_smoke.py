@@ -63,10 +63,11 @@ Phases, each printing its lines; no phase's failure is caught:
               mamba2-1.3b's full width (bf16, batch 8 x 2048, 2
               microbatches, 3 steps; B6's count must equal 48 x 2 x 2 a
               step: forward and remat rerun); (c) the SEAFL cohort trainer
-              (launch/train.build_lm_fl) at full width to 2 aggregations of
-              K = 2 models of P = 1.344e9 (B1/B2 once per aggregation, B6 as
-              reckoned from the SGD steps and evaluations), then B1/B2 timed
-              at that P; (d) the f32 smoke configs of mamba2-1.3b,
+              (launch/train.build_lm_fl) at published widths cut to 12
+              layers (CUT_LAYERS) to 2 aggregations of K = 2 models of P =
+              4.13e8 (B1/B2 once per aggregation, B6 as reckoned from the
+              SGD steps and evaluations), then B1/B2 timed at that P; (d)
+              the f32 smoke configs of mamba2-1.3b,
               recurrentgemma-2b and phi4-mini-3.8b train 3 rounds on the
               card and on the CPU from one set of weights and must agree
   8. uplink   (e) the uplink codecs and the checkpointer at mamba2-1.3b's
@@ -92,11 +93,11 @@ Phases, each printing its lines; no phase's failure is caught:
               delta counts, cache hits, edge merges and B1/B2/B6 launches
               as reckoned, with round walls, resident state, peak memory
               and the device's idle share
- 10. health   (g) run health and per-device tuning at mamba2-1.3b's full
-              width: ServerTuning.build("sweep") at K = 2, P = 1.344e9
-              into a temporary cache (each block_p candidate's time, the
-              plain twin's, the prediction, the winner); B2 bit-identical
-              and B1's |d|^2, |g|^2 and row cosine within 1e-6 at every
+ 10. health   (g) run health and per-device tuning at the cohort trainer's
+              shape (mamba2-1.3b at CUT_LAYERS): ServerTuning.build("sweep")
+              at K = 2, P = 4.13e8 into a temporary cache (each block_p
+              candidate's time, the plain twin's, the prediction, the
+              winner); B2 bit-identical and B1's |d|^2, |g|^2 and row cosine within 1e-6 at every
               candidate grid; sweep_codec
               (topk:0.01) over four chunk sizes; then the cohort trainer
               as in phase c with the monitor, an SLO, kernel timing and
@@ -160,21 +161,25 @@ Phases, each printing its lines; no phase's failure is caught:
               of qwen3-32b's and granite-34b's 16 x 16 prefill_32k shards
               through the route's local body, against its plain version,
               with its bound and SDPA's ms ([shards] lines)
- 17. families (n) the vlm, encdec, hybrid and ssm families on DTensor
-              shards: internvl2-1b's, whisper-tiny's, recurrentgemma-2b's
-              and mamba2-1.3b's train_4k, prefill_32k and decode_32k cells
-              at published widths, batch cut as phase l's (8, 1, 4), on the
-              (1, 1) cuda mesh, on plain tensors and then on DTensor
-              arguments from one seed, bit-equal (B4, B5 and B6 launched as
-              the block kinds reckon: recurrentgemma-2b's 8 local-attention
-              and 18 rec layers, B5 54 a train step, 18 a prefill;
-              mamba2-1.3b's 48 ssd layers, B6 48 x 2 x 2 = 192 a train step
-              of 2 microbatches, 48 a prefill; none in decode), the two
-              runs' times and ratio; B5 and B6 at the local shapes of a 16
-              x 16 prefill_32k shard, recurrentgemma-2b's (2, 32768, 160)
-              f32 and mamba2-1.3b's (2, 32768, 4 heads of 64, B/C 128) f32
-              with h0, through the routes' local bodies, against their
-              plain versions, with their bounds ([families] lines)
+ 17. families (n) the vlm, encdec, hybrid, ssm and moe families on DTensor
+              shards: internvl2-1b's, whisper-tiny's, recurrentgemma-2b's,
+              mamba2-1.3b's and mixtral-8x22b's train_4k, prefill_32k and
+              decode_32k cells at published widths, batch cut as phase l's
+              (8, 1, 4), mixtral's depth cut as phase j's (2 of 56 layers
+              for train, 8 for prefill and decode), on the (1, 1) cuda
+              mesh, on plain tensors and then on DTensor arguments from one
+              seed, bit-equal (B4, B5 and B6 launched as the block kinds
+              reckon: recurrentgemma-2b's 8 local-attention and 18 rec
+              layers, B5 54 a train step, 18 a prefill; mamba2-1.3b's 48
+              ssd layers, B6 48 x 2 x 2 = 192 a train step of 2
+              microbatches, 48 a prefill; mixtral's B4 2 x 2 x 8 = 32 a
+              train step, 8 a prefill; none in decode), the two runs' times
+              and ratio; B5, B6 and B4 at the local shapes of a 16 x 16
+              prefill_32k shard, recurrentgemma-2b's (2, 32768, 160) f32,
+              mamba2-1.3b's (2, 32768, 4 heads of 64, B/C 128) f32 with h0
+              and mixtral's (2, 32768, 3 heads of 128) bf16, window 4096,
+              through the routes' local bodies, against their plain
+              versions, with their bounds ([families] lines)
  18. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance, the bf16 row with whisper's two shapes,
               mixtral's, deepseek's, phi4-mini's and the two shards', and
@@ -184,6 +189,9 @@ Phases, each printing its lines; no phase's failure is caught:
               downlink, health, vlm, encdec, moe, mla, dist, shards and
               families launches), the nvidia-smi line, and last the
               contract line {"ok": true, "device": {...}}
+
+Each phase's time is printed as it ends ([time] lines), and all of them
+with the script's total before the result.
 
 With --ssd-precision it runs phases 1 and 2 and then only the probe of
 why the SSD forward multiplies in 3xTF32 (phase_ssd_precision), printing
@@ -599,7 +607,9 @@ RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
 # causal attention, at its prefill_32k row and its train_4k step (8 x 4096)
 FAMILY_B4 = {"internvl2-1b": (*VLM_HEADS, 64, None),
              "whisper-tiny": (WHISPER["H"], WHISPER["H"], WHISPER["D"], None),
-             "recurrentgemma-2b": (RG["H"], RG["KVH"], RG["D"], RG["window"])}
+             "recurrentgemma-2b": (RG["H"], RG["KVH"], RG["D"], RG["window"]),
+             "mixtral-8x22b": (MIXTRAL["H"], MIXTRAL["KVH"], MIXTRAL["D"],
+                               MIXTRAL["window"])}
 CELL_ROWS = ((1, PHI4["prompt"]), PHI4["train"])
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 # B6's rows of phase n: its prefill_32k row and its train_4k microbatch (8
@@ -1847,8 +1857,9 @@ def _count_batches(clients):
 
 def _train_cohort_full(torch, arch="mamba2-1.3b", seq_len=COHORT["seq_len"]):
     """c. The SEAFL cohort trainer (launch/train.py:build_lm_fl) at
-    ``arch``'s full width (mamba2-1.3b: P = 1.344e9), run to 2
-    aggregations of K = 2 cohort models.  Each round runs under a CUDA-only
+    ``arch``'s full width (a name; or a config, such as mamba2-1.3b cut to
+    ``CUT_LAYERS``, P = 413,478,144), run to 2 aggregations of K = 2
+    cohort models.  Each round runs under a CUDA-only
     profiler (its wall includes the profiler's cost).  B1/B2 launch once
     per aggregation; each LM kernel (B6 for mamba2-1.3b, B4 on its
     tensor-core instance for internvl2-1b) once per layer in each forward:
@@ -1865,7 +1876,9 @@ def _train_cohort_full(torch, arch="mamba2-1.3b", seq_len=COHORT["seq_len"]):
     model, server, clients, eval_fn = build_lm_fl(
         arch, smoke=False, device="cuda", **dict(COHORT, seq_len=seq_len))
     P = server.packer.size
-    log(f"[train] cohort trainer {arch}: P={P}, "
+    cfg = model.cfg
+    arch = cfg.name
+    log(f"[train] cohort trainer {arch} at {cfg.n_layers} layers: P={P}, "
         f"K={server.buffer.capacity}, built in "
         f"{time.perf_counter() - t0:.2f} s")
     steps = _count_batches(clients)
@@ -1901,7 +1914,6 @@ def _train_cohort_full(torch, arch="mamba2-1.3b", seq_len=COHORT["seq_len"]):
     launched = {n: fn.launches for n, fn in _lm_kernels().items()}
     tc = FK.flash_attention_call.launches_tc
     evals = sum("acc" in h for h in sim.history)
-    cfg = model.cfg
     want = _trainer_launches(cfg, steps[0], evals)
     if server.total_aggregations != COHORT_ROUNDS or server.round != \
             COHORT_ROUNDS or server.buffer.capacity != 2:
@@ -2025,13 +2037,18 @@ def _train_card_vs_cpu(torch, archs=("mamba2-1.3b", "recurrentgemma-2b",
 def phase_train(torch):
     """The LM training path: a. gradient parity of B4-B6, b.
     make_train_step at mamba2-1.3b's full width, c. the SEAFL cohort
-    trainer at full width, d. card against CPU on three f32 smoke
-    configs."""
+    trainer at published widths and ``CUT_LAYERS``, d. card against CPU on
+    three f32 smoke configs."""
     t0 = time.perf_counter()
     errs = _train_grad_parity(torch)
     step = _train_step_full(torch)
     torch.cuda.empty_cache()
-    cohort = _train_cohort_full(torch)
+    t_c = time.perf_counter()
+    cohort = _train_cohort_full(torch, _cut_mamba2())
+    if cohort["P"] != P_CUT:
+        raise AssertionError(f"cohort P = {cohort['P']}, expected {P_CUT}")
+    log(f"[train] c. cohort trainer at {CUT_LAYERS} layers took "
+        f"{time.perf_counter() - t_c:.1f} s")
     smoke = _train_card_vs_cpu(torch)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
     return errs, step, cohort, smoke
@@ -2513,10 +2530,10 @@ SWEPT = ("seafl_aggregate_flat_from_params", "weighted_aggregate")
 
 def _health_sweep(torch):
     """(i) ServerTuning.build('sweep') at the cohort trainer's shape (K = 2
-    f32 rows of mamba2-1.3b's P) into the user cache under $XDG_CACHE_HOME
-    (a temporary directory here): each swept entry's candidates, twin and
-    prediction.  Then B1 and B2 at every candidate grid against the default
-    grid on one seeded (K, P) buffer: B2 bit-identical, B1's |d|^2, |g|^2
+    f32 rows of mamba2-1.3b's P at ``CUT_LAYERS``) into the user cache
+    under $XDG_CACHE_HOME (a temporary directory here): each swept entry's
+    candidates, twin and prediction.  Then B1 and B2 at every candidate
+    grid against the default grid on one seeded (K, P) buffer: B2 bit-identical, B1's |d|^2, |g|^2
     and row cosine within 1e-6 of the default grid's (autotune.
     partials_drift; d.g's plain relative change printed), and the fused
     aggregate's weights and new global within 1e-6 of the default grid's.
@@ -2530,20 +2547,20 @@ def _health_sweep(torch):
     )
     t0 = time.perf_counter()
     tuning = ServerTuning.build(
-        "sweep", p=P_MAMBA2, k=2, dtype=torch.float32, scheme="f32",
+        "sweep", p=P_CUT, k=2, dtype=torch.float32, scheme="f32",
         algorithm="seafl", chunk_elems=1 << 16, flush_chunks=16,
         device="cuda")
     sweep_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     table, agg = tuning.table, {}
     for entry in SWEPT:
-        r = table.get(make_key("agg", entry, "float32", None, P_MAMBA2, 2,
+        r = table.get(make_key("agg", entry, "float32", None, P_CUT, 2,
                                device=table.device))
         agg[entry] = r
         if r is None or r["use_oracle"] or not all(
                 math.isfinite(v) for v in r["candidates_us"].values()):
             raise AssertionError(f"sweep of {entry}: {r}")
-        log(f"[health] sweep {entry} K=2 P={P_MAMBA2} f32: candidates_us "
+        log(f"[health] sweep {entry} K=2 P={P_CUT} f32: candidates_us "
             f"{r['candidates_us']}, oracle_us {r['oracle_us']} "
             f"(oracle_faster {r['oracle_faster']}), predicted_us "
             f"{r['predicted_us']}, measured_vs_predicted "
@@ -2553,7 +2570,7 @@ def _health_sweep(torch):
     log(f"[health] sweep took {sweep_s:.1f} s (agg, codec f32, ingest); "
         f"{json.dumps(rest)}")
 
-    w, g, wts = _inputs(torch, 2, P_MAMBA2, torch.float32, torch.float32,
+    w, g, wts = _inputs(torch, 2, P_CUT, torch.float32, torch.float32,
                         seed=300)
     sizes, stale = np.array([8.0, 8.0], np.float32), np.array([0.0, 1.0],
                                                               np.float32)
@@ -2588,10 +2605,10 @@ def _health_sweep(torch):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    codec = sweep_codec(HEALTH_CODEC, P_MAMBA2, device="cuda", reps=1)
+    codec = sweep_codec(HEALTH_CODEC, P_CUT, device="cuda", reps=1)
     codec_s = time.perf_counter() - t0
-    chunks = {ce: -(-P_MAMBA2 // int(ce)) for ce in codec["candidates_us"]}
-    log(f"[health] sweep_codec {HEALTH_CODEC} P={P_MAMBA2} (encode + "
+    chunks = {ce: -(-P_CUT // int(ce)) for ce in codec["candidates_us"]}
+    log(f"[health] sweep_codec {HEALTH_CODEC} P={P_CUT} (encode + "
         f"decode round trip, 1 rep): " + ", ".join(
             f"{ce} elems x {chunks[ce]} chunks {us / 1e6:.3f} s"
             for ce, us in codec["candidates_us"].items())
@@ -2606,7 +2623,8 @@ def _health_sweep(torch):
 
 
 def _health_cohort_full(torch, tmp, phase_c_walls):
-    """(ii) The cohort trainer as in phase c with the monitor, an SLO,
+    """(ii) The cohort trainer as in phase c (``CUT_LAYERS``) with the
+    monitor, an SLO,
     kernel timing and the tuning swept in (i): 2 aggregations, the JSONL
     log and the trace written under ``tmp``, then the HTML report.
     Reckoned: both in-flight uploads aggregate and are re-dispatched at the
@@ -2621,7 +2639,7 @@ def _health_cohort_full(torch, tmp, phase_c_walls):
     from repro_torch.runtime import codecs
     from repro_torch.runtime.simulator import FLSimulation, SimConfig
     model, server, clients, eval_fn = build_lm_fl(
-        "mamba2-1.3b", smoke=False, device="cuda", monitor="on",
+        _cut_mamba2(), device="cuda", monitor="on",
         slo=HEALTH_SLO, telemetry_kernels=True, autotune="cache", **COHORT)
     steps = _count_batches(clients)
     sim = FLSimulation(server, clients, SimConfig(seed=0), eval_fn=eval_fn)
@@ -2662,9 +2680,9 @@ def _health_cohort_full(torch, tmp, phase_c_walls):
         raise AssertionError(f"{server.total_aggregations} aggregations; "
                              f"mem_* equal to resident_state_bytes {mem_ok}")
     mems = [h["mem_server_array_bytes"] for h in sim.history]
-    if any(m != 12 * P_MAMBA2 for m in mems):
+    if any(m != 12 * P_CUT for m in mems):
         raise AssertionError(f"mem_server_array_bytes {mems}, reckoned "
-                             f"12 P = {12 * P_MAMBA2}")
+                             f"12 P = {12 * P_CUT}")
     n_timed = timed.get("kernel.seafl_aggregate_flat_from_params_us")
     if not (n_timed == seafl["sim_partials_from_params"]
             == seafl["weighted_agg"] == HEALTH_ROUNDS):
@@ -2753,11 +2771,12 @@ def _health_slo_card_vs_cpu(torch):
 
 
 def phase_health(torch, phase_c_walls):
-    """g. Run health and per-device tuning at full width: the sweep and the
-    grid's numerics, the cohort trainer with the monitor, an SLO, kernel
-    timing and the cached tuning, its HTML report, and the SLO stop card
-    against CPU.  The tuning cache, log, trace and report live in a
-    temporary directory, removed at the end."""
+    """g. Run health and per-device tuning at the cohort trainer's shape
+    (mamba2-1.3b at ``CUT_LAYERS``): the sweep and the grid's numerics,
+    the cohort trainer with the monitor, an SLO, kernel timing and the
+    cached tuning, its HTML report, and the SLO stop card against CPU.
+    The tuning cache, log, trace and report live in a temporary directory,
+    removed at the end."""
     import shutil
     import tempfile
     t0 = time.perf_counter()
@@ -3669,7 +3688,8 @@ def _lm_launches():
 
 def _cell_runs(torch, mesh, arch, name, dtensor):
     """One of ``arch``'s cells at its published widths and sequence length,
-    its batch cut to DIST_CUTS', on the (1, 1) cuda mesh from DIST_SEED,
+    its batch cut to DIST_CUTS' (and its depth to CELL_LAYERS', where one
+    card cannot hold it), on the (1, 1) cuda mesh from DIST_SEED,
     on DTensor arguments (materialize's own) or on their local tensors: a
     train step and one more from its state, a prefill three times,
     DIST_DECODE_STEPS decode steps.  B4's, B5's and B6's launches are
@@ -3678,12 +3698,14 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
     ``_per_forward`` in a prefill; none in decode), all of B4's on its
     tensor-core instance.  Returns the first run's outputs on the host and
     dict(ms: the warm runs' median, walls_ms, b4_per_run, b5_per_run,
-    b6_per_run, runs)."""
+    b6_per_run, runs, layers, of_layers)."""
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import SHAPES, ShapeConfig, get_config
     from repro_torch.launch import specs as SP
     from repro_torch.tree import tree_map
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full.replace(n_layers=CELL_LAYERS.get(arch, {}).get(
+        name, full.n_layers))
     pub = SHAPES[name]
     shape = ShapeConfig(name, pub.seq_len, DIST_CUTS[name], pub.kind)
     cell = SP.build_cell(cfg, shape, mesh)
@@ -3754,7 +3776,8 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
             "a run")
     torch.cuda.empty_cache()
     return first, dict(batch=shape.global_batch, of=pub.global_batch,
-                       seq=shape.seq_len,
+                       seq=shape.seq_len, layers=cfg.n_layers,
+                       of_layers=full.n_layers,
                        ms=sorted(walls)[len(walls) // 2] * 1e3,
                        walls_ms=[w * 1e3 for w in walls], b4_per_run=b4,
                        b5_per_run=b5, b6_per_run=b6, runs=runs)
@@ -3788,55 +3811,71 @@ def _shard_cell(torch, mesh, name, first, plain):
                 walls_ms=run["walls_ms"])
 
 
-def _shard_b4(torch, arch):
-    """m (ii). B4 at one 16 x 16 shard's local problem (``SHARD_B4``),
+def _shard_b4(torch, arch, shape=None, window=None, tag="shards"):
+    """m (ii), n (iv). B4 at one 16 x 16 shard's local problem
+    (``SHARD_B4``'s, or ``shape``, causal, within ``window`` if given),
     through the kernel route's body on a rank's local heads
     (``layers._flash_grouped``, what ``local_map`` hands each rank's
     shards): against its plain version within one bf16 step (phase 3's
-    bar), its ms, its bound and SDPA's (flash backend, k/v expanded)."""
+    bar), its ms, its bound and SDPA's (flash backend, k/v expanded; with
+    a window, the memory-efficient one with the band mask, as phase 4
+    times mixtral's)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.models import layers as L
     F = torch.nn.functional
-    B, S, KVH, G, D = SHARD_B4[arch]
+    B, S, KVH, G, D = shape or SHARD_B4[arch]
     H = KVH * G
     q, k, v = _flash_inputs(torch, B, S, S, H, KVH, D, torch.bfloat16,
                             70 + len(arch))
     qg = q.reshape(B, S, KVH, G, D)
     FK.reset_launch_counts()
     with torch.no_grad():
-        o = L._flash_grouped(qg, k, v, True, None, 512).reshape(B, S, H, D)
+        o = L._flash_grouped(qg, k, v, True, window, 512).reshape(B, S, H,
+                                                                  D)
         want, plain_s = _sync_s(torch, lambda: _flash_plain(q, k, v, True,
-                                                            None))
+                                                            window))
     if FK.flash_attention_call.launches_tc != 1:
         raise AssertionError(f"{arch}'s shard: B4 did not run on tc")
     err = _max_err(torch, o, want, rtol=2 ** -7, atol=1e-5)
     del o, want
     qt = q.transpose(1, 2)
     kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1) for t in (k, v))
+    band = None if window is None else _band_mask(torch, S, window)
+    backend = "flash" if window is None else "efficient"
 
-    def sdpa_flash():
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    def sdpa():
+        if band is None:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
 
     with torch.no_grad():
-        ms = _time_ms(torch, lambda: L._flash_grouped(qg, k, v, True, None,
+        ms = _time_ms(torch, lambda: L._flash_grouped(qg, k, v, True, window,
                                                       512), iters=10,
                       warmup=2)
-    lib = _time_ms(torch, sdpa_flash, iters=5, warmup=1)
+    lib = _time_ms(torch, sdpa, iters=5, warmup=1)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    flops = 4 * D * (S * (S + 1) // 2) * B * H
+    # the (query, key) pairs the mask keeps: causal, within the window
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
+    flops = 4 * D * pairs * B * H
     bound, by = _bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-    log(f"[shards] B4 at {arch}'s 16 x 16 prefill_32k shard, q ({B}, {S}, "
-        f"{H}, {D}), k/v ({B}, {S}, {KVH}, {D}), causal, bf16 (tc), through "
-        f"the route's local body: max|d| {err:.3e} against the plain version"
-        f" (one bf16 step); kernel_ms={ms:.4f} bound_ms={bound:.4f} ({by}, "
-        f"{flops:.4g} flop) library_ms={lib:.4f} (SDPA, flash) "
-        f"plain_s={plain_s:.2f} bound/kernel={bound / ms:.4f}")
-    del q, k, v, qg, qt, kt, vt
+    log(f"[{tag}] B4 at {arch}'s 16 x 16 prefill_32k shard, q ({B}, {S}, "
+        f"{H}, {D}), k/v ({B}, {S}, {KVH}, {D}), causal"
+        f"{'' if window is None else f', window {window}'}, bf16 (tc), "
+        f"through the route's local body: max|d| {err:.3e} against the "
+        f"plain version (one bf16 step); kernel_ms={ms:.4f} "
+        f"bound_ms={bound:.4f} ({by}, {flops:.4g} flop) library_ms="
+        f"{lib:.4f} (SDPA, {backend}) plain_s={plain_s:.2f} "
+        f"bound/kernel={bound / ms:.4f}")
+    del q, k, v, qg, qt, kt, vt, band
     torch.cuda.empty_cache()
-    return dict(q=[B, S, H, D], kv=[B, S, KVH, D], max_abs_err=err, ms=ms,
-                bound_ms=bound, bound_by=by, library_ms=lib,
+    return dict(q=[B, S, H, D], kv=[B, S, KVH, D], window=window,
+                max_abs_err=err, ms=ms, bound_ms=bound, bound_by=by,
+                library_ms=lib, library=f"SDPA, {backend}",
                 plain_ms=plain_s * 1e3)
 
 
@@ -3863,10 +3902,16 @@ def phase_shards(torch, firsts, dist):
                     c["b4_launches"] for c in cells.values())})
 
 
-# ------ phase n: the vlm, encdec, hybrid and ssm families on DTensor shards
+# -- phase n: the vlm, encdec, hybrid, ssm and moe families on DTensor shards
 
 FAMILIES = ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b",
-            "mamba2-1.3b")
+            "mamba2-1.3b", MOE)
+# the depth of a cell whose published depth one card cannot hold:
+# mixtral-8x22b's, phase j's (its 8 layers of bf16 weights are 41 GB; the
+# 2-layer train step's f32 gradient sum beside them, ~54 GB at its peak)
+CELL_LAYERS = {MOE: {"train_4k": MOE_TRAIN_LAYERS,
+                     "prefill_32k": MOE_SERVE_LAYERS,
+                     "decode_32k": MOE_SERVE_LAYERS}}
 # B5's local problem on recurrentgemma-2b's 16 x 16 prefill_32k shard: the
 # batch of 32 over 16 "batch" shards, 32768 positions, the 2560 channels
 # over 16 "tensor" shards; (B, S, C) f32
@@ -3874,6 +3919,9 @@ SHARD_B5 = (2, 32768, 160)
 # B6's on mamba2-1.3b's: the batch of 32 over 16, 32768 positions, the 64
 # heads over 16; (B, S, NH, hd) f32 with B and C (B, S, ds) whole
 SHARD_B6 = (2, 32768, MB["NH"] // 16, MB["hd"])
+# B4's on mixtral-8x22b's ("repeat_kv": its 48 query heads, and the 8 kv
+# heads repeated to 48, over 16): (B, S, KVH, G, D), window 4096
+SHARD_B4_MOE = (2, 32768, MIXTRAL["H"] // 16, 1, MIXTRAL["D"])
 
 
 def _family_cell(torch, mesh, arch, name):
@@ -3888,14 +3936,16 @@ def _family_cell(torch, mesh, arch, name):
                              "differ from the plain tensors'")
     ms, b4, b5, b6 = (run["ms"], run["b4_per_run"], run["b5_per_run"],
                       run["b6_per_run"])
+    depth = ("" if run["layers"] == run["of_layers"] else
+             f", depth {run['layers']} of {run['of_layers']} layers")
     log(f"[families] {arch} {name} cut to batch {run['batch']} (of "
-        f"{run['of']}), seq {run['seq']}, on the (1, 1) mesh: "
+        f"{run['of']}){depth}, seq {run['seq']}, on the (1, 1) mesh: "
         f"{'step' if name != 'decode_32k' else 'decode step'} on DTensor "
         f"arguments {ms:.2f} ms, on plain tensors {plain['ms']:.2f} ms "
         f"(ratio {ms / plain['ms']:.4f}; warm, median); B4 {b4} a run (all "
         f"tc), B5 {b5} a run, B6 {b6} a run; the outputs equal bit for bit")
-    return dict(batch=run["batch"], of=run["of"], seq=run["seq"], ms=ms,
-                plain_tensor_ms=plain["ms"], ratio=ms / plain["ms"],
+    return dict(batch=run["batch"], of=run["of"], seq=run["seq"],
+                layers=run["layers"], ms=ms, plain_tensor_ms=plain["ms"], ratio=ms / plain["ms"],
                 b4_per_run=b4, b5_per_run=b5, b6_per_run=b6,
                 b4_launches=2 * b4 * run["runs"],
                 b5_launches=2 * b5 * run["runs"],
@@ -3999,13 +4049,15 @@ def _shard_b6(torch):
 
 
 def phase_families(torch):
-    """n. The vlm, encdec, hybrid and ssm families' LM step on DTensor
+    """n. The vlm, encdec, hybrid, ssm and moe families' LM step on DTensor
     shards, on the card: (i) the train_4k, prefill_32k and decode_32k
-    cells of internvl2-1b, whisper-tiny, recurrentgemma-2b and
-    mamba2-1.3b at their published widths, batch cut, on the (1, 1) cuda
-    mesh, on plain tensors and then on DTensor arguments from one seed,
-    bit-equal (``_family_cell``); (ii) B5 and (iii) B6 at a 16 x 16
-    shard's local shape (``_shard_b5``, ``_shard_b6``)."""
+    cells of internvl2-1b, whisper-tiny, recurrentgemma-2b, mamba2-1.3b
+    and mixtral-8x22b at their published widths, batch cut (mixtral's
+    depth too, ``CELL_LAYERS``), on the (1, 1) cuda mesh, on plain tensors
+    and then on DTensor arguments from one seed, bit-equal
+    (``_family_cell``); (ii) B5, (iii) B6 and (iv) B4 at a 16 x 16 shard's
+    local shape (``_shard_b5``, ``_shard_b6``, ``_shard_b4`` at
+    mixtral's)."""
     from repro_torch.launch.mesh import local_process_group, make_mesh
     t0 = time.perf_counter()
     cells = {}
@@ -4017,9 +4069,10 @@ def phase_families(torch):
                                                        name)
     b5 = _shard_b5(torch)
     b6 = _shard_b6(torch)
+    b4 = _shard_b4(torch, MOE, SHARD_B4_MOE, MIXTRAL["window"], "families")
     took = time.perf_counter() - t0
     log(f"[families] phase took {took:.1f} s")
-    return dict(cells=cells, b5=b5, b6=b6, phase_s=took, lm_launches={
+    return dict(cells=cells, b4=b4, b5=b5, b6=b6, phase_s=took, lm_launches={
         "flash_attention": sum(c["b4_launches"] for c in cells.values()),
         "rglru_scan": sum(c["b5_launches"] for c in cells.values()),
         "ssd_forward": sum(c["b6_launches"] for c in cells.values())})
@@ -4067,6 +4120,15 @@ def phase_lm_cost(torch):
 
 # ------------------------------------------------------------------ main
 
+def _timed(times, name, fn, *args):
+    """``fn(*args)``, its wall time printed and kept in ``times``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    times[name] = time.perf_counter() - t0
+    log(f"[time] phase {name} took {times[name]:.1f} s")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--ssd-precision"], ["--probe"],
                             ["--lm-cost"], ["--dist"], ["--shards"]):
@@ -4080,8 +4142,9 @@ def main() -> int:
     from repro_torch.device import set_f32_numerics
     set_f32_numerics()
 
-    name, smi = phase_device(torch)
-    phase_build()
+    t_start, times = time.perf_counter(), {}
+    name, smi = _timed(times, "device", phase_device, torch)
+    _timed(times, "build", phase_build)
     if sys.argv[1:] == ["--ssd-precision"]:
         phase_ssd_precision(torch)
         return 0
@@ -4100,24 +4163,26 @@ def main() -> int:
             families = phase_families(torch)
             log(f"[families] summary: {json.dumps(families)}")
         return 0
-    errs = phase_parity(torch)
-    errs.update(phase_parity_lm(torch))
-    timing = phase_timing(torch)
-    lm_timing = phase_timing_lm(torch)
-    launches, walls, peak = phase_e2e(torch)
-    lm_launches, serving = phase_serve(torch)
-    phase_card_vs_cpu(torch)
-    grad_errs, train_step, cohort, smoke_launches = phase_train(torch)
-    uplink = phase_uplink(torch)
-    downlink = phase_downlink(torch)
-    health = phase_health(torch, [r["wall_s"] for r in cohort["rounds"]])
-    vlm = phase_vlm(torch)
-    encdec = phase_encdec(torch)
-    moe = phase_moe(torch)
-    mla = phase_mla(torch)
-    firsts, dist = phase_dist(torch)
-    shards = phase_shards(torch, firsts, dist)
-    families = phase_families(torch)
+    errs = _timed(times, "parity", phase_parity, torch)
+    errs.update(_timed(times, "parity_lm", phase_parity_lm, torch))
+    timing = _timed(times, "timing", phase_timing, torch)
+    lm_timing = _timed(times, "timing_lm", phase_timing_lm, torch)
+    launches, walls, peak = _timed(times, "e2e", phase_e2e, torch)
+    lm_launches, serving = _timed(times, "serve", phase_serve, torch)
+    _timed(times, "card_vs_cpu", phase_card_vs_cpu, torch)
+    grad_errs, train_step, cohort, smoke_launches = _timed(
+        times, "train", phase_train, torch)
+    uplink = _timed(times, "uplink", phase_uplink, torch)
+    downlink = _timed(times, "downlink", phase_downlink, torch)
+    health = _timed(times, "health", phase_health, torch,
+                    [r["wall_s"] for r in cohort["rounds"]])
+    vlm = _timed(times, "vlm", phase_vlm, torch)
+    encdec = _timed(times, "encdec", phase_encdec, torch)
+    moe = _timed(times, "moe", phase_moe, torch)
+    mla = _timed(times, "mla", phase_mla, torch)
+    firsts, dist = _timed(times, "dist", phase_dist, torch)
+    shards = _timed(times, "shards", phase_shards, torch, firsts, dist)
+    families = _timed(times, "families", phase_families, torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -4244,7 +4309,7 @@ def main() -> int:
                                      f"{PHI4['prompt']}"],
                     train_max_abs_err=errs["flash_attention_phi4_{}x{}"
                                            .format(*PHI4["train"])]),
-                "shard_shapes": shards["b4"],
+                "shard_shapes": dict(shards["b4"], **{MOE: families["b4"]}),
                 "family_shapes_max_abs_err": {
                     k[16:]: v for k, v in errs.items()
                     if k.startswith("flash_attention_")
@@ -4275,6 +4340,8 @@ def main() -> int:
     log(f"[dist] summary: {json.dumps(dist)}")
     log(f"[shards] summary: {json.dumps(shards)}")
     log(f"[families] summary: {json.dumps(families)}")
+    log(f"[time] phases (s): {json.dumps(times)}; the script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

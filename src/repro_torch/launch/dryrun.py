@@ -18,11 +18,11 @@ cell it records:
     plain path's;
   * ``collectives``: per kind count and bytes.  The SEAFL aggregation
     cells and the LM cells of the dense, vlm, encdec, hybrid and ssm
-    families (``specs.on_shards``) run on DTensors with meta local shards
-    and record the collectives they dispatch.  The moe family's LM steps
-    run on whole tensors (its blocks do not run on shards yet), so on a
-    mesh of more than one device their collectives are not known:
-    ``null``, with the reason;
+    families and of mixtral-8x22b (``specs.on_shards``) run on DTensors
+    with meta local shards and record the collectives they dispatch.
+    deepseek-v2-lite-16b's LM steps run on whole tensors (its ``mla_moe``
+    block does not run on shards yet), so on a mesh of more than one
+    device their collectives are not known: ``null``, with the reason;
   * ``trace_seconds``, the counterpart of ``lower_seconds`` and
     ``compile_seconds``.
 
@@ -129,9 +129,9 @@ def run_cell(cell, mesh_shape, trace) -> dict:
     if not on_shards(cell) and n > 1:
         rec["collectives"] = None
         rec["collectives_null_reason"] = (
-            f"the {cell.cfg.family} family's LM step runs on whole tensors, "
-            "not on shards (its blocks do not take DTensors yet), so the "
-            "collectives a sharded step needs are not known yet")
+            f"the {cell.cfg.family} family's {cell.cfg.name} LM step runs on "
+            "whole tensors, not on shards (its blocks do not take DTensors "
+            "yet), so the collectives a sharded step needs are not known yet")
     else:
         rec["collectives"] = collectives_record(cost)
     return rec

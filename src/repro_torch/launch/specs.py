@@ -10,9 +10,10 @@ never allocated.  :func:`materialize` makes seeded real arguments for a cell
 and :func:`run_cell` runs it.
 
 The SEAFL aggregation cell and the LM cells of the dense, vlm, encdec,
-hybrid and ssm families run on DTensors (:func:`on_shards`: every block
-kind of theirs takes shards), on any mesh.  The moe family's LM steps do
-not run on shards yet: on a mesh of more than one device their cells are
+hybrid and ssm families and of mixtral-8x22b (the moe family's
+``attn_moe``) run on DTensors (:func:`on_shards`: every block kind of
+theirs takes shards), on any mesh.  deepseek-v2-lite-16b's (``mla_moe``)
+do not run on shards yet: on a mesh of more than one device its cells are
 traced on whole tensors (their per-device bytes come from the placements)
 and :func:`run_cell` refuses them.
 
@@ -440,15 +441,16 @@ def materialize(cell: CellSpec, device, seed: int = 0, *, pos=None,
 
 
 # the block kinds whose layers take DTensor shards
-SHARDED_BLOCKS = frozenset({"attn_mlp", "attn", "rec", "ssd"})
+SHARDED_BLOCKS = frozenset({"attn_mlp", "attn", "rec", "ssd", "attn_moe"})
 
 
 def on_shards(cell) -> bool:
     """Whether ``cell`` runs on DTensor shards: the aggregation cells, and
     an LM cell whose scan groups hold only block kinds that run on shards
-    (``SHARDED_BLOCKS``: the dense, vlm, encdec, hybrid and ssm families).
-    The moe family's LM steps take whole tensors (its blocks do not run on
-    shards yet)."""
+    (``SHARDED_BLOCKS``: the dense, vlm, encdec, hybrid and ssm families,
+    and mixtral-8x22b's ``attn_moe``).  A cell whose groups hold
+    ``mla_moe`` (deepseek-v2-lite-16b) takes whole tensors (that block does
+    not run on shards yet)."""
     return cell.kind == "agg" or all(
         b in SHARDED_BLOCKS
         for pattern, _ in cell.cfg.scan_groups() for b in pattern)
@@ -522,7 +524,7 @@ def _materialize_agg(cell, params, gen, buffer):
 
 def run_cell(cell: CellSpec, args):
     """Run ``cell``'s step on ``args`` (from :func:`materialize`).  An LM
-    cell of the moe family (one not :func:`on_shards`), on a mesh of more
+    cell not :func:`on_shards` (deepseek-v2-lite-16b's), on a mesh of more
     than one device, raises: its step does not run on shards yet, and the
     unsharded step is never run in its place."""
     if not on_shards(cell) and cell.mesh.size() > 1:

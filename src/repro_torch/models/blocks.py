@@ -25,10 +25,12 @@ on CPU tensors ``rg_lru_scan`` runs the sequential recurrence and
 ``ssd_chunked`` the torch translation of the JAX model function.  These
 functions are the only place the model picks a route; on DTensors each
 rank takes it on its own shards (``local_map``): the RG-LRU scan on its
-channels, the SSD scan on its heads.  Both kernel routes have a
-gradient: the RG-LRU scan's is the reverse-time recurrence, run by
-the same kernel (:func:`rg_lru_scan_backward`); the SSD kernel's
-differentiates the torch translation, recomputed from the saved inputs.
+channels, the SSD scan on its heads (and the MoE block, which has no
+kernel, routes and dispatches each rank's own batch rows).  Both kernel
+routes have a gradient: the RG-LRU scan's is the reverse-time
+recurrence, run by the same kernel (:func:`rg_lru_scan_backward`); the
+SSD kernel's differentiates the torch translation, recomputed from the
+saved inputs.
 """
 from __future__ import annotations
 
@@ -159,13 +161,23 @@ def moe_capacity(cfg, S):
 
 def moe_route(xr, w, k):
     """The f32 router on ``xr``: (probs (B, S, E), gates (B, S, k)
-    renormalised to sum 1, expert ids (B, S, k)).  The top k come from a
-    stable descending sort, so of two equal probabilities the lower expert
-    id is taken first, as ``lax.top_k`` takes it."""
-    probs = torch.softmax(xr.to(torch.float32) @ w, dim=-1)
+    renormalised to sum 1, expert ids (B, S, k)) (:func:`_router_probs`,
+    :func:`_top_k`)."""
+    probs = _router_probs(xr, w)
+    return (probs, *_top_k(probs, k))
+
+
+def _router_probs(xr, w):
+    return torch.softmax(xr.to(torch.float32) @ w, dim=-1)
+
+
+def _top_k(probs, k):
+    """(gates renormalised to sum 1, expert ids) of the top ``k`` of
+    ``probs``, from a stable descending sort: of two equal probabilities
+    the lower expert id is taken first, as ``lax.top_k`` takes it."""
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = top.values[..., :k], top.indices[..., :k]
-    return probs, gates / torch.sum(gates, dim=-1, keepdim=True), idx
+    return gates / torch.sum(gates, dim=-1, keepdim=True), idx
 
 
 def moe_apply(p, x, cfg, dtype=None):
@@ -189,15 +201,47 @@ def moe_apply(p, x, cfg, dtype=None):
     router, the gathers and the shared MLP read it in
     (:func:`layers.fan_out`): the router widens that rounded value to f32,
     as XLA computes the reference's ``x.astype(float32)`` of the bf16 norm
-    output (tests/test_torch_moe.py traces it)."""
-    B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    Tk, C = S * k, moe_capacity(cfg, S)
+    output (tests/test_torch_moe.py traces it).  On DTensors each rank
+    routes and dispatches its own batch rows (:func:`_moe_on_local_rows`).
+    """
+    if isinstance(x, DTensor):
+        return _moe_on_local_rows(p, x, cfg, dtype)
     dtype = dtype or x.dtype
     xr, xd, *xs = L.fan_out(x, dtype, 3 if "shared" in p else 2)
-    dev = x.device
+    probs, gates, idx = moe_route(xr, p["router"]["w"], cfg.top_k)
+    out = _moe_dispatch(gates, idx, xd, p["experts"], cfg, dtype)
+    # load-balance aux loss (Switch-style): E * sum_e f_e * P_e.  Taken
+    # before the shared experts, so a checkpointed block's recompute stops
+    # at their down product (which saves its inputs) and does not run it:
+    # no gradient reads its output, and XLA's rematerialisation drops it
+    aux = _aux_loss(cfg, torch.mean(probs, dim=(0, 1)),
+                    _expert_counts(idx, cfg.n_experts))
+    if "shared" in p:
+        out = out + L.mlp_apply(p["shared"], xs[0], cfg)
+    return out, aux
 
-    probs, gates, idx = moe_route(xr, p["router"]["w"], k)
+
+def _expert_counts(idx, E):
+    """Each expert's mean count of pairs a token over ``idx`` (B, S, k)'s
+    rows and positions: (E,) f32."""
+    return torch.mean(torch.sum(F.one_hot(idx, E).to(torch.float32), dim=2),
+                      dim=(0, 1))
+
+
+def _aux_loss(cfg, me, ce):
+    return cfg.router_aux_coef * cfg.n_experts * torch.sum(me * ce)
+
+
+def _moe_dispatch(gates, idx, xd, experts, cfg, dtype):
+    """The routed experts' output (B, S, D) in ``dtype`` for the rows of
+    ``xd`` (B, S, D): :func:`moe_apply`'s slots, products and combine, at
+    the capacity of a call over S tokens.  ``experts`` may hold a share of
+    d_ff's columns (w1, w3 (E, D, f), w2 (E, f, D)): the output is then
+    that share's partial sum."""
+    B, S, D = xd.shape
+    E, k = cfg.n_experts, cfg.top_k
+    Tk, C = S * k, moe_capacity(cfg, S)
+    dev = xd.device
     e_flat = idx.reshape(B, Tk)
     order = torch.argsort(e_flat, dim=-1, stable=True)
     e_sorted = torch.gather(e_flat, 1, order)
@@ -216,7 +260,7 @@ def moe_apply(p, x, cfg, dtype=None):
     rows = (torch.arange(B, device=dev)[:, None, None] * S
             + slot_tok).transpose(0, 1).reshape(-1)
     xe = xd.reshape(B * S, D).index_select(0, rows).reshape(E, B * C, D)
-    w1, w3, w2 = (p["experts"][n].to(dtype) for n in ("w1", "w3", "w2"))
+    w1, w3, w2 = (experts[n].to(dtype) for n in ("w1", "w3", "w2"))
     h = L.act_fn(cfg.act)(torch.bmm(xe, w1))
     h = h * torch.bmm(xe, w3)
     ye = torch.bmm(h, w2)                                        # (E, B C, D)
@@ -231,21 +275,70 @@ def moe_apply(p, x, cfg, dtype=None):
         rank < C, e_flat * (B * C) + torch.arange(B, device=dev)[:, None] * C
         + rank, E * B * C).reshape(B * S, k)
     by_expert = torch.argsort(idx.reshape(B * S, k), dim=-1)
-    out = moe_combine(torch.gather(pair_row, 1, by_expert),
-                      ye.reshape(E * B * C, D)).reshape(B, S, D)
+    return moe_combine(torch.gather(pair_row, 1, by_expert),
+                       ye.reshape(E * B * C, D)).reshape(B, S, D)
 
-    # load-balance aux loss (Switch-style): E * sum_e f_e * P_e.  Taken
-    # before the shared experts, so a checkpointed block's recompute stops
-    # at their down product (which saves its inputs) and does not run it:
-    # no gradient reads its output, and XLA's rematerialisation drops it
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean(torch.sum(F.one_hot(idx, E).to(torch.float32), dim=2),
-                    dim=(0, 1))
-    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
+def _moe_on_local_rows(p, x, cfg, dtype):
+    """:func:`moe_apply` on a DTensor ``x`` (B, S, D): the reference gathers
+    the residual whole along its sequence first, so the sorts, gathers and
+    the combine stay on each device's own batch rows.  Here each rank
+    routes and dispatches its own rows (``local_map`` over
+    :func:`_top_k` and :func:`_moe_dispatch`) with the whole sequence, so
+    at the capacity of the whole S: it picks and drops the pairs one
+    device does.  The router's probabilities come from ``x`` on each
+    rank's rows, its weight gathered (every "tensor" rank routes its rows
+    alike); the experts' weights are gathered along "fsdp" only, so each
+    rank's products run on its own d_ff columns and the combined output
+    is a partial sum across those ranks, reduce-scattered onto the
+    residual's shards.  A rank's gradient of the probabilities and of x
+    reads only its own columns: ``Partial`` across the mesh dims that
+    split d_ff, as the experts' weight gradients are across those that
+    split the batch.  The router runs outside the body, on DTensors, so
+    that the aux loss's gradient, whole on every "tensor" rank, joins
+    those partial sums outside it.  The aux loss's two per-expert means
+    are reduced across the batch's ranks before their product (the
+    reference's means over the whole batch).  Shared experts (deepseek's
+    ``mla_moe``) do not run on shards."""
     if "shared" in p:
-        out = out + L.mlp_apply(p["shared"], xs[0], cfg)
-    return out, aux
+        raise NotImplementedError("shared experts do not run on shards")
+    mesh = x.device_mesh
+    dtype = dtype or x.dtype
+    ws = [gather_fsdp(p["experts"][n]) for n in ("w1", "w3", "w2")]
+    rows = [isinstance(q, Shard) and q.dim == 0 for q in x.placements]
+    cols = [isinstance(q, Shard) and q.dim == 2 and not r
+            for q, r in zip(ws[0].placements, rows)]
+    rep = Replicate()
+    pick = lambda on_r, on_c: [  # noqa: E731
+        on_r if r else on_c if c else rep for r, c in zip(rows, cols)]
+    pl_x, pl_13, pl_2 = pick(Shard(0), rep), pick(rep, Shard(2)), \
+        pick(rep, Shard(1))
+    grad_x = pick(Shard(0), Partial())
+    # a redistribute to the placements a tensor has would reduce its
+    # gradient's partial sums in the backward
+    x = x if list(x.placements) == pl_x else x.redistribute(mesh, pl_x)
+    ws = [w if list(w.placements) == q else w.redistribute(mesh, q)
+          for w, q in zip(ws, (pl_13, pl_13, pl_2))]
+    xr, xd = L.fan_out(x, dtype, 2)
+    probs = _router_probs(xr, gather_fsdp(p["router"]["w"]))
+
+    def body(probs, xd, w1, w3, w2):
+        gates, idx = _top_k(probs, cfg.top_k)
+        out = _moe_dispatch(gates, idx, xd, {"w1": w1, "w3": w3, "w2": w2},
+                            cfg, dtype)
+        return out, _expert_counts(idx, cfg.n_experts)[None]
+
+    # the experts' weight gradients sum over the batch's ranks
+    grad_w = [[Partial() if r else q for r, q in zip(rows, pl)]
+              for pl in (pl_13, pl_13, pl_2)]
+    out, ce = local_map(
+        body, out_placements=(pick(Shard(0), Partial()), pick(Shard(0), rep)),
+        in_placements=(pl_x, pl_x, pl_13, pl_13, pl_2),
+        in_grad_placements=(grad_x, grad_x, *grad_w),
+        device_mesh=mesh)(probs, xd, *ws)
+    out = reduced(constrain(out, "batch", "resid", None))
+    me = reduced(torch.mean(probs, dim=(0, 1)))
+    return out, _aux_loss(cfg, me, reduced(torch.mean(ce, dim=0)))
 
 
 def moe_combine(pair_rows, ye):
@@ -279,18 +372,25 @@ attn_moe_cache = attn_mlp_cache
 def _attention_then_moe(attend, key, p, x, cfg, mode, cache, pos):
     """x + attention, then + MoE (``attn_moe`` with ``attend`` =
     ``layers.attn_apply`` under ``key`` "attn", ``mla_moe`` with
-    :func:`mla_apply` under "mla")."""
+    :func:`mla_apply` under "mla").  The hints are
+    :func:`attn_mlp_apply`'s: the norms' outputs whole along the
+    sequence, the output on the residual's shards (the reference's)."""
     x, x_in = L.block_input(x, cfg)
     a, new_c = attend(p[key],
-                      L.rmsnorm(p["ln1"], x_in, cfg.norm_eps, torch.float32),
+                      constrain(L.rmsnorm(p["ln1"], x_in, cfg.norm_eps,
+                                          torch.float32),
+                                "batch", None, None),
                       cfg, mode=mode, cache=None if cache is None else
                       cache[key], pos=pos, dtype=x.dtype)
     # ln2 reads the residual sum unrounded, the residual stream rounded
     x, mid = L.rounded_pair(L.unrounded(x, a), x.dtype)
     m, aux = moe_apply(p["moe"],
-                       L.rmsnorm(p["ln2"], mid, cfg.norm_eps, torch.float32),
+                       constrain(L.rmsnorm(p["ln2"], mid, cfg.norm_eps,
+                                           torch.float32),
+                                 "batch", None, None),
                        cfg, x.dtype)
-    return (L.unrounded(x, m), None if cache is None else {key: new_c}, aux)
+    return (constrain(L.unrounded(x, m), "batch", "resid", None),
+            None if cache is None else {key: new_c}, aux)
 
 
 def attn_moe_apply(p, x, cfg, *, mode="train", cache=None, pos=None,

@@ -411,9 +411,13 @@ def attention_scores_ctx(q, k, v, mask, softcap=None):
 
 
 def _uses_flash_kernel(q, k, v, q_offset, kv_len, softcap):
-    return (q.device.type == "cuda" and q.shape[1] > 1 and q_offset == 0
+    return (_flash_on_device(q) and q.shape[1] > 1 and q_offset == 0
             and kv_len is None and softcap is None
             and v.shape[-1] <= k.shape[-1])
+
+
+def _flash_on_device(q):
+    return q.device.type == "cuda"
 
 
 def plain_vjp(fn, inputs, out_grads, needs_grad):

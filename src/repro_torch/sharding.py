@@ -295,7 +295,19 @@ class _Reshape(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shape):
         ctx.shape, ctx.placements = tuple(x.shape), x.placements
-        return _carried(x, shape).reshape(shape)
+        x = _carried(x, shape)
+        out = x.reshape(shape)
+        # DTensor's view rule keeps a dim of one at its old stride, where a
+        # plain reshape gives it the contiguous one; an op that reads the
+        # strides (matmul folding its batch dims into one product) would
+        # take another route than on plain tensors.  The plain stride:
+        want = torch.empty_strided(x.shape, x.stride(),
+                                   device="meta").reshape(shape).stride()
+        if out.stride() == want:
+            return out
+        return DTensor.from_local(out.to_local(), out.device_mesh,
+                                  out.placements, run_check=False,
+                                  shape=out.shape, stride=want)
 
     @staticmethod
     def backward(ctx, g):

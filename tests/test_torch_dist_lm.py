@@ -18,6 +18,9 @@ one-device step and JAX's on the same parameters and inputs:
   * the loss within 1e-5 absolute, each updated parameter within 1e-4 of
     its leaf's largest |value|, prefill logits within 1e-4 absolute: f32 in
     another summation order (sums across ranks, a flash-decoding combine);
+  * the train step's aux loss (the moe family's load-balance loss, 0 for
+    the others) within 1e-7 absolute: a few f32 roundings of a value near
+    0.04 (mixtral's two smoke layers), so that a per-rank aux loss shows;
   * decode tokens identical.
 
 The ranks count their collectives with ``CommDebugMode``
@@ -67,6 +70,7 @@ SERVE = ("qwen3-32b", "phi4-mini-3.8b", "internvl2-1b", "whisper-tiny",
 # ("repeat_kv", "heads"; the forward and its checkpoint's rerun), none
 # where the query rows shard over a mesh axis ("qrows")
 FLASH = {"qwen3-32b": 4, "granite-34b": 6, "phi4-mini-3.8b": 0}
+AUX_ATOL = 1e-7
 B, SEQ = 8, 32                      # train and prefill cells
 MAX_LEN, PROMPT, STEPS = 32, 15, 2  # decode: positions 15 and 16, two shards
 WORLD = 4
@@ -157,7 +161,7 @@ def _jax_outputs(case, jm, params, data):
         state = JTrainState(jnp.int32(0), jparams, ())
         new, m = JS.make_train_step(jm)(state, {k: jnp.asarray(v)
                                                 for k, v in data.items()})
-        out = {"loss": np.asarray(m["loss"])}
+        out = {"loss": np.asarray(m["loss"]), "aux": np.asarray(m["aux"])}
         out.update({f"param/{p}": np.asarray(v)
                     for p, v in _flat(new.params).items()})
         return out
@@ -185,7 +189,7 @@ def _port_outputs(case, params, data):
     if case["kind"] == "train":
         state, m = S.make_train_step(model)(
             TrainState(torch.zeros((), dtype=torch.int32), tp, ()), t)
-        out = {"loss": m["loss"].numpy()}
+        out = {"loss": m["loss"].numpy(), "aux": m["aux"].numpy()}
         out.update({f"param/{p}": v.numpy()
                     for p, v in tree_leaves(state.params)})
         return out
@@ -299,6 +303,9 @@ def test_the_kernel_route_runs_on_each_ranks_local_heads(run, arch):
 
 
 def _close(got, want, what):
+    if "aux" in want:
+        np.testing.assert_allclose(got["aux"], want["aux"], rtol=0,
+                                   atol=AUX_ATOL, err_msg=f"{what}: aux")
     if "loss" in want:
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=0,
                                    atol=1e-5, err_msg=f"{what}: loss")

@@ -13,9 +13,11 @@ for tier-1.
 * The LM cells of the families that run on shards (dense, and
   internvl2-1b, whisper-tiny, recurrentgemma-2b and mamba2-1.3b:
   ``SHARDED``) record their collectives, and their per-device product
-  FLOPs and argument bytes equal the reference's partitioned HLO's.
+  FLOPs and argument bytes equal the reference's partitioned HLO's
+  (mixtral-8x22b's: ``test_torch_dryrun_moe.py``).
 * An LM cell run on a one-device mesh equals the eager step builders, bit
-  for bit; a moe cell on a mesh of more than one device is refused.
+  for bit; a deepseek-v2-lite-16b cell (``mla_moe``) on a mesh of more
+  than one device is refused.
 * The CLI runs end to end; importing it sets up no process group.
 """
 import json
@@ -95,6 +97,22 @@ def ssd_cb_flops(cfg, shape, dp):
     products = 4 if shape.kind == "train" else 1
     return (products * cfg.n_layers * 2 * (shape.global_batch // dp) * nc
             * q * q * cfg.ssm_state)
+
+
+def router_flops(cfg, shape, dp):
+    """The FLOPs of an attn_moe config's router product, x (B, S, D) by its
+    weight (D, E), on one device that holds 1 / ``dp`` of the batch rows,
+    as the port runs it: each rank routes its own rows whole along the
+    sequence, the weight gathered, on every "tensor" rank alike.  A train
+    step runs it in the forward and its checkpoint's rerun, and its
+    backward two products of the same size (x's and the weight's
+    gradients); a prefill and a decode step once."""
+    if cfg.family != "moe":
+        return 0
+    products = 4 if shape.kind == "train" else 1
+    positions = 1 if shape.kind == "decode" else shape.seq_len
+    return (products * cfg.n_layers * 2 * (shape.global_batch // dp)
+            * positions * cfg.d_model * cfg.n_experts)
 
 
 @pytest.fixture(scope="module")
@@ -319,32 +337,28 @@ def test_dense_cells_per_device_flops_and_argument_bytes_equal_jax(
 def test_train_and_decode_cells_trace_on_every_mesh(one_device_flops,
                                                     dense_records,
                                                     mesh_shape):
-    """The cells of a dense, vlm, encdec, hybrid or ssm arch run on
-    shards: per-device flops, 1 / n of the one-device trace's (an ssm
-    config's C B^T products, :func:`ssd_cb_flops`, 1 / the batch's ranks
-    of them: every rank computes them for its own rows), and their
-    collectives.  The moe family's run on whole tensors: the one-device
-    flops, collectives null, with the family in the reason."""
+    """The cells of every arch here run on shards: per-device flops, 1 / n
+    of the one-device trace's (an ssm config's C B^T products,
+    :func:`ssd_cb_flops`, and mixtral-8x22b's router products,
+    :func:`router_flops`, 1 / the batch's ranks of them: every rank
+    computes them for its own rows), and their collectives."""
     n = int(np.prod(mesh_shape))
     dp, _ = _mesh_sizes(mesh_shape)
     with fake_process_group(8):
         mesh = make_mesh(mesh_shape, MESHES[mesh_shape], device_type="cpu")
         for arch in ARCHS:
+            cfg = smoke_config(arch)
             if arch in SHARDED:
                 rec = dense_records[(mesh_shape, arch, "train")]
-                cfg = smoke_config(arch)
-                cb = ssd_cb_flops(cfg, TRAIN, dp)
-                assert (rec["op_cost"]["flops"] - cb) * n == \
-                    one_device_flops[arch] - ssd_cb_flops(cfg, TRAIN, 1)
-                assert rec["collectives"]["total_bytes"] > 0, arch
             else:
-                cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
+                cell = S.build_cell(cfg, TRAIN, mesh)
                 rec = D.run_cell(cell, mesh_shape,
                                  D.trace_cell(cell, peak=False))
-                assert rec["op_cost"]["flops"] == one_device_flops[arch]
-                assert rec["collectives"] is None, arch
-                assert smoke_config(arch).family in \
-                    rec["collectives_null_reason"], arch
+            own = ssd_cb_flops(cfg, TRAIN, dp) + router_flops(cfg, TRAIN, dp)
+            assert (rec["op_cost"]["flops"] - own) * n == \
+                one_device_flops[arch] - ssd_cb_flops(cfg, TRAIN, 1) - \
+                router_flops(cfg, TRAIN, 1), arch
+            assert rec["collectives"]["total_bytes"] > 0, arch
             assert rec["op_cost"]["flops"] > 0, arch
             m = rec["memory"]
             assert 0 < m["alias_size_in_bytes"] < m["argument_size_in_bytes"]
@@ -530,16 +544,16 @@ def test_layernorm_and_the_ungated_mlp_stay_on_their_shards():
 
 
 def test_an_lm_cell_on_a_wider_mesh_is_refused():
-    """Of the LM cells on a mesh of 8, the moe family's alone are refused
-    (its blocks do not run on shards yet); the ssm family's run there, on
-    DTensor shards: mamba2-1.3b's train step on (2, 4) returns its
+    """Of the LM cells on a mesh of 8, deepseek-v2-lite-16b's alone are
+    refused (its mla_moe block does not run on shards yet); mixtral-8x22b's
+    run there, on DTensor shards: its train step on (2, 4) returns its
     metrics and the updated parameters in their placements."""
     with fake_process_group(8):
         mesh = make_mesh((2, 4), device_type="cpu")
-        cell = S.build_cell(smoke_config("mixtral-8x22b"), TRAIN, mesh)
+        cell = S.build_cell(smoke_config("deepseek-v2-lite-16b"), TRAIN, mesh)
         with pytest.raises(NotImplementedError, match="does not run"):
             S.run_cell(cell, cell.args)
-        cell = S.build_cell(smoke_config("mamba2-1.3b"), TRAIN, mesh)
+        cell = S.build_cell(smoke_config("mixtral-8x22b"), TRAIN, mesh)
         assert S.on_shards(cell)
         state, metrics = S.run_cell(cell, S.materialize(cell, "meta"))
     assert isinstance(metrics["loss"], DTensor)
@@ -550,19 +564,30 @@ def test_an_lm_cell_on_a_wider_mesh_is_refused():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
 def test_a_moe_cell_is_refused_and_only_the_ssm_and_moe_ones(arch):
-    """The moe family's blocks do not run on shards: its cells on a mesh
-    of 8 are refused; every config of the other families (the ssm one
-    too, since its block runs on shards) runs on shards."""
+    """Only a cell whose groups hold the mla_moe block is refused on a mesh
+    of 8 (deepseek-v2-lite-16b's); mixtral-8x22b's (attn_moe) takes DTensor
+    arguments there (its step runs in
+    ``test_an_lm_cell_on_a_wider_mesh_is_refused``), and so does every
+    config of the other families."""
     with fake_process_group(8):
         mesh = make_mesh((2, 4), device_type="cpu")
         cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
-        assert not S.on_shards(cell)
-        with pytest.raises(NotImplementedError, match="does not run"):
-            S.run_cell(cell, cell.args)
+        refused = any("mla_moe" in pattern
+                      for pattern, _ in cell.cfg.scan_groups())
+        assert S.on_shards(cell) == (not refused)
+        if refused:
+            with pytest.raises(NotImplementedError, match="does not run"):
+                S.run_cell(cell, cell.args)
+        else:
+            assert all(isinstance(t, DTensor) for t in
+                       torch.utils._pytree.tree_leaves(
+                           S.materialize(cell, "meta"))
+                       if isinstance(t, torch.Tensor) and t.dim() > 0)
         for other in list_configs():
-            fam = smoke_config(other).family
-            assert S.on_shards(S.build_cell(smoke_config(other), TRAIN,
-                                            mesh)) == (fam != "moe"), other
+            c = S.build_cell(smoke_config(other), TRAIN, mesh)
+            assert S.on_shards(c) == (not any(
+                "mla_moe" in pattern
+                for pattern, _ in c.cfg.scan_groups())), other
 
 
 def test_cli_end_to_end(tmp_path, capsys):

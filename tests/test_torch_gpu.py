@@ -487,27 +487,35 @@ def test_flash_attention_route_on_dtensors_has_the_plain_gradient(
     _assert_grads_equal(got, want, 1e-6)
 
 
-def test_flash_attention_at_a_shards_local_shape(cuda):
+@pytest.mark.parametrize("S,KVH,G,window", [
+    (32768, 1, 3, None),    # granite-34b's 16 x 16 prefill_32k shard
+    (8192, 3, 1, 4096),     # mixtral-8x22b's ("repeat_kv"), S cut by 4
+], ids=["granite", "mixtral"])
+def test_flash_attention_at_a_shards_local_shape(cuda, S, KVH, G, window):
     """B4 through the kernel route's local body (what ``local_map`` hands
-    each rank) at granite-34b's 16 x 16 prefill_32k shard: q (2, 32768, 3
-    groups of the one KV head, 128), causal, bf16 on the tc instance,
-    within one bf16 step of its plain version (512 queries at a time)."""
+    each rank) at a 16 x 16 prefill_32k shard's local heads: granite-34b's
+    q (2, 32768, 3 groups of the one KV head, 128), causal; mixtral-8x22b's
+    3 query heads and their 3 repeated KV heads of 128, causal within its
+    window of 4096, over 8192 of the 32768 positions.  bf16 on the tc
+    instance, within one bf16 step of its plain version (512 queries at a
+    time)."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import layers
-    B, S, KVH, G, D = 2, 32768, 1, 3, 128
+    B, D = 2, 128
     q, k, v = (_randn(cuda, B, S, h, D, seed=i, dtype=torch.bfloat16)
                for i, h in enumerate((KVH * G, KVH, KVH)))
     FK.reset_launch_counts()
     with torch.no_grad():
         o = layers._flash_grouped(q.reshape(B, S, KVH, G, D), k, v, True,
-                                  None, 512).reshape(B, S, KVH * G, D)
+                                  window, 512).reshape(B, S, KVH * G, D)
     assert FK.flash_attention_call.launches_tc == 1
     t = lambda x: x.transpose(1, 2)  # noqa: E731
     for b in range(B):
         for o0 in range(0, S, 512):
             want = t(attention_ref(t(q[b:b + 1, o0:o0 + 512]), t(k[b:b + 1]),
-                                   t(v[b:b + 1]), causal=True, q_offset=o0))
+                                   t(v[b:b + 1]), causal=True, window=window,
+                                   q_offset=o0))
             torch.testing.assert_close(o[b:b + 1, o0:o0 + 512].float(),
                                        want.float(), rtol=2 ** -7, atol=1e-5)
 
@@ -1045,6 +1053,20 @@ def test_a_smoke_lm_cell_on_the_one_card_mesh_equals_the_eager_step(cuda,
     dense), gives the eager step builders' outputs on the plain local
     tensors bit for bit, and its arguments take the dry run's argument
     bytes."""
+    _one_card_cell_against_eager("phi4-mini-3.8b", kind)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_a_moe_smoke_cell_on_the_one_card_mesh_equals_the_eager_step(cuda,
+                                                                     kind):
+    """mixtral-8x22b's bf16 smoke cell (attn_moe: each rank's rows routed
+    and dispatched through ``local_map``) on DTensor arguments of the (1,
+    1) cuda mesh gives the eager step builders' outputs on the plain
+    local tensors bit for bit, the dry run's argument bytes."""
+    _one_card_cell_against_eager("mixtral-8x22b", kind)
+
+
+def _one_card_cell_against_eager(arch, kind):
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import ShapeConfig, smoke_config
     from repro_torch.launch import dryrun as D, specs as S
@@ -1053,7 +1075,7 @@ def test_a_smoke_lm_cell_on_the_one_card_mesh_equals_the_eager_step(cuda,
     from repro_torch.tree import tree_leaves, tree_map
     plain = lambda tree: torch.utils._pytree.tree_map(  # noqa: E731
         lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
-    cfg = smoke_config("phi4-mini-3.8b")
+    cfg = smoke_config(arch)
     model = LM(cfg, "cuda")
     with local_process_group():
         mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")

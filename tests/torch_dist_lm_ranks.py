@@ -1,6 +1,7 @@
-"""One rank of ``test_torch_dist_lm.py`` and ``test_torch_dist_ssm.py``:
-the LM cells of the families that run on shards (dense, vlm, encdec,
-hybrid, ssm) on a (2, 2) ('data', 'model') mesh of 4 gloo ranks on the
+"""One rank of ``test_torch_dist_lm.py``, ``test_torch_dist_ssm.py`` and
+``test_torch_dist_moe.py``: the LM cells of the families that run on
+shards (dense, vlm, encdec, hybrid, ssm, and the moe family's
+mixtral-8x22b) on a (2, 2) ('data', 'model') mesh of 4 gloo ranks on the
 CPU, on DTensor shards.  It imports
 ``repro_torch`` and never JAX: the test hands it the JAX parameters and
 inputs as numpy files.
@@ -47,8 +48,8 @@ F32 = dict(param_dtype="float32", dtype="float32")
 def case_config(case):
     """A case's f32 smoke config with its full config's score-shard mode
     (the smoke configs all take the default, "qrows"), and the remat
-    policy, microbatches, KV-cache dtype, RG-LRU width and SSD inner
-    width the case names, if any."""
+    policy, microbatches, KV-cache dtype, RG-LRU width, SSD inner width
+    and MoE capacity factor the case names, if any."""
     cfg = smoke_config(case["arch"])
     return cfg.replace(
         **F32, attn_score_shard=get_config(case["arch"]).attn_score_shard,
@@ -56,7 +57,8 @@ def case_config(case):
         train_microbatches=case.get("microbatches", cfg.train_microbatches),
         kv_cache_dtype=case.get("kv_cache_dtype", cfg.kv_cache_dtype),
         rnn_width=case.get("rnn_width", cfg.rnn_width),
-        d_inner=case.get("d_inner", cfg.d_inner))
+        d_inner=case.get("d_inner", cfg.d_inner),
+        capacity_factor=case.get("capacity_factor", cfg.capacity_factor))
 
 
 def _whole(t):
@@ -81,9 +83,10 @@ def _coll(cost):
 
 class KernelStandIn:
     """The flash-attention route taken on the CPU, as on the card: every
-    Sq > 1 call that the route's static rule lets through goes to the
-    kernel's wrapper, here its plain version, which counts its launches
-    and refuses anything but a rank's local tensors."""
+    call that the route's rule (``layers._uses_flash_kernel``, its device
+    test ``layers._flash_on_device`` taking the CPU) lets through goes to
+    the kernel's wrapper, here its plain version, which counts its
+    launches and refuses anything but a rank's local tensors."""
 
     def __init__(self):
         self.launches = 0
@@ -96,15 +99,13 @@ class KernelStandIn:
                                window=window))
 
     def __enter__(self):
-        self.saved = FK.flash_attention_call, L._uses_flash_kernel
+        self.saved = FK.flash_attention_call, L._flash_on_device
         FK.flash_attention_call = self
-        L._uses_flash_kernel = lambda q, k, v, q_offset, kv_len, softcap: \
-            (q.shape[1] > 1 and q_offset == 0 and kv_len is None
-             and softcap is None)
+        L._flash_on_device = lambda q: True
         return self
 
     def __exit__(self, *exc):
-        FK.flash_attention_call, L._uses_flash_kernel = self.saved
+        FK.flash_attention_call, L._flash_on_device = self.saved
 
 
 class RGLRUStandIn:
@@ -192,7 +193,7 @@ def _run_case(case, mesh, workdir):
         args = S.place((TrainState(torch.zeros((), dtype=torch.int32),
                                    params, ()), data), cell.in_shardings)
         (state, metrics), cost, _ = trace_step(S.run_cell, cell, args)
-        out = {"loss": _whole(metrics["loss"])}
+        out = {k: _whole(metrics[k]) for k in ("loss", "aux")}
         out.update({f"param/{p}": _whole(t)
                     for p, t in tree_leaves(state.params)})
         return out, [_coll(cost)]
