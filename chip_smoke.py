@@ -31,15 +31,18 @@ Phases, each printing its lines; no phase's failure is caught:
               deepseek-v2-lite-16b's MLA prefill of 4 x 4096 positions, 16
               heads, q/k head dim 192 and v 128 on the wgmma instance, and
               v narrower than q/k on the mma.sync one; phi4-mini-3.8b's
-              and phase n's three families' prefill_32k rows (1 x 32768,
-              the plain version 512 queries at a time) and train_4k steps
-              (8 x 4096), B5 at recurrentgemma-2b's two, and B6 at
-              mamba2-1.3b's prefill_32k row, 1 x 32768 with h0; its
+              and phase n's families' prefill_32k rows (1 x 32768, the
+              plain version 512 queries at a time) and train_4k steps (8 x
+              4096), deepseek-v2-lite-16b's with q/k 192 and v 128, B5
+              at recurrentgemma-2b's two, and B6 at mamba2-1.3b's
+              prefill_32k row, 1 x 32768 with h0; its
               train_4k microbatch, 4 x 4096, is the serving shape) and at
               ragged ones
   4. timing   each kernel, its plain version and, where one exists, the one
               PyTorch call computing the same function, with CUDA events,
-              beside the least time the card could take (bound_ms)
+              beside the least time the card could take (bound_ms); B4
+              also at deepseek-v2-lite-16b's prefill_32k row (1 x 32768,
+              q/k 192, v 128) against SDPA, its backend named
   5. e2e      the SEAFL simulation (ExperimentConfig -> build_experiment ->
               FLSimulation.run) on ResNet-18 at full width for 3
               aggregations; the seafl_agg launch counts are zeroed just before
@@ -61,8 +64,9 @@ Phases, each printing its lines; no phase's failure is caught:
               instances), B5 and B6 on the card against autograd through
               their plain versions; (b) launch/specs.make_train_step at
               mamba2-1.3b's full width (bf16, batch 8 x 2048, 2
-              microbatches, 3 steps; B6's count must equal 48 x 2 x 2 a
-              step: forward and remat rerun); (c) the SEAFL cohort trainer
+              microbatches, 3 steps, at 12 of its 48 layers, CUT_LAYERS;
+              B6's count must equal 12 x 2 x 2 a step: forward and remat
+              rerun); (c) the SEAFL cohort trainer
               (launch/train.build_lm_fl) at published widths cut to 12
               layers (CUT_LAYERS) to 2 aggregations of K = 2 models of P =
               4.13e8 (B1/B2 once per aggregation, B6 as reckoned from the
@@ -112,7 +116,8 @@ Phases, each printing its lines; no phase's failure is caught:
               make_train_step on 8 x 2048 positions (1792 tokens), M = 1,
               3 steps (B4 48 a step; its forward's and plain backward's
               shares of the profiled step); the cohort trainer as in phase
-              c (B1/B2 once an aggregation, B4 as reckoned), then B1/B2
+              c at 6 of the 24 layers (VLM_COHORT_LAYERS, P = 226,405,760;
+              B1/B2 once an aggregation, B4 as reckoned), then B1/B2
               timed at that P; the f32 smoke config card against CPU,
               serving and 3 trainer rounds ([vlm] and the reused phases'
               lines, each naming internvl2-1b)
@@ -123,7 +128,8 @@ Phases, each printing its lines; no phase's failure is caught:
               generated (B4 4 a prefill, the causal decoder's, all tc,
               none in decode); make_train_step on 8 x 448 tokens, M = 1,
               3 steps (B4 8 a step: forward and remat rerun); the cohort
-              trainer as phase c with seq_len 448 (B1/B2 once an
+              trainer as phase c with seq_len 448 at 2 of the 4 decoder
+              layers (ENCDEC_COHORT_LAYERS, P = 51,717,120; B1/B2 once an
               aggregation, B4 as reckoned), then B1/B2 timed at that P;
               the pytree aggregation path against the flat engine on the
               card (SEAFL, FedAvg, FedBuff, FedAsync within 1e-5); the f32
@@ -163,18 +169,25 @@ Phases, each printing its lines; no phase's failure is caught:
               with its bound and SDPA's ms ([shards] lines)
  17. families (n) the vlm, encdec, hybrid, ssm and moe families on DTensor
               shards: internvl2-1b's, whisper-tiny's, recurrentgemma-2b's,
-              mamba2-1.3b's and mixtral-8x22b's train_4k, prefill_32k and
-              decode_32k cells at published widths, batch cut as phase l's
-              (8, 1, 4), mixtral's depth cut as phase j's (2 of 56 layers
-              for train, 8 for prefill and decode), on the (1, 1) cuda
-              mesh, on plain tensors and then on DTensor arguments from one
-              seed, bit-equal (B4, B5 and B6 launched as the block kinds
-              reckon: recurrentgemma-2b's 8 local-attention and 18 rec
-              layers, B5 54 a train step, 18 a prefill; mamba2-1.3b's 48
-              ssd layers, B6 48 x 2 x 2 = 192 a train step of 2
-              microbatches, 48 a prefill; mixtral's B4 2 x 2 x 8 = 32 a
-              train step, 8 a prefill; none in decode), the two runs' times
-              and ratio; B5, B6 and B4 at the local shapes of a 16 x 16
+              mamba2-1.3b's, mixtral-8x22b's and deepseek-v2-lite-16b's
+              train_4k, prefill_32k and decode_32k cells at published
+              widths, batch cut as phase l's (8, 1, 4), mixtral's depth
+              cut as phase j's (2 of 56 layers for train, 8 for prefill
+              and decode), deepseek's train step to 6 of 27 layers
+              and the other families' train steps to half their depth
+              (mamba2-1.3b 24 of 48, internvl2-1b 12 of 24,
+              recurrentgemma-2b 13 of 26; CELL_LAYERS), on the (1, 1)
+              cuda mesh, on plain tensors and then on DTensor arguments
+              from one seed, bit-equal (B4, B5 and B6 launched as the
+              block kinds reckon: recurrentgemma-2b's 4 + 9 layers at 13,
+              B4 4 x 2 = 8 and B5 9 x 3 = 27 a train step, its 8 + 18
+              layers B4 8 and B5 18 a prefill; mamba2-1.3b's ssd layers,
+              B6 24 x 2 x 2 = 96 a train step of 2 microbatches, 48 a
+              prefill; mixtral's B4 2
+              x 2 x 8 = 32 a train step, 8 a prefill; deepseek's B4 2 x 2
+              x 6 = 24 a train step, 27 a prefill, all at (192, 128) on
+              the tc instance; none in decode), the two runs' times and
+              ratio; B5, B6 and B4 at the local shapes of a 16 x 16
               prefill_32k shard, recurrentgemma-2b's (2, 32768, 160) f32,
               mamba2-1.3b's (2, 32768, 4 heads of 64, B/C 128) f32 with h0
               and mixtral's (2, 32768, 3 heads of 128) bf16, window 4096,
@@ -182,7 +195,7 @@ Phases, each printing its lines; no phase's failure is caught:
               versions, with their bounds ([families] lines)
  18. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance, the bf16 row with whisper's two shapes,
-              mixtral's, deepseek's, phi4-mini's and the two shards', and
+              mixtral's, deepseek's two, phi4-mini's and the shards', and
               phase n's shapes' errors; B5's and B6's with their shard
               shapes and phase n's shapes' errors; each row with its
               training, uplink,
@@ -603,13 +616,18 @@ DEEPSEEK = dict(H=16, D=192, Dv=128)
 # kv heads, full causal; its prefill_32k row and its train_4k step (8 x 4096)
 PHI4 = dict(H=24, KVH=8, D=128, prompt=32768, train=(8, 4096))
 RG = dict(H=10, KVH=1, D=256, window=2048, C=2560)      # recurrentgemma-2b
-# phase n's attention and scan shapes: (H, KVH, D, window) of each family's
-# causal attention, at its prefill_32k row and its train_4k step (8 x 4096)
-FAMILY_B4 = {"internvl2-1b": (*VLM_HEADS, 64, None),
-             "whisper-tiny": (WHISPER["H"], WHISPER["H"], WHISPER["D"], None),
-             "recurrentgemma-2b": (RG["H"], RG["KVH"], RG["D"], RG["window"]),
+# phase n's attention and scan shapes: (H, KVH, D, window, Dv) of each
+# family's causal attention (Dv the value head dim where it is not D), at
+# its prefill_32k row and its train_4k step (8 x 4096)
+FAMILY_B4 = {"internvl2-1b": (*VLM_HEADS, 64, None, None),
+             "whisper-tiny": (WHISPER["H"], WHISPER["H"], WHISPER["D"], None,
+                              None),
+             "recurrentgemma-2b": (RG["H"], RG["KVH"], RG["D"], RG["window"],
+                                   None),
              "mixtral-8x22b": (MIXTRAL["H"], MIXTRAL["KVH"], MIXTRAL["D"],
-                               MIXTRAL["window"])}
+                               MIXTRAL["window"], None),
+             "deepseek-v2-lite-16b": (DEEPSEEK["H"], DEEPSEEK["H"],
+                                      DEEPSEEK["D"], None, DEEPSEEK["Dv"])}
 CELL_ROWS = ((1, PHI4["prompt"]), PHI4["train"])
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 # B6's rows of phase n: its prefill_32k row and its train_4k microbatch (8
@@ -757,8 +775,8 @@ def phase_parity_lm(torch):
          PHI4["D"], True, None, bf16),                   # phi4-mini's prefill
         (*PHI4["train"], PHI4["train"][1], PHI4["H"], PHI4["KVH"], PHI4["D"],
          True, None, bf16),                              # ... its train step
-    ] + [(B, Sq, Sq, H, KVH, D, True, W, bf16) for B, Sq in CELL_ROWS
-         for H, KVH, D, W in FAMILY_B4.values()]         # phase n's
+    ] + [(B, Sq, Sq, H, KVH, D, True, W, bf16, Dv) for B, Sq in CELL_ROWS
+         for H, KVH, D, W, Dv in FAMILY_B4.values()]     # phase n's
     for i, (B, Sq, Skv, H, KVH, D, causal, window, dt, *Dv) in enumerate(
             flash_cases):
         Dv = Dv[0] if Dv else None
@@ -780,7 +798,7 @@ def phase_parity_lm(torch):
         if (H, KVH, D) == (PHI4["H"], PHI4["KVH"], PHI4["D"]):
             errs[f"flash_attention_phi4_{B}x{Sq}"] = e
         for arch, heads in FAMILY_B4.items():
-            if (B, Sq) in CELL_ROWS and (H, KVH, D, window) == heads:
+            if (B, Sq) in CELL_ROWS and (H, KVH, D, window, Dv) == heads:
                 errs[f"flash_attention_{arch}_{B}x{Sq}"] = e
         torch.cuda.synchronize()
         log(f"[parity] flash_attention B={B} Sq={Sq} Skv={Skv} H={H} "
@@ -1049,7 +1067,8 @@ def phase_timing_lm(torch):
     prefill (SDPA on its memory-efficient backend with the band mask; the
     plain version a batch row at a time), at deepseek-v2-lite-16b's
     (q/k head dim 192, v 128, causal: SDPA with is_causal and the backend
-    it picks for two head dims, named from its kernel) and at
+    it picks for two head dims, named from its kernel; at the serving
+    shape and at its prefill_32k row, 1 x 32768) and at
     phi4-mini-3.8b's prefill (24 / 8 heads of 128, causal over 32768: SDPA
     on its flash backend, k/v expanded).  Bounds count each
     input read once and each output written once; operations are those the
@@ -1163,6 +1182,30 @@ def phase_timing_lm(torch):
         peak=BF16_FLOPS_PER_S)
     log(f"[timing] SDPA at deepseek's (192, 128) shape runs "
         f"{sdpa_kernels[:3]}")
+    del q, k, v, qt, kt, vt
+
+    # ... and at its prefill_32k row (phase n's): one sequence of 32768
+    # positions; the plain version 512 queries at a time (_flash_plain)
+    Sl = PHI4["prompt"]
+    q, k, v = _flash_inputs(torch, 1, Sl, Sl, Hd, Hd, Dd, torch.bfloat16, 67,
+                            Dvd)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with _profiler(torch) as prof:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.cuda.synchronize()
+    sdpa_kernels = [key for _, key in _kernel_times(torch, prof)[1]]
+    rows["flash_attention_bf16_tc_deepseek_32k"] = dict(
+        ms=_time_ms(torch, lambda: FK.flash_attention_call(
+            q, k, v, causal=True), iters=10, warmup=2),
+        plain_ms=_time_ms(torch, lambda: _flash_plain(q, k, v, True, None),
+                          iters=1, warmup=1),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=5, warmup=1),
+        library_kernels=[key[:80] for key in sdpa_kernels[:3]],
+        nbytes=(q.numel() + k.numel() + 2 * v.numel()) * 2,
+        flops=2 * (Dd + Dvd) * (Sl * (Sl + 1) // 2) * Hd,
+        peak=BF16_FLOPS_PER_S)
+    log(f"[timing] SDPA at deepseek's 1 x {Sl} row runs {sdpa_kernels[:3]}")
     del q, k, v, qt, kt, vt
 
     # phi4-mini-3.8b's prefill: 24 / 8 heads of 128, causal over 32768
@@ -2036,12 +2079,12 @@ def _train_card_vs_cpu(torch, archs=("mamba2-1.3b", "recurrentgemma-2b",
 
 def phase_train(torch):
     """The LM training path: a. gradient parity of B4-B6, b.
-    make_train_step at mamba2-1.3b's full width, c. the SEAFL cohort
-    trainer at published widths and ``CUT_LAYERS``, d. card against CPU on
-    three f32 smoke configs."""
+    make_train_step at mamba2-1.3b's full width and ``CUT_LAYERS``, c. the
+    SEAFL cohort trainer at published widths and ``CUT_LAYERS``, d. card
+    against CPU on three f32 smoke configs."""
     t0 = time.perf_counter()
     errs = _train_grad_parity(torch)
-    step = _train_step_full(torch)
+    step = _train_step_full(torch, _cut_mamba2())
     torch.cuda.empty_cache()
     t_c = time.perf_counter()
     cohort = _train_cohort_full(torch, _cut_mamba2())
@@ -2802,6 +2845,9 @@ def phase_health(torch, phase_c_walls):
 
 VLM = "internvl2-1b"
 P_VLM = 494_807_936                 # of which patch_proj 1024 x 896
+# the cohort trainer's depth, cut as CUT_LAYERS cuts phase c's: 6 of the 24
+# layers, P from JAX's eval_shape of the reference's init at that depth
+VLM_COHORT_LAYERS, P_VLM_COHORT = 6, 226_405_760
 # 256 image positions + 3840 tokens = the other LMs' 4096 positions
 VLM_PROMPT = SERVE_PROMPT - 256
 
@@ -2813,21 +2859,24 @@ def phase_vlm(torch):
     decode step profiled; (ii) make_train_step, 8 x 2048 positions (1792
     tokens), M = 1, remat "full", 3 steps: B4 48 a step (forward and remat
     rerun), its forward's and plain backward's share of the profiled
-    step's device time; (iii) the cohort trainer as phase c (P =
-    494,807,936, K = 2, 2 aggregations): B1/B2 once an aggregation, B4 24 x
-    (2 x SGD steps + evaluations), then B1/B2 timed alone at that P against
-    their byte bounds; (iv) the f32 smoke config card against CPU, serving
-    (B4's mma instance on the card) and 3 trainer rounds."""
+    step's device time; (iii) the cohort trainer as phase c, its depth cut
+    to ``VLM_COHORT_LAYERS`` (P = 226,405,760, K = 2, 2 aggregations):
+    B1/B2 once an aggregation, B4 6 x (2 x SGD steps + evaluations), then
+    B1/B2 timed alone at that P against their byte bounds; (iv) the f32
+    smoke config card against CPU, serving (B4's mma instance on the card)
+    and 3 trainer rounds."""
+    from repro_torch.configs import get_config
     t0 = time.perf_counter()
     _warm_profiler(torch)
     serve_launches, serving = _serve_full(torch, VLM, VLM_PROMPT)
     torch.cuda.empty_cache()
     step = _train_step_full(torch, VLM)
     torch.cuda.empty_cache()
-    cohort = _train_cohort_full(torch, VLM)
-    if cohort["P"] != P_VLM or serving["params"] != P_VLM:
+    cohort = _train_cohort_full(torch, get_config(VLM).replace(
+        n_layers=VLM_COHORT_LAYERS))
+    if cohort["P"] != P_VLM_COHORT or serving["params"] != P_VLM:
         raise AssertionError(f"{VLM}: P {cohort['P']} / {serving['params']},"
-                             f" expected {P_VLM}")
+                             f" expected {P_VLM_COHORT} / {P_VLM}")
     smoke_serve_mma = _serve_card_vs_cpu(torch, VLM)
     smoke = _train_card_vs_cpu(torch, (VLM,))
     took = time.perf_counter() - t0
@@ -2841,6 +2890,8 @@ def phase_vlm(torch):
 
 ENCDEC = "whisper-tiny"
 P_ENCDEC = 56_437_248               # JAX eval_shape of whisper-tiny's init
+# the cohort trainer's decoder depth, 2 of its 4 layers (P as above)
+ENCDEC_COHORT_LAYERS, P_ENCDEC_COHORT = 2, 51_717_120
 # 416 prompt tokens + 32 generated = 448, whisper's published text context
 ENCDEC_PROMPT = WHISPER["text"] - SERVE_GEN
 
@@ -2922,10 +2973,11 @@ def phase_encdec(torch):
     prefill and a decode step profiled.  (ii) make_train_step, 8 x 448
     tokens with their frames, M = 1, remat "full", 3 steps: B4 8 a step
     (4 x 2 decoder), its forward's and plain backward's share of the
-    profiled step.  (iii) the cohort trainer as phase c with seq_len 448
-    (K = 2, 2 aggregations): B1/B2 once an aggregation, B4 8 an SGD step
-    and 4 an evaluation; then B1/B2 held against their plain
-    versions and timed at that P.  (iv) the pytree aggregation path
+    profiled step.  (iii) the cohort trainer as phase c with seq_len 448,
+    its decoder cut to ``ENCDEC_COHORT_LAYERS`` (P = 51,717,120, K = 2, 2
+    aggregations): B1/B2 once an aggregation, B4 4 an SGD step and 2 an
+    evaluation; then B1/B2 held against their plain versions and timed at
+    that P.  (iv) the pytree aggregation path
     against the flat engine (``_pytree_vs_flat``).  (v) the f32 smoke
     config card against CPU, serving (B4's mma instance on the card) and
     3 trainer rounds."""
@@ -2936,10 +2988,12 @@ def phase_encdec(torch):
     torch.cuda.empty_cache()
     step = _train_step_full(torch, ENCDEC, WHISPER["text"])
     torch.cuda.empty_cache()
-    cohort = _train_cohort_full(torch, ENCDEC, WHISPER["text"])
-    if cohort["P"] != P_ENCDEC or serving["params"] != P_ENCDEC:
+    cohort = _train_cohort_full(torch, get_config(ENCDEC).replace(
+        n_layers=ENCDEC_COHORT_LAYERS), WHISPER["text"])
+    if cohort["P"] != P_ENCDEC_COHORT or serving["params"] != P_ENCDEC:
         raise AssertionError(f"{ENCDEC}: P {cohort['P']} / "
-                             f"{serving['params']}, expected {P_ENCDEC}")
+                             f"{serving['params']}, expected "
+                             f"{P_ENCDEC_COHORT} / {P_ENCDEC}")
     agg = _pytree_vs_flat(torch, get_config(ENCDEC))
     smoke_serve_mma = _serve_card_vs_cpu(torch, ENCDEC)
     smoke = _train_card_vs_cpu(torch, (ENCDEC,))
@@ -3305,7 +3359,7 @@ def _dist_print_dryrun(recs):
     dispatch collectives on 2 x 16 x 16 and none on (1, 1)."""
     for f, r in recs.items():
         m, c = r["memory"], r["collectives"]
-        coll = "null (its family does not run on shards yet)" if c is None \
+        coll = "null (its blocks do not run on shards)" if c is None \
             else (f"{c['total_bytes']} B, " + (", ".join(
                 f"{k} {v['count']}" for k, v in c.items()
                 if isinstance(v, dict) and v["count"]) or "none")
@@ -3905,13 +3959,30 @@ def phase_shards(torch, firsts, dist):
 # -- phase n: the vlm, encdec, hybrid, ssm and moe families on DTensor shards
 
 FAMILIES = ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b",
-            "mamba2-1.3b", MOE)
+            "mamba2-1.3b", MOE, MLA)
+# deepseek-v2-lite-16b's train_4k depth: the dry run's (1, 1) peak estimate
+# at batch 8 (python -m repro_torch.launch.dryrun --arch deepseek-v2-lite-16b
+# --shape train_4k --mesh 1x1 --batch 8 --layers 6) is 42.4 GB at 6
+# layers, 55.4 GB at 8; its prefill and decode run all 27 (32.4 GB of bf16
+# weights, as phase k serves them)
+MLA_CELL_TRAIN_LAYERS = 6
+# the train_4k depth of the cells whose published depth one card holds,
+# cut for the script's time as CUT_LAYERS cuts phases b-g: half of
+# mamba2-1.3b's 48 layers, internvl2-1b's 24 and recurrentgemma-2b's 26
+# (4 of its (rec, rec, attn) groups and a rec layer); their prefill_32k
+# and decode_32k cells run every layer
+HALF_TRAIN_LAYERS = {"mamba2-1.3b": 24, "internvl2-1b": 12,
+                     "recurrentgemma-2b": 13}
 # the depth of a cell whose published depth one card cannot hold:
 # mixtral-8x22b's, phase j's (its 8 layers of bf16 weights are 41 GB; the
-# 2-layer train step's f32 gradient sum beside them, ~54 GB at its peak)
+# 2-layer train step's f32 gradient sum beside them, ~54 GB at its peak),
+# and deepseek-v2-lite-16b's train step; and HALF_TRAIN_LAYERS
 CELL_LAYERS = {MOE: {"train_4k": MOE_TRAIN_LAYERS,
                      "prefill_32k": MOE_SERVE_LAYERS,
-                     "decode_32k": MOE_SERVE_LAYERS}}
+                     "decode_32k": MOE_SERVE_LAYERS},
+               MLA: {"train_4k": MLA_CELL_TRAIN_LAYERS},
+               **{arch: {"train_4k": n}
+                  for arch, n in HALF_TRAIN_LAYERS.items()}}
 # B5's local problem on recurrentgemma-2b's 16 x 16 prefill_32k shard: the
 # batch of 32 over 16 "batch" shards, 32768 positions, the 2560 channels
 # over 16 "tensor" shards; (B, S, C) f32
@@ -4051,9 +4122,10 @@ def _shard_b6(torch):
 def phase_families(torch):
     """n. The vlm, encdec, hybrid, ssm and moe families' LM step on DTensor
     shards, on the card: (i) the train_4k, prefill_32k and decode_32k
-    cells of internvl2-1b, whisper-tiny, recurrentgemma-2b, mamba2-1.3b
-    and mixtral-8x22b at their published widths, batch cut (mixtral's
-    depth too, ``CELL_LAYERS``), on the (1, 1) cuda mesh, on plain tensors
+    cells of internvl2-1b, whisper-tiny, recurrentgemma-2b, mamba2-1.3b,
+    mixtral-8x22b and deepseek-v2-lite-16b at their published widths,
+    batch cut (mixtral's depth too, and every train step's,
+    ``CELL_LAYERS``), on the (1, 1) cuda mesh, on plain tensors
     and then on DTensor arguments from one seed, bit-equal
     (``_family_cell``); (ii) B5, (iii) B6 and (iv) B4 at a 16 x 16 shard's
     local shape (``_shard_b5``, ``_shard_b6``, ``_shard_b4`` at
@@ -4303,6 +4375,12 @@ def main() -> int:
                 "deepseek_shape": dict(
                     lm_timing["flash_attention_bf16_tc_deepseek"],
                     max_abs_err=errs["flash_attention_deepseek"]),
+                "deepseek_32k_shape": dict(
+                    lm_timing["flash_attention_bf16_tc_deepseek_32k"],
+                    max_abs_err=errs[f"flash_attention_{MLA}_1x"
+                                     f"{PHI4['prompt']}"],
+                    train_max_abs_err=errs["flash_attention_{}_{}x{}".format(
+                        MLA, *PHI4["train"])]),
                 "phi4_shape": dict(
                     lm_timing["flash_attention_bf16_tc_phi4"],
                     max_abs_err=errs[f"flash_attention_phi4_1x"

@@ -17,12 +17,13 @@ cell it records:
     (flash attention's chunked scores among them), so the estimate is the
     plain path's;
   * ``collectives``: per kind count and bytes.  The SEAFL aggregation
-    cells and the LM cells of the dense, vlm, encdec, hybrid and ssm
-    families and of mixtral-8x22b (``specs.on_shards``) run on DTensors
-    with meta local shards and record the collectives they dispatch.
-    deepseek-v2-lite-16b's LM steps run on whole tensors (its ``mla_moe``
-    block does not run on shards yet), so on a mesh of more than one
-    device their collectives are not known: ``null``, with the reason;
+    cells and the LM cells of every registered config (dense, vlm,
+    encdec, hybrid, ssm and moe: ``specs.on_shards``) run on DTensors with
+    meta local shards and record the collectives they dispatch.  A cell
+    whose blocks do not take shards (the encdec ``dec`` block, which no
+    registered config's groups hold) would be traced on whole tensors, so
+    on a mesh of more than one device its collectives are not known:
+    ``null``, with the reason;
   * ``trace_seconds``, the counterpart of ``lower_seconds`` and
     ``compile_seconds``.
 
@@ -35,6 +36,8 @@ over several meshes traces it once.
     python -m repro_torch.launch.dryrun --all --multi-pod --agg
     python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b --agg \\
         --mesh 16x16 --mesh 2x16x16 --mesh 1x1
+    python -m repro_torch.launch.dryrun --arch deepseek-v2-lite-16b \\
+        --shape train_4k --mesh 1x1 --batch 8 --layers 6
 
 Records land in ``dryrun_out/<cell>.json`` at the repository's root (or
 ``--out``), one file a cell; ``--force`` re-runs cached cells.
@@ -130,8 +133,8 @@ def run_cell(cell, mesh_shape, trace) -> dict:
         rec["collectives"] = None
         rec["collectives_null_reason"] = (
             f"the {cell.cfg.family} family's {cell.cfg.name} LM step runs on "
-            "whole tensors, not on shards (its blocks do not take DTensors "
-            "yet), so the collectives a sharded step needs are not known yet")
+            "whole tensors, not on shards (its blocks do not take DTensors), "
+            "so the collectives a sharded step needs are not known")
     else:
         rec["collectives"] = collectives_record(cost)
     return rec
@@ -149,6 +152,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=None,
                     help="cut each shape's global batch to this (its "
                          "sequence length stays)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each config's depth to this many layers (its "
+                         "widths stay)")
     ap.add_argument("--smoke", action="store_true",
                     help="the archs' smoke configs at the published shapes")
     ap.add_argument("--agg", action="store_true",
@@ -165,7 +171,10 @@ def main(argv=None) -> int:
     from repro_torch.launch.specs import build_agg_cell, build_cell, on_shards
     from repro_torch.sharding import axis_rules
 
-    config = smoke_config if args.smoke else get_config
+    def config(arch):
+        cfg = (smoke_config if args.smoke else get_config)(arch)
+        return cfg if args.layers is None else cfg.replace(
+            n_layers=args.layers)
     meshes = ([parse_mesh(m) for m in args.mesh] if args.mesh
               else [production_shape(args.multi_pod)])
     os.makedirs(args.out, exist_ok=True)
@@ -187,12 +196,15 @@ def main(argv=None) -> int:
             mesh = make_mesh(mesh_shape, device_type="cpu")
             for arch, shape in cells:
                 total += 1
+                # a depth cut is a cell of its own
+                tag = arch if args.layers is None else \
+                    f"{arch}-{args.layers}layers"
                 fname = os.path.join(args.out,
-                                     cell_filename(arch, shape, mesh_shape))
+                                     cell_filename(tag, shape, mesh_shape))
                 if os.path.exists(fname) and not args.force:
-                    print(f"[skip] {arch} x {shape} (cached)")
+                    print(f"[skip] {tag} x {shape} (cached)")
                     continue
-                print(f"[cell] {arch} x {shape} ({mesh_tag(mesh_shape)}) "
+                print(f"[cell] {tag} x {shape} ({mesh_tag(mesh_shape)}) "
                       "...", flush=True)
                 try:
                     cfg = config(arch)

@@ -9,13 +9,14 @@ the meta device: the full-size configs are traced there (``launch/dryrun.py``),
 never allocated.  :func:`materialize` makes seeded real arguments for a cell
 and :func:`run_cell` runs it.
 
-The SEAFL aggregation cell and the LM cells of the dense, vlm, encdec,
-hybrid and ssm families and of mixtral-8x22b (the moe family's
-``attn_moe``) run on DTensors (:func:`on_shards`: every block kind of
-theirs takes shards), on any mesh.  deepseek-v2-lite-16b's (``mla_moe``)
-do not run on shards yet: on a mesh of more than one device its cells are
-traced on whole tensors (their per-device bytes come from the placements)
-and :func:`run_cell` refuses them.
+The SEAFL aggregation cell and the LM cells of every registered config
+(the dense, vlm, encdec, hybrid, ssm and moe families, mixtral-8x22b's
+``attn_moe`` and deepseek-v2-lite-16b's ``mla_moe`` among them) run on
+DTensors (:func:`on_shards`: every block kind of theirs takes shards), on
+any mesh.  A cell whose groups held a block kind that does not (the
+encdec ``dec`` block, which no registered config's groups hold) would be
+traced on whole tensors and refused by :func:`run_cell` on a mesh of more
+than one device.
 
 Scalars the port keeps on the host are not device arguments: a train
 state's ``step`` (an int32 on the CPU) and a cache's ``pos`` (a Python
@@ -441,16 +442,15 @@ def materialize(cell: CellSpec, device, seed: int = 0, *, pos=None,
 
 
 # the block kinds whose layers take DTensor shards
-SHARDED_BLOCKS = frozenset({"attn_mlp", "attn", "rec", "ssd", "attn_moe"})
+SHARDED_BLOCKS = frozenset({"attn_mlp", "attn", "rec", "ssd", "attn_moe",
+                            "mla_moe"})
 
 
 def on_shards(cell) -> bool:
     """Whether ``cell`` runs on DTensor shards: the aggregation cells, and
     an LM cell whose scan groups hold only block kinds that run on shards
-    (``SHARDED_BLOCKS``: the dense, vlm, encdec, hybrid and ssm families,
-    and mixtral-8x22b's ``attn_moe``).  A cell whose groups hold
-    ``mla_moe`` (deepseek-v2-lite-16b) takes whole tensors (that block does
-    not run on shards yet)."""
+    (``SHARDED_BLOCKS``: every registered config's, the moe family's
+    ``attn_moe`` and ``mla_moe`` included)."""
     return cell.kind == "agg" or all(
         b in SHARDED_BLOCKS
         for pattern, _ in cell.cfg.scan_groups() for b in pattern)
@@ -524,13 +524,13 @@ def _materialize_agg(cell, params, gen, buffer):
 
 def run_cell(cell: CellSpec, args):
     """Run ``cell``'s step on ``args`` (from :func:`materialize`).  An LM
-    cell not :func:`on_shards` (deepseek-v2-lite-16b's), on a mesh of more
-    than one device, raises: its step does not run on shards yet, and the
-    unsharded step is never run in its place."""
+    cell not :func:`on_shards`, on a mesh of more than one device, raises:
+    its step does not run on shards, and the unsharded step is never run
+    in its place."""
     if not on_shards(cell) and cell.mesh.size() > 1:
         raise NotImplementedError(
             f"{cell.name}: the {cell.cfg.family} family's LM step does not "
-            f"run on a mesh of {cell.mesh.size()} devices yet (its blocks "
-            "take whole tensors)")
+            f"run on a mesh of {cell.mesh.size()} devices (its blocks take "
+            "whole tensors)")
     with axis_rules(cell.mesh):
         return cell.step_fn(*args)

@@ -37,14 +37,17 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models import layers as L
-from repro_torch.sharding import (axis_size, constrain, gather_fsdp,
-                                  per_shard, reduced, replicated, reshape,
-                                  sharded_over)
+from repro_torch.sharding import (axis_size, constrain, gather_fsdp, like,
+                                  per_shard, placed, reduced, replicated,
+                                  reshape, sharded_over)
 
 # ---------------------------------------------------------------------------
 # causal depthwise conv1d (RG-LRU / Mamba2 frontends)
@@ -256,18 +259,8 @@ def _moe_dispatch(gates, idx, xd, experts, cfg, dtype):
     slot_gate = torch.where(valid, torch.gather(g_sorted, 1, slots_c)
                             .reshape(B, E, C), 0.0)
 
-    # rows of the flattened (B S, D) input, in (E, B, C) order
-    rows = (torch.arange(B, device=dev)[:, None, None] * S
-            + slot_tok).transpose(0, 1).reshape(-1)
-    xe = xd.reshape(B * S, D).index_select(0, rows).reshape(E, B * C, D)
-    w1, w3, w2 = (experts[n].to(dtype) for n in ("w1", "w3", "w2"))
-    h = L.act_fn(cfg.act)(torch.bmm(xe, w1))
-    h = h * torch.bmm(xe, w3)
-    ye = torch.bmm(h, w2)                                        # (E, B C, D)
-    ye = L.product(ye, slot_gate.transpose(0, 1).reshape(E, B * C, 1), dtype)
-
-    # each pair's slot row of ye: expert e, row b, its rank in e's segment;
-    # past C (dropped) the zero row E B C
+    # each pair's slot row: expert e, row b, its rank in e's segment; past
+    # C (dropped) the row E B C; a token's pairs in ascending expert order
     pos = torch.empty_like(order).scatter_(
         1, order, torch.arange(Tk, device=dev).expand(B, Tk))
     rank = pos - torch.gather(seg, 1, e_flat)
@@ -275,8 +268,41 @@ def _moe_dispatch(gates, idx, xd, experts, cfg, dtype):
         rank < C, e_flat * (B * C) + torch.arange(B, device=dev)[:, None] * C
         + rank, E * B * C).reshape(B * S, k)
     by_expert = torch.argsort(idx.reshape(B * S, k), dim=-1)
-    return moe_combine(torch.gather(pair_row, 1, by_expert),
-                       ye.reshape(E * B * C, D)).reshape(B, S, D)
+    pair_rows = torch.gather(pair_row, 1, by_expert)
+
+    # rows of the flattened (B S, D) input, in (E, B, C) order
+    rows = (torch.arange(B, device=dev)[:, None, None] * S
+            + slot_tok).transpose(0, 1).reshape(-1)
+    xe = _DispatchRows.apply(xd.reshape(B * S, D), rows,
+                             pair_rows).reshape(E, B * C, D)
+    w1, w3, w2 = (experts[n].to(dtype) for n in ("w1", "w3", "w2"))
+    h = L.act_fn(cfg.act)(torch.bmm(xe, w1))
+    h = h * torch.bmm(xe, w3)
+    ye = torch.bmm(h, w2)                                        # (E, B C, D)
+    ye = L.product(ye, slot_gate.transpose(0, 1).reshape(E, B * C, 1), dtype)
+    return moe_combine(pair_rows, ye.reshape(E * B * C, D)).reshape(B, S, D)
+
+
+class _DispatchRows(torch.autograd.Function):
+    """``x.index_select(0, rows)``, the experts' slots gathered from the
+    tokens, with the gradient the reference's scatter-add gives: each
+    token's slot rows summed in ascending expert order
+    (:func:`moe_combine` over ``pair_rows``, the token's (T, k) slot rows).
+    ``index_select``'s own gradient, ``index_add_``, adds a token's terms
+    on the card by atomics in no fixed order, so top-k routing with k > 2
+    would change its bits from run to run.  A slot past its expert's
+    segment gathers some token with a gate of 0: its gradient is exactly
+    0, so ``pair_rows`` leaves it out."""
+
+    @staticmethod
+    def forward(ctx, x, rows, pair_rows):
+        ctx.save_for_backward(pair_rows)
+        return x.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        pair_rows, = ctx.saved_tensors
+        return moe_combine(pair_rows, g), None, None
 
 
 def _moe_on_local_rows(p, x, cfg, dtype):
@@ -299,9 +325,9 @@ def _moe_on_local_rows(p, x, cfg, dtype):
     those partial sums outside it.  The aux loss's two per-expert means
     are reduced across the batch's ranks before their product (the
     reference's means over the whole batch).  Shared experts (deepseek's
-    ``mla_moe``) do not run on shards."""
-    if "shared" in p:
-        raise NotImplementedError("shared experts do not run on shards")
+    ``mla_moe``) run as the dense MLP does, on each rank's d_ff columns
+    (:func:`layers.mlp_apply`); their down product's partial sums join the
+    routed experts' before the one reduce-scatter onto the residual."""
     mesh = x.device_mesh
     dtype = dtype or x.dtype
     ws = [gather_fsdp(p["experts"][n]) for n in ("w1", "w3", "w2")]
@@ -319,7 +345,7 @@ def _moe_on_local_rows(p, x, cfg, dtype):
     x = x if list(x.placements) == pl_x else x.redistribute(mesh, pl_x)
     ws = [w if list(w.placements) == q else w.redistribute(mesh, q)
           for w, q in zip(ws, (pl_13, pl_13, pl_2))]
-    xr, xd = L.fan_out(x, dtype, 2)
+    xr, xd, *xs = L.fan_out(x, dtype, 3 if "shared" in p else 2)
     probs = _router_probs(xr, gather_fsdp(p["router"]["w"]))
 
     def body(probs, xd, w1, w3, w2):
@@ -336,9 +362,12 @@ def _moe_on_local_rows(p, x, cfg, dtype):
         in_placements=(pl_x, pl_x, pl_13, pl_13, pl_2),
         in_grad_placements=(grad_x, grad_x, *grad_w),
         device_mesh=mesh)(probs, xd, *ws)
-    out = reduced(constrain(out, "batch", "resid", None))
+    # taken before the shared experts, as :func:`moe_apply` takes it
     me = reduced(torch.mean(probs, dim=(0, 1)))
-    return out, _aux_loss(cfg, me, reduced(torch.mean(ce, dim=0)))
+    aux = _aux_loss(cfg, me, reduced(torch.mean(ce, dim=0)))
+    if "shared" in p:
+        out = out + L.mlp_apply(p["shared"], xs[0], cfg, unsummed=True)
+    return reduced(constrain(out, "batch", "resid", None)), aux
 
 
 def moe_combine(pair_rows, ye):
@@ -437,48 +466,122 @@ def mla_apply(p, x, cfg, *, mode, cache, pos, dtype=None):
     ``c`` and the roped key into the cache in place.  Decode is the
     absorbed path: it writes its position, then scores in the latent space
     in f32 over the whole cache, masked to positions <= ``pos``.  Returns
-    (out, cache)."""
+    (out, cache).
+
+    On DTensors q's heads shard as wq's columns do.  The latent split cuts
+    w_dkv's columns at ``r``, inside a shard where "tensor" splits them, so
+    that product runs on each rank's columns and its small (B, S, r + dr)
+    output is gathered whole before the cut.  The replicated up
+    projections w_uk and w_uv are cut to each rank's heads
+    (:func:`_heads_as`), and so is the roped key broadcast to every head.
+    The cache shards its positions over "kv_seq": each rank writes the
+    positions that fall in its shard (:func:`layers.cache_put`), and a
+    decode step scores its own positions (:func:`_latent_decode`)."""
     B, S, _ = x.shape
     H, r = cfg.n_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     dtype = dtype or x.dtype
     xq, xkv = L.fan_out(x, dtype, 2)
-    q = L.linear(p["wq"], xq).reshape(B, S, H, dn + dr)
+    q = reshape(L.linear(p["wq"], xq), B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    ckr = L.linear(p["w_dkv"], xkv)
+    ckr = replicated(L.linear(p["w_dkv"], xkv), [2])
     c = L.rmsnorm(p["kv_norm"], ckr[..., :r], cfg.norm_eps)
-    positions = (torch.arange(S, device=x.device)[None, :] if mode != "decode"
-                 else torch.full((B, 1), pos, device=x.device))
+    positions = like(torch.arange(S, device=x.device)[None, :]
+                     if mode != "decode"
+                     else torch.full((B, 1), pos, device=x.device), x)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = L.apply_rope(ckr[:, :, None, r:], positions,
                           cfg.rope_theta)[:, :, 0]
+    w_uk, w_uv = (_heads_as(p[n], q) for n in ("w_uk", "w_uv"))
 
     if mode in ("train", "prefill"):
-        k_nope = torch.einsum("bsr,rhn->bshn", c, p["w_uk"].to(c.dtype))
+        k_nope = torch.einsum("bsr,rhn->bshn", c, w_uk.to(c.dtype))
         # contiguous in the (B, S, H, D) layout the kernel's TMA reads
-        v = torch.einsum("bsr,rhv->bshv", c, p["w_uv"].to(c.dtype)) \
-            .contiguous()
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], -1)
-        o = L.chunked_attention(torch.cat([q_nope, q_rope], -1), k, v,
+        v = torch.einsum("bsr,rhv->bshv", c, w_uv.to(c.dtype)).contiguous()
+        k_rope_h = _heads_as(k_rope[:, :, None, :].expand(B, S, H, dr), q)
+        o = L.chunked_attention(torch.cat([q_nope, q_rope], -1),
+                                torch.cat([k_nope, k_rope_h], -1), v,
                                 causal=True)
         if mode == "prefill":
-            cache["c"][:, :S] = c
-            cache["kr"][:, :S] = k_rope
+            L.cache_put(cache["c"], c, 0)
+            L.cache_put(cache["kr"], k_rope, 0)
     else:
-        cache["c"][:, pos:pos + S] = c
-        cache["kr"][:, pos:pos + S] = k_rope
-        cc, ckr = cache["c"], cache["kr"]
-        q_c = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"].to(dtype))
-        f32 = torch.float32
-        s = (torch.einsum("bshr,btr->bhst", q_c.to(f32), cc.to(f32))
-             + torch.einsum("bshd,btd->bhst", q_rope.to(f32), ckr.to(f32))) \
-            * (1.0 / math.sqrt(dn + dr))
-        t_pos = torch.arange(cc.shape[1], device=x.device)
+        L.cache_put(cache["c"], c, pos)
+        L.cache_put(cache["kr"], k_rope, pos)
+        q_c = torch.einsum("bshn,rhn->bshr", q_nope, w_uk.to(dtype))
+        o_c = _latent_decode(q_c, q_rope, cache["c"], cache["kr"], pos,
+                             1.0 / math.sqrt(dn + dr))
+        o = torch.einsum("bshr,rhv->bshv", _heads_as(o_c, q), w_uv.to(dtype))
+    # the heads shard as wo's rows do
+    o = constrain(reshape(o, B, S, H * dv), "batch", None, "tensor")
+    return L.linear(p["wo"], o), cache
+
+
+def _heads_as(t, ref):
+    """``t``, replicated along its heads (an up projection (r, H, d), or a
+    (B, S, H, .) tensor: the roped key broadcast to every head, the latent
+    output), cut along them as ``ref`` (B, S, H, .) cuts its own: each
+    rank takes its heads' slice, no collective; ``t`` itself off
+    shards."""
+    if not isinstance(ref, DTensor):
+        return t
+    h = 1 if t.dim() == 3 else 2
+    return placed(t, [Shard(h) if isinstance(a, Shard) and a.dim == 2
+                      else b for a, b in zip(ref.placements, t.placements)])
+
+
+def _latent_decode(q_c, q_rope, cc, ckr, pos, scale):
+    """The absorbed decode's attention in the latent space: q_c (B, 1, H,
+    r) against the latent cache ``cc`` (B, T, r) and q_rope (B, 1, H, dr)
+    against the roped keys ``ckr`` (B, T, dr), in f32, masked to positions
+    <= ``pos``; returns o_c (B, 1, H, r) in the cache's dtype.  Over a
+    cache whose positions are sharded each rank scores its own and the
+    ranks combine their partial max, sum and o_c across the sequence's
+    mesh dims (flash decoding, as :func:`layers._decode_on_seq_shards`):
+    no cache leaf moves."""
+    f32 = torch.float32
+    if sharded_over(cc, 1) == 1:
+        s = _latent_scores(q_c, q_rope, cc, ckr, scale)
+        t_pos = torch.arange(cc.shape[1], device=cc.device)
+        s = s.masked_fill(like((t_pos > pos)[None, None, None, :], s),
+                          L.NEG_INF)
+        return torch.einsum("bhst,btr->bshr",
+                            torch.softmax(s, -1).to(cc.dtype), cc)
+    mesh = cc.device_mesh
+    kp = list(cc.placements)
+    seq_dims = [i for i, a in enumerate(kp) if isinstance(a, Shard)
+                and a.dim == 1]
+    qp = [Replicate() if i in seq_dims else a for i, a in enumerate(kp)]
+    q_c, q_rope = placed(q_c, qp), placed(q_rope, qp)
+    ckr = placed(ckr, kp)
+    _, off = compute_local_shape_and_global_offset(cc.shape, mesh, kp)
+
+    def body(q_c, q_rope, cc, ckr):
+        s = _latent_scores(q_c, q_rope, cc, ckr, scale)
+        t_pos = off[1] + torch.arange(cc.shape[1], device=cc.device)
         s = s.masked_fill((t_pos > pos)[None, None, None, :], L.NEG_INF)
-        o_c = torch.einsum("bhst,btr->bshr",
-                           torch.softmax(s, -1).to(cc.dtype), cc)
-        o = torch.einsum("bshr,rhv->bshv", o_c, p["w_uv"].to(dtype))
-    return L.linear(p["wo"], o.reshape(B, S, H * dv)), cache
+        mx = s.amax(-1, keepdim=True)
+        for d in seq_dims:
+            mx = funcol.all_reduce(mx, "max", (mesh, d))
+        e = torch.exp(s - mx)
+        num = torch.einsum("bhst,btr->bshr", e, cc.to(f32))
+        den = e.sum(-1).transpose(1, 2)[..., None]
+        for d in seq_dims:
+            num = funcol.all_reduce(num, "sum", (mesh, d))
+            den = funcol.all_reduce(den, "sum", (mesh, d))
+        return (num / den).to(cc.dtype)
+
+    return local_map(body, out_placements=qp, in_placements=(qp, qp, kp, kp),
+                     device_mesh=mesh)(q_c, q_rope, cc, ckr)
+
+
+def _latent_scores(q_c, q_rope, cc, ckr, scale):
+    """The absorbed decode's f32 scores (B, H, 1, T): q_c against the
+    latent cache plus q_rope against the roped keys."""
+    f32 = torch.float32
+    return (torch.einsum("bshr,btr->bhst", q_c.to(f32), cc.to(f32))
+            + torch.einsum("bshd,btd->bhst", q_rope.to(f32), ckr.to(f32))) \
+        * scale
 
 
 def mla_moe_init(gen, cfg, dtype, device, lead=()):

@@ -75,11 +75,14 @@ def linear_init(gen, d_in, d_out, dtype, device, scale=None, lead=()):
     return {"w": _normal(gen, (*lead, d_in, d_out), scale, dtype, device)}
 
 
-def linear(p, x):
+def linear(p, x, unsummed=False):
     """``x @ w``.  On a mesh the weight is gathered along "fsdp" first, and
     a product that contracts a sharded dim is summed across its ranks at
-    once: a partial sum is never rounded or fed on."""
-    return reduced(x @ gather_fsdp(p["w"]).to(x.dtype))
+    once: a partial sum is never rounded or fed on.  With ``unsummed`` the
+    partial sums are returned unsummed, for a caller that adds its own to
+    them before one reduction."""
+    y = x @ gather_fsdp(p["w"]).to(x.dtype)
+    return y if unsummed else reduced(y)
 
 
 def norm_init(d, device, dtype=torch.float32, bias=False, lead=()):
@@ -743,23 +746,26 @@ def _cache_write(cfg, cache, k, v, start):
 
     Unlike the JAX package's functional update this writes the cache's
     buffers in place (they are views into the model's stacked cache), so a
-    decode step moves one position, not the whole cache.  A sharded
-    buffer is written shard by shard (:func:`_write_shards`)."""
-    def upd(buf, val):
-        if isinstance(buf, DTensor):
-            _write_shards(buf, val, start)
-        else:
-            buf[:, start:start + val.shape[1]] = val.to(buf.dtype)
-
+    decode step moves one position, not the whole cache
+    (:func:`cache_put`)."""
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quant(k)
         vq, vs = _kv_quant(v)
         for name, val in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
-            upd(cache[name], val)
+            cache_put(cache[name], val, start)
     else:
-        upd(cache["k"], k)
-        upd(cache["v"], v)
+        cache_put(cache["k"], k, start)
+        cache_put(cache["v"], v, start)
     return cache
+
+
+def cache_put(buf, val, start):
+    """``buf[:, start:start + n] = val`` in place, in ``buf``'s dtype; a
+    sharded buffer shard by shard (:func:`_write_shards`)."""
+    if isinstance(buf, DTensor):
+        _write_shards(buf, val, start)
+    else:
+        buf[:, start:start + val.shape[1]] = val.to(buf.dtype)
 
 
 def _write_shards(buf, val, start):
@@ -883,16 +889,18 @@ def mlp_init(gen, cfg, dtype, device, d_ff=None, gated=True, lead=()):
     return p
 
 
-def mlp_apply(p, x, cfg, dtype=None):
+def mlp_apply(p, x, cfg, dtype=None, unsummed=False):
     """``x`` in the activation dtype, or in f32 with ``dtype`` the one its
-    products read it in (a cast for each, :func:`fan_out`)."""
+    products read it in (a cast for each, :func:`fan_out`).  With
+    ``unsummed`` the down product's partial sums across the ranks that
+    split d_ff are returned unsummed (:func:`linear`)."""
     act = act_fn(cfg.act)
     x1, x3 = fan_out(x, dtype or x.dtype, 2)
     h = act(linear(p["w1"], x1))
     if "w3" in p:
         h = h * linear(p["w3"], x3)
     h = constrain(h, "batch", None, "tensor")
-    return linear(p["w2"], h)
+    return linear(p["w2"], h, unsummed)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ is.
 The model's helpers on DTensors: :func:`constrain` (a hint becomes a
 ``redistribute``), :func:`like` (a constant replicated on the mesh),
 :func:`per_shard` (an op DTensor has no rule for, on each rank's shard),
+:func:`placed` (a DTensor in given placements),
 :func:`gather_fsdp` (a weight gathered along "fsdp" before its product),
 :func:`reduced` (partial sums summed), :func:`reshape` (a view whose
 shards it cannot carry replicated first, forward and backward),
@@ -53,6 +54,7 @@ __all__ = [
     "constrain",
     "like",
     "per_shard",
+    "placed",
     "gather_fsdp",
     "reduced",
     "replicated",
@@ -215,7 +217,7 @@ def per_shard(fn, x, whole=()):
         list(x.placements)
     return local_map(fn, out_placements=pl, in_placements=(pl,),
                      in_grad_placements=(pl,), device_mesh=x.device_mesh)(
-                         _placed(x, pl))
+                         placed(x, pl))
 
 
 def replicated(x, dims):
@@ -225,11 +227,11 @@ def replicated(x, dims):
     if not isinstance(x, DTensor):
         return x
     dims = {d % x.dim() for d in dims}
-    return _placed(x, [Replicate() if isinstance(p, Shard) and p.dim in dims
-                       else p for p in x.placements])
+    return placed(x, [Replicate() if isinstance(p, Shard) and p.dim in dims
+                      else p for p in x.placements])
 
 
-def _placed(x, pl):
+def placed(x, pl):
     """DTensor ``x`` in the placements ``pl`` (itself where it is)."""
     return x if list(pl) == list(x.placements) else x.redistribute(
         x.device_mesh, pl)
@@ -245,8 +247,8 @@ def gather_fsdp(w):
     if resolved is None:
         return w
     axes = _axes(resolved)
-    return _placed(w, [Replicate() if name in axes else p for name, p in
-                       zip(w.device_mesh.mesh_dim_names, w.placements)])
+    return placed(w, [Replicate() if name in axes else p for name, p in
+                      zip(w.device_mesh.mesh_dim_names, w.placements)])
 
 
 def reduced(x):
@@ -254,8 +256,8 @@ def reduced(x):
     ``x`` itself where it holds none."""
     if not isinstance(x, DTensor):
         return x
-    return _placed(x, [Replicate() if p.is_partial() else p
-                       for p in x.placements])
+    return placed(x, [Replicate() if p.is_partial() else p
+                      for p in x.placements])
 
 
 def sharded_over(x, dim: int) -> int:

@@ -73,7 +73,7 @@ CASES = ([{"name": f"{ARCH}-train", "arch": ARCH, "kind": "train"},
 
 def _jax_params(case, seed):
     tc = case_config(case)
-    jc = j_smoke_config(ARCH).replace(
+    jc = j_smoke_config(case["arch"]).replace(
         param_dtype="float32", dtype="float32",
         attn_score_shard=tc.attn_score_shard,
         train_microbatches=tc.train_microbatches,
@@ -99,30 +99,34 @@ def _dropped_pairs():
         blocks.moe_combine = combine
 
 
-def _dry_run_records():
+def _dry_run_records(cases):
     """{case name: the dry run's collectives of its cell} on the fake group
-    of 4 and the (2, 2) mesh."""
+    of 4 and the case's mesh (the (2, 2) one unless it names another)."""
     out = {}
     with fake_process_group(WORLD):
-        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
-        for case in CASES:
+        for case in cases:
+            shape = tuple(case.get("mesh", (2, 2)))
+            mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
             kind, S_ = case["kind"], case.get("max_len", SEQ)
             cell = S.build_cell(case_config(case), ShapeConfig(
                 kind, S_, case.get("batch", B), kind), mesh)
-            rec = D.run_cell(cell, (2, 2), D.trace_cell(cell, peak=False))
+            rec = D.run_cell(cell, shape, D.trace_cell(cell, peak=False))
             out[case["name"]] = rec["collectives"]
     return out
 
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    """Writes the cases, runs the 4 ranks once, and returns {case: (the
-    ranks' outputs, the port's one-device outputs, JAX's)}, the ranks'
-    collectives, the dry run's and {case: the pairs the port's one-device
-    run dropped}."""
-    work = tmp_path_factory.mktemp("dist_moe")
+    return run_cases(tmp_path_factory.mktemp("dist_moe"), CASES)
+
+
+def run_cases(work, cases):
+    """Writes ``cases`` into ``work``, runs the 4 ranks once, and returns
+    {case: (the ranks' outputs, the port's one-device outputs, JAX's)},
+    the ranks' collectives, the dry run's and {case: the pairs the port's
+    one-device run dropped}."""
     want, drops = {}, {}
-    for i, case in enumerate(CASES):
+    for i, case in enumerate(cases):
         jm, params = _jax_params(case, i)
         data = _inputs(case, 100 + i)
         np.savez(work / f"{case['name']}.npz", **data,
@@ -131,7 +135,7 @@ def run(tmp_path_factory):
             port = _port_outputs(case, params, data)
         drops[case["name"]] = seen[0]
         want[case["name"]] = (port, _jax_outputs(case, jm, params, data))
-    (work / "cases.json").write_text(json.dumps(CASES))
+    (work / "cases.json").write_text(json.dumps(cases))
     # gloo on the loopback device: the ranks talk to this host only
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, HERE]),
                GLOO_SOCKET_IFNAME="lo")
@@ -152,11 +156,11 @@ def run(tmp_path_factory):
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
     got = {c["name"]: dict(np.load(work / f"{c['name']}.out.npz"))
-           for c in CASES}
+           for c in cases}
     colls = [json.loads((work / f"coll.{r}.json").read_text())
              for r in range(WORLD)]
     return ({n: (got[n], *want[n]) for n in got}, colls,
-            _dry_run_records(), drops)
+            _dry_run_records(cases), drops)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES

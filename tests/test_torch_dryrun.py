@@ -16,8 +16,9 @@ for tier-1.
   FLOPs and argument bytes equal the reference's partitioned HLO's
   (mixtral-8x22b's: ``test_torch_dryrun_moe.py``).
 * An LM cell run on a one-device mesh equals the eager step builders, bit
-  for bit; a deepseek-v2-lite-16b cell (``mla_moe``) on a mesh of more
-  than one device is refused.
+  for bit; every registered config's train cell takes DTensor arguments
+  on a mesh of 8, and the moe family's train steps run there
+  (deepseek-v2-lite-16b's cells: ``test_torch_dryrun_mla.py``).
 * The CLI runs end to end; importing it sets up no process group.
 """
 import json
@@ -100,7 +101,7 @@ def ssd_cb_flops(cfg, shape, dp):
 
 
 def router_flops(cfg, shape, dp):
-    """The FLOPs of an attn_moe config's router product, x (B, S, D) by its
+    """The FLOPs of a moe config's router product, x (B, S, D) by its
     weight (D, E), on one device that holds 1 / ``dp`` of the batch rows,
     as the port runs it: each rank routes its own rows whole along the
     sequence, the weight gathered, on every "tensor" rank alike.  A train
@@ -544,50 +545,44 @@ def test_layernorm_and_the_ungated_mlp_stay_on_their_shards():
 
 
 def test_an_lm_cell_on_a_wider_mesh_is_refused():
-    """Of the LM cells on a mesh of 8, deepseek-v2-lite-16b's alone are
-    refused (its mla_moe block does not run on shards yet); mixtral-8x22b's
-    run there, on DTensor shards: its train step on (2, 4) returns its
-    metrics and the updated parameters in their placements."""
+    """No LM cell on a mesh of 8 is refused now that every block kind runs
+    on shards: deepseek-v2-lite-16b's train step (``mla_moe``) and
+    mixtral-8x22b's (``attn_moe``) run on (2, 4) on DTensor shards, each
+    returning its metrics and the updated parameters in their
+    placements."""
     with fake_process_group(8):
         mesh = make_mesh((2, 4), device_type="cpu")
-        cell = S.build_cell(smoke_config("deepseek-v2-lite-16b"), TRAIN, mesh)
-        with pytest.raises(NotImplementedError, match="does not run"):
-            S.run_cell(cell, cell.args)
-        cell = S.build_cell(smoke_config("mixtral-8x22b"), TRAIN, mesh)
-        assert S.on_shards(cell)
-        state, metrics = S.run_cell(cell, S.materialize(cell, "meta"))
-    assert isinstance(metrics["loss"], DTensor)
-    for (path, p), (_, sh) in zip(tree_leaves(state.params),
-                                  tree_leaves(cell.in_shardings[0].params)):
-        assert tuple(p.placements) == tuple(sh.placements), path
+        for arch in ("deepseek-v2-lite-16b", "mixtral-8x22b"):
+            cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
+            assert S.on_shards(cell), arch
+            state, metrics = S.run_cell(cell, S.materialize(cell, "meta"))
+            assert isinstance(metrics["loss"], DTensor), arch
+            for (path, p), (_, sh) in zip(
+                    tree_leaves(state.params),
+                    tree_leaves(cell.in_shardings[0].params)):
+                assert tuple(p.placements) == tuple(sh.placements), \
+                    (arch, path)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
 def test_a_moe_cell_is_refused_and_only_the_ssm_and_moe_ones(arch):
-    """Only a cell whose groups hold the mla_moe block is refused on a mesh
-    of 8 (deepseek-v2-lite-16b's); mixtral-8x22b's (attn_moe) takes DTensor
-    arguments there (its step runs in
-    ``test_an_lm_cell_on_a_wider_mesh_is_refused``), and so does every
-    config of the other families."""
+    """No cell is refused on a mesh of 8: the moe family's two configs
+    (``attn_moe`` and ``mla_moe``), and every registered config of every
+    family, run on shards and take DTensor arguments for their train,
+    prefill and decode cells on (2, 4) (their steps run in
+    ``test_an_lm_cell_on_a_wider_mesh_is_refused`` and the families' own
+    dry-run tests)."""
     with fake_process_group(8):
         mesh = make_mesh((2, 4), device_type="cpu")
-        cell = S.build_cell(smoke_config(arch), TRAIN, mesh)
-        refused = any("mla_moe" in pattern
-                      for pattern, _ in cell.cfg.scan_groups())
-        assert S.on_shards(cell) == (not refused)
-        if refused:
-            with pytest.raises(NotImplementedError, match="does not run"):
-                S.run_cell(cell, cell.args)
-        else:
-            assert all(isinstance(t, DTensor) for t in
-                       torch.utils._pytree.tree_leaves(
-                           S.materialize(cell, "meta"))
-                       if isinstance(t, torch.Tensor) and t.dim() > 0)
-        for other in list_configs():
-            c = S.build_cell(smoke_config(other), TRAIN, mesh)
-            assert S.on_shards(c) == (not any(
-                "mla_moe" in pattern
-                for pattern, _ in c.cfg.scan_groups())), other
+        for name in (arch, *list_configs()):
+            for shape in (TRAIN, PREFILL, DECODE):
+                cell = S.build_cell(smoke_config(name), shape, mesh)
+                assert S.on_shards(cell), (name, shape.kind)
+                assert all(isinstance(t, DTensor) for t in
+                           torch.utils._pytree.tree_leaves(
+                               S.materialize(cell, "meta"))
+                           if isinstance(t, torch.Tensor) and t.dim() > 0), \
+                    (name, shape.kind)
 
 
 def test_cli_end_to_end(tmp_path, capsys):

@@ -34,8 +34,8 @@ ARCH = "mixtral-8x22b"
 SHAPES = {"train": TRAIN, "prefill": PREFILL, "decode": DECODE}
 
 
-def moe_cells(meshes=tuple(MESHES)):
-    """{(mesh shape, kind): dry-run record} of mixtral's smoke cells on
+def moe_cells(meshes=tuple(MESHES), arch=ARCH):
+    """{(mesh shape, kind): dry-run record} of ``arch``'s smoke cells on
     fake meshes of 8."""
     out = {}
     for mesh_shape in meshes:
@@ -43,7 +43,7 @@ def moe_cells(meshes=tuple(MESHES)):
             mesh = make_mesh(mesh_shape, MESHES[mesh_shape],
                              device_type="cpu")
             for kind, shape in SHAPES.items():
-                cell = S.build_cell(smoke_config(ARCH), shape, mesh)
+                cell = S.build_cell(smoke_config(arch), shape, mesh)
                 out[(mesh_shape, kind)] = D.run_cell(
                     cell, mesh_shape, D.trace_cell(cell, peak=False))
     return out
@@ -65,7 +65,7 @@ from repro.launch.hlo_cost import analyze_hlo
 from repro.launch.specs import build_cell
 from repro.sharding import axis_rules
 
-E, D = %r, %r
+ARCH, E, D = %r, %r, %r
 
 
 def dims(d):
@@ -103,7 +103,7 @@ mesh = jax.make_mesh(tuple(shape), tuple(axes),
                      axis_types=(AxisType.Auto,) * len(shape))
 for kind in ("train", "prefill", "decode"):
     with axis_rules(mesh):
-        cell = build_cell(smoke_config("mixtral-8x22b"),
+        cell = build_cell(smoke_config(ARCH),
                           ShapeConfig(kind, 64, 8, kind), mesh)
         # every argument kept, read or not, as the port holds them
         c = jax.jit(cell.step_fn, in_shardings=cell.in_shardings,
@@ -118,15 +118,15 @@ print(json.dumps(out))
 """
 
 
-def jax_moe(mesh_shape):
+def jax_moe(mesh_shape, arch=ARCH):
     """The reference's per-device product FLOPs (``hlo_cost``), the FLOPs
     of its router's products, argument bytes and collective bytes of
-    mixtral's smoke cells on ``mesh_shape``, compiled in one subprocess on
-    8 fake host devices."""
+    ``arch``'s smoke cells on ``mesh_shape``, compiled in one subprocess
+    on 8 fake host devices."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     arg = (list(mesh_shape), list(MESHES[mesh_shape]))
-    cfg = smoke_config(ARCH)
-    code = _JAX_MOE % (cfg.n_experts, cfg.d_model, arg)
+    cfg = smoke_config(arch)
+    code = _JAX_MOE % (arch, cfg.n_experts, cfg.d_model, arg)
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -212,10 +212,10 @@ def test_a_moe_cell_on_one_device_equals_the_eager_step(kind):
 
 
 def test_a_deepseek_cell_keeps_null_collectives_with_its_family():
-    """deepseek-v2-lite-16b's mla_moe block does not run on shards yet: on
-    (2, 4) its train cell is traced on whole tensors, with the one-device
-    trace's FLOPs, and its collectives are null, the family and the config
-    named in the reason."""
+    """deepseek-v2-lite-16b's cells run on shards as mixtral's, its family's
+    other config: on (2, 4) its train cell's record carries collectives,
+    no null reason, and the one-device trace's FLOPs split over the 8
+    devices but for the router's share (:func:`router_flops`)."""
     cfg = smoke_config("deepseek-v2-lite-16b")
     with fake_process_group(1):
         cell = S.build_cell(cfg, TRAIN, make_mesh((1, 1), device_type="cpu"))
@@ -224,11 +224,11 @@ def test_a_deepseek_cell_keeps_null_collectives_with_its_family():
         mesh = make_mesh((2, 4), device_type="cpu")
         cell = S.build_cell(cfg, TRAIN, mesh)
         rec = D.run_cell(cell, (2, 4), D.trace_cell(cell, peak=False))
-    assert not S.on_shards(cell)
-    assert rec["op_cost"]["flops"] == one > 0
-    assert rec["collectives"] is None
-    assert cfg.family in rec["collectives_null_reason"]
-    assert cfg.name in rec["collectives_null_reason"]
+    assert S.on_shards(cell)
+    assert (rec["op_cost"]["flops"] - router_flops(cfg, TRAIN, 2)) * 8 == \
+        one - router_flops(cfg, TRAIN, 1)
+    assert rec["collectives"]["total_bytes"] > 0
+    assert "collectives_null_reason" not in rec
 
 
 def test_a_reshape_on_dtensors_takes_the_plain_strides():

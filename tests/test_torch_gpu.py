@@ -1057,13 +1057,41 @@ def test_a_smoke_lm_cell_on_the_one_card_mesh_equals_the_eager_step(cuda,
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_a_moe_smoke_cell_on_the_one_card_mesh_equals_the_eager_step(cuda,
-                                                                     kind):
-    """mixtral-8x22b's bf16 smoke cell (attn_moe: each rank's rows routed
-    and dispatched through ``local_map``) on DTensor arguments of the (1,
-    1) cuda mesh gives the eager step builders' outputs on the plain
-    local tensors bit for bit, the dry run's argument bytes."""
-    _one_card_cell_against_eager("mixtral-8x22b", kind)
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
+def test_a_moe_smoke_cell_on_the_one_card_mesh_equals_the_eager_step(
+        cuda, arch, kind):
+    """The moe family's bf16 smoke cells (mixtral-8x22b's attn_moe: each
+    rank's rows routed and dispatched through ``local_map``;
+    deepseek-v2-lite-16b's mla_moe: MLA with its absorbed decode, two
+    shared experts beside the routed ones) on DTensor arguments of the (1,
+    1) cuda mesh give the eager step builders' outputs on the plain local
+    tensors bit for bit, the dry run's argument bytes."""
+    _one_card_cell_against_eager(arch, kind)
+
+
+def test_a_top6_moe_gradient_is_the_same_every_run(cuda):
+    """deepseek's top-6 routing (here 6 of 8 smoke experts, bf16, pairs
+    dropped): x's gradient through the MoE block, run twice on the card,
+    equal bit for bit.  Each token's slot rows are summed in ascending
+    expert id (``blocks._DispatchRows``); ``index_select``'s own gradient
+    adds them by atomics, whose order changes from run to run."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import blocks as TB
+    cfg = smoke_config("deepseek-v2-lite-16b").replace(
+        top_k=6, n_experts=8, capacity_factor=0.5, dtype="bfloat16",
+        param_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = TB.moe_init(gen, cfg, torch.bfloat16, cuda)
+    x = torch.randn(4, 2048, cfg.d_model, generator=gen, device=cuda).to(
+        torch.bfloat16)
+
+    def x_grad():
+        xg = x.detach().requires_grad_(True)
+        out, _ = TB.moe_apply(p, xg, cfg)
+        return torch.autograd.grad(out.float().square().sum(), xg)[0]
+
+    first = x_grad()
+    assert all(torch.equal(first, x_grad()) for _ in range(3))
 
 
 def _one_card_cell_against_eager(arch, kind):

@@ -213,6 +213,46 @@ def test_combine_order_matters_with_six_experts(monkeypatch):
     assert differ > 0
 
 
+def test_the_dispatch_gradient_is_the_references_scatter_add(monkeypatch):
+    """deepseek's top-6 on 8 experts, in bf16 with pairs dropped: the
+    gradient of the dispatch's gather (``blocks._DispatchRows``: each
+    token's slot rows summed by ``moe_combine`` in ascending expert id)
+    equals JAX's gradient of the same gather, XLA's scatter-add, bit for
+    bit, on a seeded bf16 cotangent.  ``index_select``'s own gradient
+    (``index_add_``) gives other bits on the CPU, and on the card adds by
+    atomics in no fixed order (``tests/test_torch_gpu.py`` runs it twice);
+    the slot rows in the reverse order give other bits too."""
+    jc, tc, jp, tp, jx, tx = _moe_pair("bfloat16", capacity_factor=0.5,
+                                       top_k=6, n_experts=8)
+    seen = {}
+    gather = TB._DispatchRows.apply
+
+    def spy(x, rows, pair_rows):
+        seen.update(x=x, rows=rows, pair_rows=pair_rows)
+        return gather(x, rows, pair_rows)
+
+    with monkeypatch.context() as m:
+        m.setattr(TB._DispatchRows, "apply", spy)
+        TB.moe_apply(tp, tx, tc)
+    x, rows, pair_rows = seen["x"], seen["rows"], seen["pair_rows"]
+    assert (pair_rows == rows.shape[0]).any()            # pairs dropped
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(rows.shape[0], x.shape[1])).astype(np.float32)).to(
+            torch.bfloat16)
+    _, vjp = jax.vjp(lambda v: v[jnp.asarray(rows.numpy())],
+                     jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+    want = np.asarray(vjp(jnp.asarray(g.float().numpy()).astype(
+        jnp.bfloat16))[0], np.float32)
+    f32 = lambda t: t.float().numpy()  # noqa: E731
+    xg = x.detach().requires_grad_(True)
+    got, = torch.autograd.grad(TB._DispatchRows.apply(xg, rows, pair_rows),
+                               xg, g)
+    np.testing.assert_array_equal(f32(got), want)
+    plain, = torch.autograd.grad(xg.index_select(0, rows), xg, g)
+    assert (f32(plain) != want).any()
+    assert (f32(TB.moe_combine(pair_rows.flip(1), g)) != want).any()
+
+
 def _jax_block_inputs(jc, params, toks):
     """[(JAX block params, the JAX block's bf16 input)] over the smoke
     model's two blocks, each the JAX output of the one before."""

@@ -1,8 +1,9 @@
-"""One rank of ``test_torch_dist_lm.py``, ``test_torch_dist_ssm.py`` and
-``test_torch_dist_moe.py``: the LM cells of the families that run on
-shards (dense, vlm, encdec, hybrid, ssm, and the moe family's
-mixtral-8x22b) on a (2, 2) ('data', 'model') mesh of 4 gloo ranks on the
-CPU, on DTensor shards.  It imports
+"""One rank of ``test_torch_dist_lm.py``, ``test_torch_dist_ssm.py``,
+``test_torch_dist_moe.py`` and ``test_torch_dist_mla.py``: the LM cells
+of every family (dense, vlm, encdec, hybrid, ssm, and the moe family's
+mixtral-8x22b and deepseek-v2-lite-16b) on a (2, 2) ('data', 'model')
+mesh of 4 gloo ranks on the CPU, or on the ('data', 'model') mesh a case
+names (``"mesh": [4, 1]``), on DTensor shards.  It imports
 ``repro_torch`` and never JAX: the test hands it the JAX parameters and
 inputs as numpy files.
 
@@ -232,12 +233,17 @@ def main(workdir: str, rank: int, world: int) -> int:
         rank=rank, world_size=world)
     try:
         torch.set_num_threads(1)
-        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+        meshes = {}
         with open(os.path.join(workdir, "cases.json")) as f:
             cases = json.load(f)
         colls = {}
         for case in cases:
-            out, colls[case["name"]] = run_case(case, mesh, workdir)
+            shape = tuple(case.get("mesh", (2, 2)))
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape, ("data", "model"),
+                                          device_type="cpu")
+            out, colls[case["name"]] = run_case(case, meshes[shape],
+                                                workdir)
             if rank == 0:
                 np.savez(os.path.join(workdir, f"{case['name']}.out.npz"),
                          **out)

@@ -1,15 +1,18 @@
 """The share of a sharded prefill's per-device product FLOPs that runs
 without the flash-attention kernel, for the configs whose query heads do
 not divide the 16-wide "heads" axis (internvl2-1b 14, whisper-tiny 6,
-recurrentgemma-2b 10), and for mixtral-8x22b (48 heads, "repeat_kv"):
+recurrentgemma-2b 10), for mixtral-8x22b (48 heads, "repeat_kv") and for
+deepseek-v2-lite-16b (16 heads, but MLA's attention shards its query rows,
+"qrows", as the reference's does whatever the heads):
 their prefill_32k cells on the 16 x 16 mesh of a fake process group,
 traced on the meta device as the dry run traces them, each attention
 call routed as on the card (``layers._uses_flash_kernel``, its device
 test ``layers._flash_on_device`` taking the CPU).  Where the heads do
 not divide, each attention call shards its query rows ("qrows"), which
 start at an offset the kernel does not take, so every call runs the
-plain translation (``layers._attention_grouped``), on the card as here;
-mixtral's calls take the kernel's route on each rank's 3 local heads
+plain translation (``layers._attention_grouped``), on the card as here,
+and so do deepseek's; mixtral's calls take the kernel's route on each
+rank's 3 local heads
 (here its plain version stands in, counted apart).  Prints one markdown table row a
 config: the plain calls, the kernel route's calls, the FLOPs dispatched
 inside the plain calls a device, the cell's FLOPs a device and the share
@@ -26,7 +29,7 @@ from repro_torch.models import layers as L
 from repro_torch.sharding import axis_rules, axis_size
 
 ARCHS = ("internvl2-1b", "whisper-tiny", "recurrentgemma-2b",
-         "mixtral-8x22b")
+         "mixtral-8x22b", "deepseek-v2-lite-16b")
 MESH = (16, 16)
 
 
@@ -57,7 +60,8 @@ def main():
             kernel.clear()
             with axis_rules(mesh):
                 divides = cfg.n_heads % axis_size("heads") == 0
-                assert divides == (cfg.attn_score_shard == "repeat_kv"), arch
+                assert cfg.use_mla or divides == (
+                    cfg.attn_score_shard == "repeat_kv"), arch
                 cell = build_cell(cfg, SHAPES["prefill_32k"], mesh)
                 _, cost, _, _ = D.trace_cell(cell, peak=False)
             total = cost["flops"]
