@@ -193,15 +193,27 @@ Phases, each printing its lines; no phase's failure is caught:
               and mixtral's (2, 32768, 3 heads of 128) bf16, window 4096,
               through the routes' local bodies, against their plain
               versions, with their bounds ([families] lines)
- 18. result   one JSON line of per-kernel numbers (B4 as two rows, one
+ 18. pods     (o) the update buffer on 'pod' shards: (i) the flat
+              engine's sharded route at phase e's shape, K = 10 rows of
+              ResNet-18's P split as two pods' 5 on the one card, f32 and
+              bf16 slots: B1 on each pod's rows, the partials summed in pod
+              order, bit-equal to B1 on the whole buffer, and so the
+              weights; B2 on each pod's rows (the global on pod 0 only),
+              the two mixes' sum within 2e-5 of B2 on the whole buffer;
+              B1 and B2 timed at a pod's (5, P) beside the whole (10, P),
+              with their bounds; (ii) phase e's small-task seafl run inside
+              axis_rules of a (1, 1, 1) cuda mesh, its seafl_agg counts
+              zeroed just before: the buffer stays a plain tensor and the
+              run is bit-equal to the same run off a mesh ([pods] lines)
+ 19. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance, the bf16 row with whisper's two shapes,
               mixtral's, deepseek's two, phi4-mini's and the shards', and
               phase n's shapes' errors; B5's and B6's with their shard
-              shapes and phase n's shapes' errors; each row with its
-              training, uplink,
-              downlink, health, vlm, encdec, moe, mla, dist, shards and
-              families launches), the nvidia-smi line, and last the
-              contract line {"ok": true, "device": {...}}
+              shapes and phase n's shapes' errors; B1's and B2's with
+              phase o's pod shapes; each row with its training, uplink,
+              downlink, health, vlm, encdec, moe, mla, dist, shards,
+              families and pods launches), the nvidia-smi line, and last
+              the contract line {"ok": true, "device": {...}}
 
 Each phase's time is printed as it ends ([time] lines), and all of them
 with the script's total before the result.
@@ -4150,6 +4162,164 @@ def phase_families(torch):
         "ssd_forward": sum(c["b6_launches"] for c in cells.values())})
 
 
+PODS = 2                            # phase o's pods on the one card
+
+
+class _OnePod:
+    """Pod ``index`` of a buffer whose rows shard over ``PODS`` pods, on
+    the one card: its ``reduce`` hands its part back, and the phase sums
+    the pods' parts in pod order, as the sum across 'pod' does."""
+
+    def __init__(self, index):
+        self.index, self.n = index, PODS
+
+    def reduce(self, t):
+        return t
+
+
+def _fmt_ms(ms):
+    return "-" if ms is None else f"{ms:.4f}"
+
+
+def _pods_local_body(torch):
+    """o (i). The flat engine's sharded route (``seafl_agg/ops.py``: B1 on
+    a pod's own rows, the (K, 4) partials summed across pods, the weights
+    on every pod alike, B2 on a pod's rows with the global on pod 0 only,
+    the mixes summed) at phase e's shape, K = 10 rows of ResNet-18's P as
+    two pods' 5, f32 and bf16 slots: the partials and weights bit-equal to
+    the one-device B1 on the whole buffer, the new global within 2e-5 of
+    B2's (two 5-term sums added, against one 10-term sum); B2 with keep =
+    1 - theta bit-equal to its default call.  B1 and B2 timed at a pod's
+    (5, P) beside the whole (10, P), with their bounds."""
+    from repro_torch.core.buffer import LocalRows
+    from repro_torch.kernels.seafl_agg import kernel as K, ops, ref as R
+    k, p, per = MAIN_K, RESNET18_P, MAIN_K // PODS
+    sizes = [float(40 + 9 * i) for i in range(k)]
+    stale = [float(i % 4) for i in range(k)]
+    keep = K.keep_of(THETA)
+    out = {}
+    for wd in (torch.float32, torch.bfloat16):
+        w, g, _ = _inputs(torch, k, p, wd, torch.float32, seed=300)
+        pods = [LocalRows(w[i * per:(i + 1) * per],
+                          list(range(i * per, (i + 1) * per)), k, _OnePod(i))
+                for i in range(PODS)]
+        part = sum(ops.similarity_partials_from_params(x, g) for x in pods)
+        whole = K.sim_partials_from_params_call(w, g)
+        hyper = (3.0, 1.0, 10.0, True, True)
+        wts = ops._weights_from_partials(part, sizes, stale, *hyper)
+        wts_whole = ops._weights_from_partials(whole, sizes, stale, *hyper)
+        if not (torch.equal(part, whole) and torch.equal(wts, wts_whole)):
+            raise AssertionError(f"pods' partials {part} or weights {wts} "
+                                 f"differ from the whole buffer's")
+        mixed = sum(ops.weighted_aggregate(wts, x, g, THETA) for x in pods)
+        today = K.weighted_agg_call(wts, w, g, THETA)
+        err = _max_err(torch, mixed, today, rtol=2e-5, atol=2e-5)
+        if not torch.equal(K.weighted_agg_call(wts, w, g, THETA, keep=keep),
+                           today):
+            raise AssertionError("B2 with keep = 1 - theta is not its "
+                                 "default call")
+        sw, name = w.element_size(), str(wd)[6:]
+        local, wl = pods[0].rows, wts[:per].contiguous()
+        f32 = wd == torch.float32
+        rows = {}
+        # (what, rows, B1, its plain version, B2, its plain version, the
+        # one PyTorch call computing B2's function (f32 rows), g read)
+        for what, kk, b1, b1p, b2, b2p, lib, read_g in (
+                ("pod", per,
+                 lambda: K.sim_partials_from_params_call(local, g),
+                 lambda: R.similarity_partials_from_params_ref(local, g),
+                 lambda: K.weighted_agg_call(wl, local, g, THETA, keep=keep),
+                 lambda: R.weighted_agg_ref(wl, local, g, THETA, keep),
+                 lambda: torch.addmv(g, local.t(), wl, beta=keep,
+                                     alpha=THETA), True),
+                ("pod_without_g", per, None, None,
+                 lambda: K.weighted_agg_call(wl, local, g, THETA, keep=0.0),
+                 lambda: R.weighted_agg_ref(wl, local, g, THETA, 0.0),
+                 lambda: torch.addmv(g, local.t(), wl, beta=0.0,
+                                     alpha=THETA), False),
+                ("whole", k, lambda: K.sim_partials_from_params_call(w, g),
+                 lambda: R.similarity_partials_from_params_ref(w, g),
+                 lambda: K.weighted_agg_call(wts, w, g, THETA),
+                 lambda: R.weighted_agg_ref(wts, w, g, THETA),
+                 lambda: torch.addmv(g, w.t(), wts, beta=keep, alpha=THETA),
+                 True)):
+            r = {}
+            if b1 is not None:
+                bound, by = _bound_ms(kk * p * sw + p * 4 + kk * 16,
+                                      5 * kk * p + 2 * p)
+                r["sim_partials_from_params"] = dict(
+                    ms=_time_ms(torch, b1), plain_ms=_time_ms(torch, b1p),
+                    bound_ms=bound, bound_by=by, library_ms=None)
+            gp = p * 4 if read_g else 0
+            bound, by = _bound_ms(kk * 4 + kk * p * sw + gp + p * 4,
+                                  2 * kk * p + (3 if read_g else 1) * p)
+            r["weighted_agg"] = dict(
+                ms=_time_ms(torch, b2), plain_ms=_time_ms(torch, b2p),
+                bound_ms=bound, bound_by=by,
+                library_ms=_time_ms(torch, lib) if f32 else None)
+            rows[f"{what}_{kk}x{p}"] = r
+            log(f"[pods] rows={name:<8s} {what:<13s} K={kk:<2d} " + "  ".join(
+                f"{n} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+                f"{v['bound_ms']:.4f} {v['bound_by']}, library "
+                f"{_fmt_ms(v['library_ms'])})" for n, v in r.items()))
+        log(f"[pods] rows={name:<8s} {PODS} pods of {per} rows: partials "
+            f"and weights bit-equal to the whole buffer's; new global within"
+            f" {err:.3e} of B2's (2e-5); keep = 1 - theta bit-equal")
+        out[name] = dict(times=rows, max_abs_err=err)
+        del w, g, pods, local, mixed, today
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pods_of_one(torch):
+    """o (ii). The small task's seafl run (phase e's card-vs-CPU one, 2
+    aggregations) inside ``axis_rules`` of a (1, 1, 1) ('pod', 'data',
+    'model') cuda mesh: a pod of one places nothing, and the run is bit for
+    bit the same run off a mesh.  The seafl_agg counts are zeroed just
+    before the mesh run and read just after."""
+    from repro_torch.experiment import run_experiment
+    from repro_torch.kernels.seafl_agg import kernel as K
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    from repro_torch.sharding import axis_rules
+    rounds = 2
+    with local_process_group():
+        mesh = make_mesh((1, 1, 1), device_type="cuda")
+        with axis_rules(mesh):
+            K.reset_launch_counts()
+            sim_m, hist_m = run_experiment(_small_cfg("seafl", "cuda"),
+                                           max_rounds=rounds)
+            torch.cuda.synchronize()
+            launches = {fn.__name__[:-5]: fn.launches for fn in K.KERNELS}
+            buf_type = type(sim_m.server.buffer._buf).__name__
+    sim_p, hist_p = run_experiment(_small_cfg("seafl", "cuda"),
+                                   max_rounds=rounds)
+    same = (torch.equal(sim_m.server.global_flat, sim_p.server.global_flat)
+            and [h["time"] for h in hist_m] == [h["time"] for h in hist_p]
+            and [h["acc"] for h in hist_m] == [h["acc"] for h in hist_p])
+    if buf_type != "Tensor" or not same:
+        raise AssertionError(f"a pod of one: buffer {buf_type}, the run "
+                             f"bit-equal to off a mesh: {same}")
+    if (launches["sim_partials_from_params"], launches["weighted_agg"]) != \
+            (rounds, rounds):
+        raise AssertionError(f"a pod of one's run launched {launches}")
+    log(f"[pods] a pod of one ((1, 1, 1) cuda mesh): seafl on the small "
+        f"task, {rounds} aggregations, buffer a plain {buf_type}, global "
+        f"and history bit-equal to the run off a mesh; launches {launches}")
+    return launches
+
+
+def phase_pods(torch):
+    """o. The update buffer on 'pod' shards, on the one card: (i) the
+    sharded aggregation's local body at phase e's shape
+    (``_pods_local_body``); (ii) a pod of one (``_pods_of_one``)."""
+    t0 = time.perf_counter()
+    body = _pods_local_body(torch)
+    launches = _pods_of_one(torch)
+    took = time.perf_counter() - t0
+    log(f"[pods] phase took {took:.1f} s")
+    return dict(local_body=body, launches=launches, phase_s=took)
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -4255,6 +4425,7 @@ def main() -> int:
     firsts, dist = _timed(times, "dist", phase_dist, torch)
     shards = _timed(times, "shards", phase_shards, torch, firsts, dist)
     families = _timed(times, "families", phase_families, torch)
+    pods = _timed(times, "pods", phase_pods, torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -4270,7 +4441,8 @@ def main() -> int:
             "encdec_cohort": encdec["cohort"]["seafl_launches"][
                 "sim_partials_from_params"],
             "mla": mla["seafl_launches"]["sim_partials_from_params"],
-            "dist_agg": dist["agg"]["launches"]["sim_partials_from_params"]},
+            "dist_agg": dist["agg"]["launches"]["sim_partials_from_params"],
+            "pods": pods["launches"]["sim_partials_from_params"]},
         "weighted_agg": {"cohort": cohort["seafl_launches"]["weighted_agg"],
                          "uplink_topk": up_seafl["weighted_agg"],
                          "downlink_cohorts": down["seafl_launches"][
@@ -4282,7 +4454,8 @@ def main() -> int:
                          "encdec_cohort": encdec["cohort"]["seafl_launches"][
                              "weighted_agg"],
                          "mla": mla["seafl_launches"]["weighted_agg"],
-                         "dist_agg": dist["agg"]["launches"]["weighted_agg"]},
+                         "dist_agg": dist["agg"]["launches"]["weighted_agg"],
+                         "pods": pods["launches"]["weighted_agg"]},
         "sim_partials": {"cohort": cohort["seafl_launches"]["sim_partials"],
                          "mla": mla["seafl_launches"]["sim_partials"]},
         "flash_attention_bf16_tc": {
@@ -4342,6 +4515,11 @@ def main() -> int:
             "on_main_path": kname != "sim_partials",
             "bf16_rows_ms": timing[(kname, "bfloat16")]["ms"],
             "train_launches": train_launches[kname],
+            **({"pod_shapes": {
+                dt: {shape: t[kname] for shape, t in r["times"].items()
+                     if kname in t}
+                for dt, r in pods["local_body"].items()}}
+               if kname != "sim_partials" else {}),
         })
     flash = "src/repro/kernels/flash_attention/kernel.py:27"
     lm = {"flash_attention_bf16_tc": ("kernels/flash_attention/csrc/"
@@ -4418,6 +4596,7 @@ def main() -> int:
     log(f"[dist] summary: {json.dumps(dist)}")
     log(f"[shards] summary: {json.dumps(shards)}")
     log(f"[families] summary: {json.dumps(families)}")
+    log(f"[pods] summary: {json.dumps(pods)}")
     log(f"[time] phases (s): {json.dumps(times)}; the script so far "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -677,7 +677,10 @@ class SeaflServer:
     # ----------------------------------------------------------- aggregate
     def _aggregate(self, now: float) -> AggregationEvent:
         """One server aggregation, entirely on the flat (K, P) engine.  The
-        new global is a new tensor: ``_history`` still holds the old one."""
+        new global is a new tensor: ``_history`` still holds the old one.
+        On a buffer whose rows shard over 'pod' the engine is handed each
+        rank's own rows (``buffer.LocalRows``) and reduces across 'pod';
+        the new global is whole on every rank."""
         cfg = self.cfg
         prev_flat = self._flat            # drift observation base
         updates = self.buffer.updates()
@@ -700,8 +703,10 @@ class SeaflServer:
                                                       sizes, block_p=grid_w)
                 weights = w.cpu().numpy()
             elif cfg.algorithm == "fedasync":
+                # K = 1 shards over no pod: the row is the buffer's own
+                # unless a spill grew it (then gathered once)
                 self._flat = fedasync_aggregate_flat(
-                    self._flat, stacked[0], staleness[0],
+                    self._flat, self.buffer.row(0), staleness[0],
                     cfg.fedasync_alpha0, cfg.fedasync_poly_a, block_p=grid_w)
             elif cfg.algorithm == "fedbuff":
                 # fedbuff_aggregate_flat yields w_t + eta*mean(w_k - w_t);
@@ -893,7 +898,10 @@ class SeaflServer:
         resets error memory), the dispatch residuals (``dr{cid}``, or the
         cohort residuals ``cr{i}``) and the committed buffer rows (``slot{i}``, in
         the buffer's dtype).  They are the live tensors, not copies: the
-        Checkpointer copies them to the host before it returns."""
+        Checkpointer copies them to the host before it returns.  On a mesh
+        that shards the buffer's rows or the cohort residuals over 'pod',
+        each is whole on every rank (gathered here: every rank calls it),
+        the one-device run's trees."""
         trees = {f"v{v}": p for v, p in self._history.items()}
         for cid, ef in self._ef.items():
             if ef.residual is not None:

@@ -9,8 +9,13 @@
 //                   Replaces src/repro/kernels/seafl_agg/kernel.py
 //                   _sim_from_params_kernel (from_params = 1) and _sim_kernel
 //                   (from_params = 0).
-//   weighted_agg  — Eq. (7) + (8): out = (1 - theta) * g + theta * (p^T W).
-//                   Replaces src/repro/kernels/seafl_agg/kernel.py _agg_kernel.
+//   weighted_agg  — Eq. (7) + (8): out = keep * g + theta * (p^T W), with
+//                   keep = 1 - theta on one device.  Replaces
+//                   src/repro/kernels/seafl_agg/kernel.py _agg_kernel.  On a
+//                   buffer whose rows shard over 'pod', each pod mixes its
+//                   own rows and the partial outputs are summed across pods:
+//                   the keep term then enters on the first pod only, and
+//                   keep = 0 elsewhere, where g is not read.
 //
 // Both are bound by HBM bandwidth: each buffer element is read once and takes
 // 2-5 flops, far below the card's ~20 flops per byte (f32, no tensor cores).
@@ -193,16 +198,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[i] = (1 - theta) * g[i] + theta * sum_k p[k] * w[k, i], k in order.
+// out[i] = keep * g[i] + theta * sum_k p[k] * w[k, i], k in order; g is
+// read only where keep != 0.  K may be 0 (a pod that holds no committed row).
 template <typename TW, typename TG>
 __global__ void __launch_bounds__(kThreads)
     weighted_agg(const float* __restrict__ p, const TW* __restrict__ w,
                  const TG* __restrict__ g, int K, int64_t P, float theta,
-                 TG* __restrict__ out) {
+                 float keep, TG* __restrict__ out) {
   extern __shared__ float sp[];
   for (int k = threadIdx.x; k < K; k += kThreads) sp[k] = p[k];
   __syncthreads();
-  const float keep = 1.0f - theta;
+  const bool read_g = keep != 0.f;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < P; i += stride) {
@@ -219,7 +225,8 @@ __global__ void __launch_bounds__(kThreads)
       acc += sp[k + 3] * a3;
     }
     for (; k < K; ++k) acc += sp[k] * to_f32(w[static_cast<int64_t>(k) * P + i]);
-    out[i] = from_f32<TG>(keep * to_f32(g[i]) + theta * acc);
+    out[i] = from_f32<TG>(read_g ? keep * to_f32(g[i]) + theta * acc
+                                 : theta * acc);
   }
 }
 
@@ -240,8 +247,8 @@ cudaError_t launch_sim(const void* w, const void* g, int K, int64_t P,
 
 template <typename TW, typename TG>
 cudaError_t launch_agg(const float* p, const void* w, const void* g, int K,
-                       int64_t P, float theta, void* out, int nblocks,
-                       cudaStream_t s) {
+                       int64_t P, float theta, float keep, void* out,
+                       int nblocks, cudaStream_t s) {
   const size_t smem = static_cast<size_t>(K) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -251,7 +258,7 @@ cudaError_t launch_agg(const float* p, const void* w, const void* g, int K,
   }
   weighted_agg<TW, TG><<<nblocks, kThreads, smem, s>>>(
       p, static_cast<const TW*>(w), static_cast<const TG*>(g), K, P, theta,
-      static_cast<TG*>(out));
+      keep, static_cast<TG*>(out));
   return cudaGetLastError();
 }
 
@@ -286,24 +293,27 @@ int seafl_sim_partials(const void* w, int w_dtype, const void* g, int g_dtype,
   return static_cast<int>(cudaGetLastError());
 }
 
-// p: (K,) f32 weights; w: (K, P) row-major; g and out: (P,) in g_dtype.
+// p: (K,) f32 weights; w: (K, P) row-major; g and out: (P,) in g_dtype;
+// keep: the factor of g (1 - theta on one device, 0 where g is left out).
 int seafl_weighted_agg(const void* p, const void* w, int w_dtype,
                        const void* g, int g_dtype, int K, long long P,
-                       float theta, void* out, int nblocks, void* stream) {
+                       float theta, float keep, void* out, int nblocks,
+                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pf = static_cast<const float*>(p);
   cudaError_t e;
   if (w_dtype == kF32 && g_dtype == kF32) {
-    e = launch_agg<float, float>(pf, w, g, K, P, theta, out, nblocks, s);
+    e = launch_agg<float, float>(pf, w, g, K, P, theta, keep, out,
+                                     nblocks, s);
   } else if (w_dtype == kBF16 && g_dtype == kF32) {
-    e = launch_agg<__nv_bfloat16, float>(pf, w, g, K, P, theta, out, nblocks,
-                                         s);
+    e = launch_agg<__nv_bfloat16, float>(pf, w, g, K, P, theta, keep, out,
+                                         nblocks, s);
   } else if (w_dtype == kF32 && g_dtype == kBF16) {
-    e = launch_agg<float, __nv_bfloat16>(pf, w, g, K, P, theta, out, nblocks,
-                                         s);
+    e = launch_agg<float, __nv_bfloat16>(pf, w, g, K, P, theta, keep, out,
+                                         nblocks, s);
   } else if (w_dtype == kBF16 && g_dtype == kBF16) {
-    e = launch_agg<__nv_bfloat16, __nv_bfloat16>(pf, w, g, K, P, theta, out,
-                                                 nblocks, s);
+    e = launch_agg<__nv_bfloat16, __nv_bfloat16>(pf, w, g, K, P, theta, keep,
+                                                 out, nblocks, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

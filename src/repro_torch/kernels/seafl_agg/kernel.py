@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import library
@@ -42,13 +43,15 @@ def _lib() -> ctypes.CDLL:
                                            vp]
         lib.seafl_sim_partials.restype = i
         lib.seafl_weighted_agg.argtypes = [vp, vp, i, vp, i, i, ll,
-                                           ctypes.c_float, vp, i, vp]
+                                           ctypes.c_float, ctypes.c_float,
+                                           vp, i, vp]
         lib.seafl_weighted_agg.restype = i
         lib._seafl_bound = True
     return lib
 
 
-def _check_rows(stacked: torch.Tensor, global_flat: torch.Tensor) -> None:
+def _check_rows(stacked: torch.Tensor, global_flat: torch.Tensor,
+                min_rows: int = 1) -> None:
     if stacked.device.type != "cuda" or global_flat.device != stacked.device:
         raise ValueError("seafl_agg kernels take CUDA tensors on one device, "
                          f"got {stacked.device} and {global_flat.device}")
@@ -63,8 +66,8 @@ def _check_rows(stacked: torch.Tensor, global_flat: torch.Tensor) -> None:
         raise ValueError(f"expected (K, P) rows and a (P,) global, got "
                          f"{tuple(stacked.shape)} and "
                          f"{tuple(global_flat.shape)}")
-    if stacked.shape[0] < 1:
-        raise ValueError("seafl_agg kernels need K >= 1 rows")
+    if stacked.shape[0] < min_rows:
+        raise ValueError(f"this seafl_agg kernel needs K >= {min_rows} rows")
 
 
 def _grid(p: int, block_p=None) -> int:
@@ -120,12 +123,19 @@ def sim_partials_call(deltas: torch.Tensor, global_flat: torch.Tensor,
     return out
 
 
+def keep_of(theta: float) -> float:
+    """The f32 factor ``1 - theta`` of the global, as the kernel took it."""
+    return float(np.float32(1.0) - np.float32(theta))
+
+
 def weighted_agg_call(weights: torch.Tensor, stacked: torch.Tensor,
                       global_flat: torch.Tensor, theta: float,
-                      block_p=None) -> torch.Tensor:
+                      block_p=None, keep=None) -> torch.Tensor:
     """(K,) f32 weights, (K, P) rows, (P,) global, host float theta ->
-    (1 - theta) * g + theta * (w @ rows), a new (P,) tensor in g's dtype."""
-    _check_rows(stacked, global_flat)
+    keep * g + theta * (w @ rows), a new (P,) tensor in g's dtype.
+    ``keep`` defaults to ``keep_of(theta)``; with ``keep=0`` g is not read
+    (a pod's partial mix on a pod-sharded buffer, where K may be 0)."""
+    _check_rows(stacked, global_flat, min_rows=0)
     k, p = stacked.shape
     if weights.device != stacked.device or weights.dtype != torch.float32 \
             or tuple(weights.shape) != (k,) or not weights.is_contiguous():
@@ -140,7 +150,8 @@ def weighted_agg_call(weights: torch.Tensor, stacked: torch.Tensor,
     err = _lib().seafl_weighted_agg(
         weights.data_ptr(), stacked.data_ptr(), _DTYPES[stacked.dtype],
         global_flat.data_ptr(), _DTYPES[global_flat.dtype], k, p,
-        float(theta), out.data_ptr(), nblocks, _stream(dev))
+        float(theta), keep_of(theta) if keep is None else float(keep),
+        out.data_ptr(), nblocks, _stream(dev))
     _check_cuda("seafl_weighted_agg", err)
     weighted_agg_call.launches += 1
     return out

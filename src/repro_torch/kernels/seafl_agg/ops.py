@@ -15,6 +15,17 @@ tail themselves, so the (K, P) buffer is never copied.
 Every entry point returns a new tensor; the global it is given is never
 written (the server's version history aliases it).
 
+The sharded route: where the buffer's rows shard over 'pod', an entry
+point is handed each rank's own committed rows (``core.buffer.LocalRows``)
+in place of the (K, P) tensor.  B1 runs on those rows (a row's partials do
+not depend on the others); the (K, 4) partials are assembled in arrival
+order with one small sum across 'pod' (each row's from the one pod that
+holds it, zeros from the rest); the Eq. (4)-(6) weights are computed on
+every rank alike; B2 mixes each rank's rows with their weights, the global
+entering on the first pod only (``keep``), and one (P,) sum across 'pod'
+gives the new global.  The buffer's rows never cross a rank.  The route
+goes by the local tensors' device as above.
+
 Tuned grid (opt-in): every entry point takes ``block_p``, the elements of
 P one CUDA block covers, as runtime/autotune.py tunes it.  ``None`` is the
 kernels' default grid, the untuned call byte for byte.  It only sets the
@@ -40,6 +51,7 @@ import torch
 from repro_torch.core.aggregation import (
     SeaflHyper, cosine_from_partials, seafl_weights,
 )
+from repro_torch.core.buffer import LocalRows
 from repro_torch.device import timed
 from repro_torch.kernels.seafl_agg import kernel as _k
 from repro_torch.kernels.seafl_agg import ref as _ref
@@ -89,22 +101,47 @@ def similarity_partials(deltas, global_flat, block_p=None):
 
 
 def similarity_partials_from_params(stacked, global_flat, block_p=None):
-    """Delta-free Eq. (5) partials from client params (K, P) directly."""
+    """Delta-free Eq. (5) partials from client params (K, P) directly; of
+    a pod-sharded buffer's :class:`LocalRows`, the whole buffer's (K, 4)
+    in arrival order on every rank."""
+    if isinstance(stacked, LocalRows):
+        return _partials_across_pods(stacked, global_flat, block_p)
     if _on_cuda(stacked, global_flat):
         return _k.sim_partials_from_params_call(stacked, global_flat,
                                                 block_p=block_p)
     return _ref.similarity_partials_from_params_ref(stacked, global_flat)
 
 
+def _partials_across_pods(local: LocalRows, global_flat, block_p):
+    part = torch.zeros((local.k, 4), dtype=torch.float32,
+                       device=global_flat.device)
+    if local.index:
+        part[local.index] = similarity_partials_from_params(
+            local.rows, global_flat, block_p)
+    return local.shards.reduce(part)
+
+
 def weighted_aggregate(weights, stacked, global_flat, theta, block_p=None):
-    """(1 - theta) * g + theta * (weights @ stacked), in g's dtype."""
-    weights = torch.as_tensor(weights, dtype=torch.float32,
-                              device=stacked.device)
+    """(1 - theta) * g + theta * (weights @ stacked), in g's dtype; of a
+    pod-sharded buffer's :class:`LocalRows` (``weights`` over all K), each
+    pod's mix of its own rows summed across 'pod'."""
+    if isinstance(stacked, LocalRows):
+        w = torch.as_tensor(weights, dtype=torch.float32,
+                            device=stacked.rows.device)[stacked.index]
+        keep = _k.keep_of(theta) if stacked.shards.index == 0 else 0.0
+        return stacked.shards.reduce(_mix(w, stacked.rows, global_flat,
+                                          theta, block_p, keep))
+    return _mix(torch.as_tensor(weights, dtype=torch.float32,
+                                device=stacked.device),
+                stacked, global_flat, theta, block_p)
+
+
+def _mix(weights, stacked, global_flat, theta, block_p, keep=None):
     if _on_cuda(weights, stacked, global_flat):
         return _k.weighted_agg_call(weights.contiguous(), stacked,
                                     global_flat, float(theta),
-                                    block_p=block_p)
-    return _ref.weighted_agg_ref(weights, stacked, global_flat, theta)
+                                    block_p=block_p, keep=keep)
+    return _ref.weighted_agg_ref(weights, stacked, global_flat, theta, keep)
 
 
 def _weights_from_partials(part, data_sizes, staleness, alpha, mu, beta,
@@ -158,7 +195,7 @@ def fedavg_aggregate_flat(global_flat, stacked_params, data_sizes,
                           block_p=None):
     """FedAvg: w_{t+1} = sum_k (n_k/n) w_k  (theta = 1 drops the old global)."""
     n = torch.as_tensor(data_sizes, dtype=torch.float32,
-                        device=stacked_params.device)
+                        device=global_flat.device)
     w = n / torch.clamp(torch.sum(n), min=1.0)
     return weighted_aggregate(w, stacked_params, global_flat, 1.0,
                               block_p), w
@@ -168,9 +205,10 @@ def fedavg_aggregate_flat(global_flat, stacked_params, data_sizes,
 def fedbuff_aggregate_flat(global_flat, stacked_params, eta_g, block_p=None):
     """FedBuff, delta-free: w_t + eta_g mean_k(w_k - w_t)
     == (1 - eta_g) w_t + eta_g mean_k w_k  (uniform weights)."""
-    k = stacked_params.shape[0]
+    k = (stacked_params.k if isinstance(stacked_params, LocalRows)
+         else stacked_params.shape[0])
     w = torch.full((k,), 1.0 / k, dtype=torch.float32,
-                   device=stacked_params.device)
+                   device=global_flat.device)
     return weighted_aggregate(w, stacked_params, global_flat, eta_g,
                               block_p), w
 

@@ -25,10 +25,17 @@ def similarity_partials_from_params_ref(stacked, global_flat):
     return similarity_partials_ref(w - g[None, :], g)
 
 
-def weighted_agg_ref(weights, stacked, global_flat, theta):
-    """(1 - theta) * g + theta * (w @ W), returned in g's dtype."""
+def weighted_agg_ref(weights, stacked, global_flat, theta, keep=None):
+    """keep * g + theta * (w @ W), returned in g's dtype; ``keep`` is
+    1 - theta in f32 by default, and g is left out where it is 0."""
     w = weights.to(torch.float32)
     p = stacked.to(torch.float32)
     g = global_flat.to(torch.float32)
     th = torch.tensor(float(theta), dtype=torch.float32, device=g.device)
-    return ((1.0 - th) * g + th * (w @ p)).to(global_flat.dtype)
+    mix = th * (w @ p)
+    if keep is None:
+        return ((1.0 - th) * g + mix).to(global_flat.dtype)
+    if keep == 0:
+        return mix.to(global_flat.dtype)
+    kp = torch.tensor(float(keep), dtype=torch.float32, device=g.device)
+    return (kp * g + mix).to(global_flat.dtype)

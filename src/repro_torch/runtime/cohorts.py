@@ -30,6 +30,14 @@ bit for bit.  It also caches personalized fold-in encodes per cohort.
 
 The edge-aggregation tier that pre-combines a cohort's uploads into one
 (K, P) buffer slot lives in ``core/server.py`` (``_edge_absorb``).
+
+A shared residual is placed as the reference places it
+(``sharding.shard_cohort_state``, where a cohort is born and at a
+restore): its elements over 'pod' on such a mesh.  The arithmetic that
+reads it takes either: the join penalty's norms reduce across 'pod'
+(``dispatch._norm``), a residual's sum with a payload's plain error stays
+placed (``sharding.placed_as``), and the checkpoint's trees, the wire's
+fold-in and the held model gather it whole.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch.runtime.dispatch import (
 )
 from repro_torch.runtime.policy import needs_resync
 from repro_torch.runtime.telemetry import Telemetry, of as _tel_of
+from repro_torch.sharding import placed_as, shard_cohort_state, whole
 
 __all__ = [
     "CohortTable",
@@ -53,17 +62,6 @@ __all__ = [
 # cohort-key kinds: exact holders (no residual) vs delta holders
 KIND_EXACT = "x"
 KIND_DELTA = "d"
-
-
-def shard_cohort_state(vec: torch.Tensor) -> torch.Tensor:
-    """Place a cohort-shared (P,) dispatch residual.
-
-    On a device mesh the reference shards a cohort residual's element axis
-    over the 'pod' axis (``repro_torch.sharding.shard_cohort_state`` is
-    that placement).  The dispatch arithmetic that reads the residual takes
-    plain tensors, so here it stays the identity on every mesh until that
-    arithmetic takes a DTensor (ROADMAP A19)."""
-    return vec
 
 
 class CohortTable:
@@ -116,8 +114,8 @@ class CohortTable:
         return len(self.member)
 
     def resident_bytes(self) -> int:
-        """Device bytes of the shared (P,) residuals: the state that must
-        stay O(cohorts), not O(clients)."""
+        """Device bytes of the shared (P,) residuals, on every pod together:
+        the state that must stay O(cohorts), not O(clients)."""
         return sum(int(v.numel()) * 4 for v in self._residual.values())
 
     # ------------------------------------------------------------ movement
@@ -168,7 +166,7 @@ class CohortTable:
             self.memo_hits += 1
             return pen
         stored = self._residual.get(dst)
-        vec = implied()
+        vec = placed_as(implied(), stored)
         if vec is None and stored is None:
             pen = 0.0
         elif vec is None:
@@ -239,7 +237,10 @@ class CohortTable:
         }
 
     def residual_trees(self) -> dict:
-        return {f"cr{i}": v for i, v in enumerate(self._residual.values())}
+        """The residuals whole, in ``state_dict``'s ``res_keys`` order (a
+        pod-sharded one gathered: every rank calls this)."""
+        return {f"cr{i}": whole(v)
+                for i, v in enumerate(self._residual.values())}
 
     def load_state(self, state: dict, trees: dict, device=None) -> None:
         def kt(lst) -> tuple:
@@ -302,10 +303,11 @@ class CohortDispatchSession(DispatchSession):
         dst = (payload.target_version, payload.ratio, KIND_DELTA)
         if payload.shared:
             # multicast hop: implied residual = own residual + shared err
+            # (the err, whole on every rank, in the residual's placement)
             def implied():
                 r = self.table.residual_vec(src)
                 return payload.residual if r is None \
-                    else r + payload.residual
+                    else r + placed_as(payload.residual, r)
         else:
             # personalized fold: the payload's err *replaces* the residual
             def implied():

@@ -67,6 +67,12 @@ Norms: the resync test and the cached hop norm are ``float`` of an f32
 may differ from the reference's in the last ulps; a decision flips only at
 a margin that small (``tests/test_torch_dispatch.py`` reports the margins
 it saw).
+
+A residual may be a DTensor: the cohort table (runtime/cohorts.py) shards
+its residuals' elements over 'pod' on such a mesh.  Its norm is the whole
+vector's (each rank's shard's, reduced across 'pod'), and where the wire
+encodes it (the fold-in) or the held model is rebuilt (``held_flat``) it
+is gathered whole once.
 """
 from __future__ import annotations
 
@@ -75,6 +81,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.runtime.codecs import (
     CHUNK_HEADER_BYTES, Chunk, WireFormat, decode_concat, encode_error,
@@ -82,6 +89,7 @@ from repro_torch.runtime.codecs import (
 )
 from repro_torch.runtime.policy import needs_resync
 from repro_torch.runtime.telemetry import Telemetry, of as _tel_of
+from repro_torch.sharding import whole
 
 __all__ = [
     "DispatchPayload",
@@ -91,8 +99,10 @@ __all__ = [
 
 
 def _norm(x: torch.Tensor) -> float:
-    """The f32 L2 norm as a host float (one device sync)."""
-    return float(torch.linalg.norm(x))
+    """The f32 L2 norm as a host float (one device sync); of a DTensor,
+    the whole vector's (a shard's norm alone is a partial value)."""
+    n = torch.linalg.norm(x)
+    return float(n.full_tensor() if isinstance(n, DTensor) else n)
 
 
 @dataclass
@@ -407,7 +417,7 @@ class DispatchSession:
         p = int(g.shape[0])
         if delta is None:
             delta = g - ring[held]
-        vec = delta if r is None else delta + r
+        vec = delta if r is None else delta + whole(r)
         resync = (self.multicast and r is not None)
         fk = self._fold_key(cid, held, target, fmt)
         if folds is not None:
@@ -537,7 +547,7 @@ class DispatchSession:
         if self.fmt.scheme == "bf16":
             return g.to(torch.bfloat16).to(torch.float32)
         r = self._residual_of(cid)
-        return g if r is None else g - r
+        return g if r is None else g - whole(r)
 
     # ----------------------------------------------------------- telemetry
     def cache_info(self) -> dict:

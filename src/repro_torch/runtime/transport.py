@@ -156,6 +156,11 @@ class IngestBatcher:
     before any ``commit`` so readers only see flushed rows, and
     ``cancel_slot`` drops a dead upload's queued writes so a recycled row
     can never be corrupted by a stale write.
+
+    On a buffer whose rows shard over 'pod' every rank stages the same
+    decoded chunks and the flush's ``write_batch`` writes only the rows
+    the rank holds, so neither the staging nor ``cancel_slot`` needs a
+    placement of its own.
     """
 
     def __init__(self, buffer, flush_chunks: int = 16,

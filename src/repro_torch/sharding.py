@@ -28,6 +28,13 @@ The model's helpers on DTensors: :func:`constrain` (a hint becomes a
 :func:`reduced` (partial sums summed), :func:`reshape` (a view whose
 shards it cannot carry replicated first, forward and backward),
 :func:`replicated` and :func:`sharded_over`.
+
+The FL server's state on 'pod': :func:`shard_update_buffer` and
+:func:`shard_cohort_state` place the update buffer's rows and a cohort
+residual's elements as the reference does; :class:`RowShards` says which
+rows a rank holds and sums or hands over a tensor across them;
+:func:`placed_as` and :func:`whole` move a vector between plain and
+placed.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import local_map
@@ -67,6 +75,9 @@ __all__ = [
     "named_sharding",
     "shard_update_buffer",
     "shard_cohort_state",
+    "placed_as",
+    "whole",
+    "RowShards",
     "DEFAULT_RULES",
     "PARAM_RULES",
 ]
@@ -497,9 +508,10 @@ def named_sharding(mesh, spec_tree):
 def _place_leading(x: torch.Tensor, logical: str, spec_of):
     """``x`` as a DTensor whose dim 0 shards over the axes ``logical``
     resolves to, where the reference shards: a mesh is active, the axes
-    have more than one device in all and divide dim 0.  Else ``x``."""
+    have more than one device in all and divide dim 0.  Else ``x``; a
+    DTensor as it is."""
     rules = current_rules()
-    if rules.mesh is None:
+    if rules.mesh is None or isinstance(x, DTensor):
         return x
     resolved = rules.resolve(logical)
     if resolved is None:
@@ -507,20 +519,22 @@ def _place_leading(x: torch.Tensor, logical: str, spec_of):
     total = _total(resolved, mesh_axis_sizes(rules.mesh))
     if total <= 1 or x.shape[0] % total != 0:
         return x
-    # every rank holds the whole tensor: each keeps its own shard, and no
-    # data moves
-    return distribute_tensor(x, rules.mesh,
-                             placements(spec_of(resolved), rules.mesh),
-                             src_data_rank=None)
+    pl = placements(spec_of(resolved), rules.mesh)
+    # every rank holds the whole tensor: each keeps a copy of its own shard
+    # (a view would keep the whole storage alive), and no data moves
+    local = distribute_tensor(x, rules.mesh, pl,
+                              src_data_rank=None).to_local().clone()
+    return DTensor.from_local(local, rules.mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def shard_update_buffer(buf: torch.Tensor):
     """Place a (K, P) SEAFL update buffer per ``DEFAULT_RULES['buffer']``:
     the slot axis over the 'pod' mesh axis when one is active, of more than
     one device, and K divides it.  Otherwise (off a mesh: single-device
-    runs and the CPU) the buffer as it is.  ``core/buffer.py`` does not
-    call it yet: its writes and the flat engine take plain tensors
-    (ROADMAP A19)."""
+    runs and the CPU) the buffer as it is.  ``core/buffer.py`` places its
+    slot array with it at allocation and on growth; :class:`RowShards` says
+    which rows a rank holds."""
     return _place_leading(buf, "buffer", lambda r: P(r, None))
 
 
@@ -528,7 +542,75 @@ def shard_cohort_state(vec: torch.Tensor):
     """Place a cohort-shared (P,) dispatch residual per
     ``DEFAULT_RULES['cohort']``: unlike the update buffer's slot axis, its
     element axis shards over 'pod', where a mesh is active, 'pod' has more
-    than one device and P divides it.  Otherwise the vector as it is.  The
-    cohort table keeps its residuals plain until the dispatch arithmetic
-    takes a DTensor (ROADMAP A19)."""
+    than one device and P divides it.  Otherwise the vector as it is (a
+    DTensor too).  ``runtime/cohorts.py`` places each residual with it
+    where a cohort is born and at a restore."""
     return _place_leading(vec, "cohort", lambda r: P(r))
+
+
+def placed_as(t: torch.Tensor, ref):
+    """The plain tensor ``t``, held whole and alike on every rank, in
+    ``ref``'s placements where ``ref`` is a DTensor (each rank keeps its
+    own shard: no data moves), else ``t`` (None too)."""
+    if t is None or not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    return distribute_tensor(t, ref.device_mesh, ref.placements,
+                             src_data_rank=None)
+
+
+def whole(x):
+    """``x`` whole on every rank: a DTensor gathered, a plain tensor as it
+    is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+class RowShards(NamedTuple):
+    """Where the rows of a tensor whose dim 0 shards over one mesh dim (the
+    update buffer's slots over 'pod') live: ``n`` shards of ``per`` rows,
+    shard ``s`` the rows ``[s * per, (s + 1) * per)``, this rank holding
+    shard ``index``.  :meth:`reduce` sums a plain tensor across the shards'
+    ranks, :meth:`broadcast` hands one shard's tensor to the others: each
+    one collective over that mesh dim."""
+    mesh: Any
+    dim: int
+    n: int
+    index: int
+    per: int
+
+    @classmethod
+    def of(cls, x) -> "RowShards | None":
+        """The layout of ``x``'s dim 0, None where it is not sharded (a
+        plain tensor, or a DTensor that replicates its rows)."""
+        if not isinstance(x, DTensor):
+            return None
+        dims = [i for i, p in enumerate(x.placements)
+                if isinstance(p, Shard) and p.dim == 0]
+        if not dims:
+            return None
+        if len(dims) > 1:
+            raise NotImplementedError(
+                f"rows sharded over several mesh dims {x.placements}")
+        mesh, d = x.device_mesh, dims[0]
+        n = mesh.size(d)
+        return cls(mesh, d, n, mesh.get_local_rank(d), x.shape[0] // n)
+
+    def owner(self, row: int) -> int:
+        return row // self.per
+
+    def local(self, row: int) -> int | None:
+        """``row``'s index in this rank's shard, None where another shard
+        holds it."""
+        return row - self.index * self.per \
+            if self.owner(row) == self.index else None
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return _waited(funcol.all_reduce(t, "sum", (self.mesh, self.dim)))
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Shard ``src``'s ``t`` on every rank (each passes a tensor of its
+        shape and dtype)."""
+        return _waited(funcol.broadcast(t, src, (self.mesh, self.dim)))
+
+
+def _waited(t):
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t

@@ -191,12 +191,15 @@ def _flat(tree, prefix=""):
 
 
 @pytest.mark.parametrize("mesh_shape", [None, (2, 4), (2, 2, 2)])
-def test_the_buffer_stays_a_plain_tensor(mesh_shape):
+def test_the_buffer_is_placed_as_the_reference_places_it(mesh_shape):
     """The update buffer (allocated, then grown by a third add) and a cohort
-    table's residual stay plain tensors, bit for bit what was written: off
-    a mesh, on one without a 'pod' axis, and on a (pod, data, model) mesh
-    too, where the reference would place them, since their consumers take
-    plain tensors."""
+    table's residual, placed as the reference places them
+    (``shard_update_buffer``, ``shard_cohort_state``): plain tensors, bit
+    for bit what was written, off a mesh and on one without a 'pod' axis;
+    on a (pod, data, model) mesh DTensors whose rows (the residual's
+    elements) shard over 'pod', the residual's shard on this rank exactly
+    its half.  The buffer's bytes are the whole array's either way."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from repro_torch.core.buffer import Update, UpdateBuffer
     from repro_torch.launch.mesh import fake_process_group, make_mesh
     from repro_torch.runtime.cohorts import CohortTable
@@ -214,11 +217,19 @@ def test_the_buffer_stays_a_plain_tensor(mesh_shape):
         buf.merge_rows(0, 2, 1.0, 1.0)
         table = CohortTable()
         table.move(0, ("c", 1), implied=lambda: rows[3])
+    assert buf.hbm_bytes == 4 * 10 * 4
+    res = table.residual_vec(("c", 1))
+    if mesh_shape == (2, 2, 2):
+        over_pod = [Shard(0), Replicate(), Replicate()]
+        assert isinstance(buf._buf, DTensor)
+        assert list(buf._buf.placements) == over_pod
+        assert buf._rows.shape == (2, 10)      # this pod's 2 of the 4 rows
+        assert isinstance(res, DTensor) and list(res.placements) == over_pod
+        assert torch.equal(res.to_local(), rows[3][:5])
+        return
     assert type(buf.stacked_flat()) is torch.Tensor
     assert torch.equal(buf.stacked_flat(), torch.stack(
         [(rows[0] + rows[2]) / 2, rows[1], rows[2]]))
-    assert buf.hbm_bytes == 4 * 10 * 4
-    res = table.residual_vec(("c", 1))
     assert type(res) is torch.Tensor and torch.equal(res, rows[3])
 
 

@@ -121,6 +121,58 @@ def test_server_aggregation_goes_through_the_kernels(cuda):
     np.testing.assert_allclose(outs["cuda"][1], outs["cpu"][1], atol=1e-6)
 
 
+class _OnePodOfTwo:
+    """A pod of a buffer sharded over two pods, on the one card: its
+    ``reduce`` hands its part back, and the test sums the two in pod
+    order (what the sum across 'pod' gives)."""
+
+    def __init__(self, index):
+        self.index, self.n = index, 2
+
+    def reduce(self, t):
+        return t
+
+
+@pytest.mark.parametrize("wd", ["f32", "bf16"])
+def test_the_sharded_routes_local_body_on_two_pods_halves(cuda, wd):
+    """The flat engine's sharded route on the two halves of an (8, 2^20 +
+    37) buffer, each pod's 4 rows: B1 on each half, the (8, 4) partials
+    summed in pod order, bit-equal to B1 on the whole buffer, and so the
+    weights; B2 on each half, the global entering on pod 0 only, the two
+    mixes' sum within 2e-5 of B2 on the whole buffer (two 4-term sums
+    added in another order than one 8-term sum).  keep = 1 - theta is
+    today's call bit for bit, and with keep = 0 the global is not read."""
+    from repro_torch.core.buffer import LocalRows
+    from repro_torch.kernels.seafl_agg import kernel as K, ops
+    k, p, theta = 8, (1 << 20) + 37, 0.7
+    w, g, _ = _inputs(cuda, k, p, DT[wd], torch.float32)
+    sizes, stale = [float(10 + i) for i in range(k)], [float(i % 3)
+                                                      for i in range(k)]
+    halves = [LocalRows(w[4 * i:4 * i + 4], list(range(4 * i, 4 * i + 4)),
+                        k, _OnePodOfTwo(i)) for i in range(2)]
+    K.reset_launch_counts()
+    part = sum(ops.similarity_partials_from_params(h, g) for h in halves)
+    whole = K.sim_partials_from_params_call(w, g)
+    assert torch.equal(part, whole)
+    wts = ops._weights_from_partials(part, sizes, stale, 3.0, 1.0, 10.0,
+                                     True, True)
+    assert torch.equal(wts, ops._weights_from_partials(
+        whole, sizes, stale, 3.0, 1.0, 10.0, True, True))
+    mixed = sum(ops.weighted_aggregate(wts, h, g, theta) for h in halves)
+    assert (K.sim_partials_from_params_call.launches,
+            K.weighted_agg_call.launches) == (3, 2)
+    today = K.weighted_agg_call(wts, w, g, theta)
+    torch.testing.assert_close(mixed, today, rtol=2e-5, atol=2e-5)
+    assert torch.equal(K.weighted_agg_call(wts, w, g, theta,
+                                           keep=K.keep_of(theta)), today)
+    unread = torch.full_like(g, float("nan"))
+    assert torch.equal(K.weighted_agg_call(wts, w, unread, theta, keep=0.0),
+                       K.weighted_agg_call(wts, w, g, theta, keep=0.0))
+    empty = K.weighted_agg_call(wts[:0], w[:0], g, theta, keep=0.0)
+    assert torch.equal(empty, torch.zeros_like(g))
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------ the autotuner's grid (block_p)
 
 @pytest.mark.parametrize("k,p", [(10, 11_176_970), (33, 70_001)],
