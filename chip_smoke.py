@@ -7,6 +7,8 @@ federated simulation, the LM serving path and the LM training path.
     python3 chip_smoke.py --probe           # only B4 f32's and B5's probe
     python3 chip_smoke.py --dist            # only phase l
     python3 chip_smoke.py --shards          # only phases l, m and n
+    python3 chip_smoke.py --dense           # only phase p, with its B4 rows
+                                            # and card-against-CPU checks
 
 Phases, each printing its lines; no phase's failure is caught:
 
@@ -42,7 +44,11 @@ Phases, each printing its lines; no phase's failure is caught:
               PyTorch call computing the same function, with CUDA events,
               beside the least time the card could take (bound_ms); B4
               also at deepseek-v2-lite-16b's prefill_32k row (1 x 32768,
-              q/k 192, v 128) against SDPA, its backend named
+              q/k 192, v 128) against SDPA, its backend named, and at
+              phase p's three whole-model layouts over a 1 x 32768 row
+              (minicpm-2b's 36 heads of 64, qwen3-32b's 64 / 8 of 128,
+              granite-34b's 48 on one KV head of 128) against its plain
+              version on every query, SDPA's backend named
   5. e2e      the SEAFL simulation (ExperimentConfig -> build_experiment ->
               FLSimulation.run) on ResNet-18 at full width for 3
               aggregations; the seafl_agg launch counts are zeroed just before
@@ -59,7 +65,10 @@ Phases, each printing its lines; no phase's failure is caught:
               the prefill and one decode step are profiled.  Then both models' f32 smoke configs run
               on the card and on the CPU from one set of weights: identical
               greedy tokens, prefill logits within 1e-3; recurrentgemma's
-              f32 prefill must run flash attention's mma.sync instance.
+              f32 prefill must run flash attention's mma.sync instance;
+              then phase p's three configurations' smoke configs the same
+              way, minicpm-2b's and qwen3-32b's also with the int8 KV
+              cache.
   7. train    the LM training path: (a) the input gradients of B4 (both
               instances), B5 and B6 on the card against autograd through
               their plain versions; (b) launch/specs.make_train_step at
@@ -157,12 +166,14 @@ Phases, each printing its lines; no phase's failure is caught:
               routing ([mla] and the reused phases' lines)
  15. dist     (l) distribution and cost: the dry-run CLI for
               phi4-mini-3.8b on 16 x 16, 2 x 16 x 16 and (1, 1) in
-              subprocesses; its train_4k, prefill_32k and decode_32k cells,
-              batch cut, on the (1, 1) cuda mesh on plain tensors (argument
+              subprocesses, started before phase j; its train_4k (at 16
+              of its 32 layers, DIST_TRAIN_LAYERS), prefill_32k and
+              decode_32k cells, batch cut, on the (1, 1) cuda mesh on plain
+              tensors (argument
               bytes against the dry run's, peak, ms, TFLOP/s, bit-equal to
               the eager builders); the aggregation cell against B1 + B2
  16. shards   (m) the same three cells on DTensor arguments, bit-equal to
-              phase l's runs (B4 64 a train step, 32 a prefill, 0 in
+              phase l's runs (B4 32 a train step, 32 a prefill, 0 in
               decode), their times beside phase l's; B4 at the local shapes
               of qwen3-32b's and granite-34b's 16 x 16 prefill_32k shards
               through the route's local body, against its plain version,
@@ -205,14 +216,29 @@ Phases, each printing its lines; no phase's failure is caught:
               axis_rules of a (1, 1, 1) cuda mesh, its seafl_agg counts
               zeroed just before: the buffer stays a plain tensor and the
               run is bit-equal to the same run off a mesh ([pods] lines)
- 19. result   one JSON line of per-kernel numbers (B4 as two rows, one
+ 19. dense    (p) the dense family's three demanding configurations:
+              minicpm-2b's, qwen3-32b's and granite-34b's train_4k,
+              prefill_32k and decode_32k cells at published widths, batch
+              cut as phase l's (8, 1, 4), depth from the dry run's peak
+              estimate and materialize's own (DENSE_LAYERS: qwen3-32b 4 /
+              24 / 44 of 64 layers, granite-34b 4 / 24 / 40 of 88,
+              minicpm-2b 20 / 40 / 40), on the (1, 1) cuda mesh on plain
+              tensors with each configuration's own KV cache (int8 for
+              minicpm-2b and qwen3-32b), B4 as the block kinds reckon, all
+              tc; the two int8 decode cells again
+              on DTensor arguments, bit-equal; the int8 cache's read timed
+              a layer; serve() for minicpm-2b at full depth with its int8
+              cache, 4 x 4096 prompts, 32 generated, prefill and a decode
+              step profiled ([dense] lines)
+ 20. result   one JSON line of per-kernel numbers (B4 as two rows, one
               per instance, the bf16 row with whisper's two shapes,
-              mixtral's, deepseek's two, phi4-mini's and the shards', and
-              phase n's shapes' errors; B5's and B6's with their shard
+              mixtral's, deepseek's two, phi4-mini's, the shards' and
+              phase p's three layouts, and phase n's shapes' errors; B5's
+              and B6's with their shard
               shapes and phase n's shapes' errors; B1's and B2's with
               phase o's pod shapes; each row with its training, uplink,
               downlink, health, vlm, encdec, moe, mla, dist, shards,
-              families and pods launches), the nvidia-smi line, and last
+              families, pods and dense launches), the nvidia-smi line, and last
               the contract line {"ok": true, "device": {...}}
 
 Each phase's time is printed as it ends ([time] lines), and all of them
@@ -226,7 +252,8 @@ f32 instance and of B5's ring, one JSON line each.  With --lm-cost it runs
 phases 1 and 2 and then only the full-width train step and one prefill of
 each LM (phase_lm_cost), one JSON line: copied into another tree's root
 and run there in turns with this one, it compares two trees' LM numerics
-on one card.
+on one card.  With --dense it runs phases 1 and 2, then B4 at phase p's
+three layouts, their smoke configs card against CPU, and phase p.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's src/ beside this file.
@@ -640,6 +667,12 @@ FAMILY_B4 = {"internvl2-1b": (*VLM_HEADS, 64, None, None),
                                MIXTRAL["window"], None),
              "deepseek-v2-lite-16b": (DEEPSEEK["H"], DEEPSEEK["H"],
                                       DEEPSEEK["D"], None, DEEPSEEK["Dv"])}
+# phase p's configurations' whole-model B4 layouts (H, KVH, D), bf16, causal
+# over a prefill_32k row: minicpm-2b's 36 heads of 64 (MHA, G = 1),
+# qwen3-32b's 64 / 8 of 128 and granite-34b's 48 on one KV head of 128 (MQA,
+# G = 48)
+DENSE_B4 = {"minicpm-2b": (36, 36, 64), "qwen3-32b": (64, 8, 128),
+            "granite-34b": (48, 1, 128)}
 CELL_ROWS = ((1, PHI4["prompt"]), PHI4["train"])
 MB = dict(NH=64, hd=64, ds=128, chunk=128)              # mamba2-1.3b
 # B6's rows of phase n: its prefill_32k row and its train_4k microbatch (8
@@ -1069,6 +1102,57 @@ def _band_mask(torch, S, window):
     return (k <= q) & (k > q - window)
 
 
+def _dense_b4(torch, arch):
+    """B4 at ``arch``'s whole-model layout (``DENSE_B4``) over one
+    32768-position row, causal, bf16: on the tc instance, against its plain
+    version on every query (512 at a time, ``_flash_plain``) within one
+    bf16 step; its ms, the plain version's at the first 512 queries (their
+    scores against every key, masked, as each of its chunks computes) and
+    over the whole row (one call), and SDPA's with k/v expanded to the
+    query heads and the backend it picks, named from its kernels."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    F = torch.nn.functional
+    H, KVH, D = DENSE_B4[arch]
+    S = PHI4["prompt"]
+    q, k, v = _flash_inputs(torch, 1, S, S, H, KVH, D, torch.bfloat16,
+                            90 + H)
+    FK.reset_launch_counts()
+    o = FK.flash_attention_call(q, k, v, causal=True)
+    if FK.flash_attention_call.launches_tc != 1:
+        raise AssertionError(f"B4 at {arch}'s layout did not run on tc")
+    want, plain_s = _sync_s(torch, lambda: _flash_plain(q, k, v, True, None))
+    err = _max_err(torch, o, want, rtol=2 ** -7, atol=1e-5)
+    del o, want
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(H // KVH, dim=1)
+              for t in (k, v))
+    with _profiler(torch) as prof:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.cuda.synchronize()
+    sdpa_kernels = [key for _, key in _kernel_times(torch, prof)[1]]
+    row = dict(
+        ms=_time_ms(torch, lambda: FK.flash_attention_call(
+            q, k, v, causal=True), iters=10, warmup=2),
+        plain_ms=plain_s * 1e3,
+        plain_512_ms=_time_ms(torch, lambda: _flash_plain(
+            q[:, :512], k, v, True, None), iters=3, warmup=1),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=5, warmup=1),
+        library_kernels=[key[:80] for key in sdpa_kernels[:3]],
+        nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
+        flops=4 * D * (S * (S + 1) // 2) * H, peak=BF16_FLOPS_PER_S,
+        max_abs_err=err, q=[1, S, H, D], kv=[1, S, KVH, D])
+    log(f"[timing] B4 at {arch}'s layout q (1, {S}, {H}, {D}), k/v (1, {S}, "
+        f"{KVH}, {D}), causal, bf16 (tc): max|d| {err:.3e} against the plain "
+        f"version (one bf16 step); its 512 first queries "
+        f"{row['plain_512_ms']:.2f} ms, the whole row {plain_s * 1e3:.1f} ms "
+        f"(one call); kernel_ms={row['ms']:.4f} library_ms="
+        f"{row['library_ms']:.4f}; SDPA runs {sdpa_kernels[:3]}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_timing_lm(torch):
     """B4-B6 at the slice's shapes: kernel, plain version, bound, and (B4)
     one PyTorch call computing the same function -- SDPA with a boolean
@@ -1243,6 +1327,12 @@ def phase_timing_lm(torch):
         nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
         flops=4 * Dp * (Sp * (Sp + 1) // 2) * Hp, peak=BF16_FLOPS_PER_S)
     del q, k, v, qt, kt, vt
+
+    # phase p's three whole-model layouts (minicpm-2b's D = 64 at G = 1,
+    # qwen3-32b's 64 / 8, granite-34b's G = 48 on one KV head), each over a
+    # 32768-position row against its plain version (_dense_b4)
+    for arch in DENSE_B4:
+        rows[f"flash_attention_bf16_tc_{arch}"] = _dense_b4(torch, arch)
 
     C = RG["C"]
     log_a, b = _rglru_inputs(torch, B, S, C, torch.float32, 61)
@@ -1503,10 +1593,11 @@ def phase_serve(torch):
     return counts, summary
 
 
-def _serve_card_vs_cpu(torch, arch):
-    """``arch``'s smoke config in f32, weights made once from a seed: the
-    card (kernels) and the CPU (plain versions) give identical greedy
-    tokens and prefill logits within 1e-3.  A model with attention runs
+def _serve_card_vs_cpu(torch, arch, kv_cache_dtype=None):
+    """``arch``'s smoke config in f32 (with ``kv_cache_dtype``'s KV cache if
+    given), weights made once from a seed: the card (kernels) and the CPU
+    (plain versions) give identical greedy tokens and prefill logits
+    within 1e-3.  A model with attention runs
     flash attention's mma.sync instance here (f32, head dim 16): its
     prefill must launch it on the card, and no kernel on the CPU.  Returns
     the card's mma launches."""
@@ -1515,6 +1606,8 @@ def _serve_card_vs_cpu(torch, arch):
     from repro_torch.launch.specs import make_prefill_step, make_serve_step
     from repro_torch.models.model import build_model, tree_map
     cfg = smoke_config(arch).replace(param_dtype="float32", dtype="float32")
+    if kv_cache_dtype is not None:
+        cfg = cfg.replace(kv_cache_dtype=kv_cache_dtype)
     gen = torch.Generator().manual_seed(0)
     params = build_model(cfg, "cpu").init(gen)
     prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
@@ -1551,7 +1644,9 @@ def _serve_card_vs_cpu(torch, arch):
         raise AssertionError(f"{arch}: card vs CPU differ: tokens "
                              f"{toks['cuda'].tolist()} vs "
                              f"{toks['cpu'].tolist()}, logits {d}")
-    log(f"[card-vs-cpu] {arch} smoke f32: 12 greedy tokens identical, "
+    log(f"[card-vs-cpu] {arch} smoke f32"
+        f"{'' if kv_cache_dtype is None else f', {kv_cache_dtype} KV cache'}"
+        f": 12 greedy tokens identical, "
         f"prefill logits max|d| {d:.3e}, flash attention mma.sync "
         f"launches in prefill {mma_launches}")
     return mma_launches["cuda"]
@@ -1562,9 +1657,23 @@ def phase_card_vs_cpu(torch):
     CPU (``_serve_card_vs_cpu``).  The prompt (40) is longer than the
     smoke window (16) and the SSD chunk (16).  This is the path where
     flash attention's mma.sync instance runs: recurrentgemma's prefill must
-    launch it on the card."""
+    launch it on the card.  Then phase p's three dense configurations the
+    same way, and minicpm-2b and qwen3-32b again with the int8 KV cache
+    their full configs hold."""
     for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
         _serve_card_vs_cpu(torch, arch)
+    _dense_card_vs_cpu(torch)
+
+
+def _dense_card_vs_cpu(torch):
+    """Phase p's configurations' smoke configs card against CPU in f32
+    (``_serve_card_vs_cpu``), and again with the int8 KV cache where the
+    full config holds one."""
+    from repro_torch.configs import get_config
+    for arch in DENSE:
+        _serve_card_vs_cpu(torch, arch)
+        if get_config(arch).kv_cache_dtype == "int8":
+            _serve_card_vs_cpu(torch, arch, "int8")
 
 
 # ---------------------------------------- LM training path (gradients)
@@ -3313,6 +3422,9 @@ DIST = "phi4-mini-3.8b"
 # 32 and 128)
 DIST_CUTS = {"train_4k": 8, "prefill_32k": 1, "decode_32k": 4}
 DIST_DECODE_STEPS = 8
+# its train_4k step at half its 32 layers, for the script's time (phases l
+# and m; their prefill_32k and decode_32k cells run all 32)
+DIST_TRAIN_LAYERS = 16
 PUBLISHED_MESHES = ("16x16", "2x16x16", "1x1")
 DIST_K = 4
 DIST_SEED = 24
@@ -3342,7 +3454,8 @@ def _start_dryruns(tmp):
             for m in PUBLISHED_MESHES}
     for shape, batch in DIST_CUTS.items():
         runs[shape] = ["--shape", shape, "--batch", str(batch), "--mesh",
-                       "1x1"]
+                       "1x1"] + (["--layers", str(DIST_TRAIN_LAYERS)]
+                                 if shape == "train_4k" else [])
     procs = {}
     for name, extra in runs.items():
         out = os.path.join(tmp, name)
@@ -3446,7 +3559,8 @@ def _dist_cell(torch, mesh, name, rec):
     from repro_torch.launch import specs as SP
     from repro_torch.models.model import build_model
     from repro_torch.tree import tree_map
-    cfg = get_config(DIST)
+    full = get_config(DIST)
+    cfg = full.replace(n_layers=CELL_LAYERS[DIST].get(name, full.n_layers))
     pub = SHAPES[name]
     shape = ShapeConfig(name, pub.seq_len, DIST_CUTS[name], pub.kind)
     cell = SP.build_cell(cfg, shape, mesh)
@@ -3557,8 +3671,11 @@ def _dist_cell(torch, mesh, name, rec):
     flops = rec["op_cost"]["flops"]
     tflops = card_flops / (ms / 1e3) / 1e12
     est = rec["memory"].get("peak_estimate_bytes")
+    depth = ("" if cfg.n_layers == full.n_layers else
+             f", depth {cfg.n_layers} of {full.n_layers} layers")
     log(f"[dist] {DIST} {name} cut to batch {shape.global_batch} (of "
-        f"{pub.global_batch}), seq {shape.seq_len}: arguments {asked} B "
+        f"{pub.global_batch}){depth}, seq {shape.seq_len}: arguments "
+        f"{asked} B "
         f"asked of the allocator ({rise} B in its blocks) against {want} B "
         f"(dry run, {leaves} tensors); peak "
         f"{peak} B against the estimate {est} B (ratio "
@@ -3571,7 +3688,8 @@ def _dist_cell(torch, mesh, name, rec):
     del model
     torch.cuda.empty_cache()
     return first, dict(batch=shape.global_batch, of=pub.global_batch,
-                seq=shape.seq_len, arg_bytes=asked, arg_block_bytes=rise,
+                seq=shape.seq_len, layers=cfg.n_layers, arg_bytes=asked,
+                arg_block_bytes=rise,
                 dry_arg_bytes=want,
                 peak_bytes=peak, peak_estimate_bytes=est,
                 peak_ratio=peak / est, ms=ms, card_flops=card_flops,
@@ -3675,52 +3793,60 @@ def _dist_agg(torch, mesh):
                 launches=launched)
 
 
-def phase_dist(torch):
-    """l. Distribution and cost (A19), returning (each cell's first
-    outputs on the host, the summary): (i) the dry-run CLI
-    (repro_torch.launch.dryrun --arch phi4-mini-3.8b --agg) on the 16 x 16
-    and 2 x 16 x 16 production meshes and the (1, 1) mesh, in a subprocess
-    on the host's cores while the card runs (ii) and (iii): a [dist] line
-    per cell (flops; argument, output and alias bytes per device; the peak
-    estimate on (1, 1); the aggregation cell's collectives, > 0 on
-    2 x 16 x 16 and 0 on (1, 1)).  (ii) phi4-mini-3.8b's train_4k (8 x
-    4096, M = 1, 3 steps), prefill_32k (1 x 32768) and decode_32k (4
-    sequences of a 32768 cache, 8 steps) cells at its published widths on
-    the (1, 1) cuda mesh over a one-rank process group
-    (``_dist_cell``); the dry run of each cut cell runs in its own
-    subprocess.  (iii) the aggregation cell at phi4-mini-3.8b's P, K = 4,
-    bf16, against B1 + B2 (``_dist_agg``)."""
+@contextlib.contextmanager
+def _dryruns():
+    """Phase l's dry-run subprocesses (``_start_dryruns``) in a temporary
+    directory, each killed on the way out if it still runs (a phase failed
+    before phase l read its record)."""
     import tempfile
-    from repro_torch.launch.mesh import local_process_group, make_mesh
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         procs = _start_dryruns(tmp)
         try:
-            with local_process_group():
-                mesh = make_mesh((1, 1), ("data", "model"),
-                                 device_type="cuda")
-                cells, walls, firsts = {}, {}, {}
-                for name in DIST_CUTS:
-                    rec, = _dryrun_records(procs, name, 600).values()
-                    t1 = time.perf_counter()
-                    firsts[name], cells[name] = _dist_cell(torch, mesh, name,
-                                                           rec)
-                    walls[name] = time.perf_counter() - t1
-                t1 = time.perf_counter()
-                agg = _dist_agg(torch, mesh)
-                walls["agg"] = time.perf_counter() - t1
-            t1 = time.perf_counter()
-            published = {}
-            for m in PUBLISHED_MESHES:
-                published.update(_dryrun_records(procs, f"published_{m}",
-                                                 900))
-            walls["dry_run_wait"] = time.perf_counter() - t1
+            yield procs
         finally:
             for proc, _, logf in procs.values():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
                 logf.close()
+
+
+def phase_dist(torch, procs):
+    """l. Distribution and cost (A19), returning (each cell's first
+    outputs on the host, the summary): (i) the dry-run CLI
+    (repro_torch.launch.dryrun --arch phi4-mini-3.8b --agg) on the 16 x 16
+    and 2 x 16 x 16 production meshes and the (1, 1) mesh, in subprocesses
+    (``procs``, from ``_dryruns``) on the host's cores, started before
+    phases j and k so that they run while the card runs those and (ii) and
+    (iii): a [dist] line
+    per cell (flops; argument, output and alias bytes per device; the peak
+    estimate on (1, 1); the aggregation cell's collectives, > 0 on
+    2 x 16 x 16 and 0 on (1, 1)).  (ii) phi4-mini-3.8b's train_4k (8 x
+    4096, M = 1, 3 steps, at DIST_TRAIN_LAYERS of its 32 layers),
+    prefill_32k (1 x 32768) and decode_32k (4
+    sequences of a 32768 cache, 8 steps) cells at its published widths on
+    the (1, 1) cuda mesh over a one-rank process group
+    (``_dist_cell``); the dry run of each cut cell runs in its own
+    subprocess.  (iii) the aggregation cell at phi4-mini-3.8b's P, K = 4,
+    bf16, against B1 + B2 (``_dist_agg``)."""
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    t0 = time.perf_counter()
+    with local_process_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        cells, walls, firsts = {}, {}, {}
+        for name in DIST_CUTS:
+            rec, = _dryrun_records(procs, name, 600).values()
+            t1 = time.perf_counter()
+            firsts[name], cells[name] = _dist_cell(torch, mesh, name, rec)
+            walls[name] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        agg = _dist_agg(torch, mesh)
+        walls["agg"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    published = {}
+    for m in PUBLISHED_MESHES:
+        published.update(_dryrun_records(procs, f"published_{m}", 900))
+    walls["dry_run_wait"] = time.perf_counter() - t1
     _dist_print_dryrun(published)
     took = time.perf_counter() - t0
     log(f"[dist] phase took {took:.1f} s (" + ", ".join(
@@ -3757,14 +3883,16 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
     its batch cut to DIST_CUTS' (and its depth to CELL_LAYERS', where one
     card cannot hold it), on the (1, 1) cuda mesh from DIST_SEED,
     on DTensor arguments (materialize's own) or on their local tensors: a
-    train step and one more from its state, a prefill three times,
+    train step and one more from its state, a prefill twice,
     DIST_DECODE_STEPS decode steps.  B4's, B5's and B6's launches are
     checked against the block kinds' reckoning (``_per_step`` in each
     microbatch of a train step, with B5's reverse scan in the backward;
     ``_per_forward`` in a prefill; none in decode), all of B4's on its
     tensor-core instance.  Returns the first run's outputs on the host and
     dict(ms: the warm runs' median, walls_ms, b4_per_run, b5_per_run,
-    b6_per_run, runs, layers, of_layers)."""
+    b6_per_run, runs, layers, of_layers, materialize_peak_bytes: the card's
+    peak while the arguments were drawn, peak_bytes: its peak while the
+    cell ran)."""
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import SHAPES, ShapeConfig, get_config
     from repro_torch.launch import specs as SP
@@ -3777,8 +3905,11 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
     cell = SP.build_cell(cfg, shape, mesh)
     if not SP.on_shards(cell):
         raise AssertionError(f"{arch}: its cells do not run on shards")
+    torch.cuda.reset_peak_memory_stats()
     args = SP.materialize(cell, "cuda", DIST_SEED,
                           pos=shape.seq_len - DIST_DECODE_STEPS)
+    materialize_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     if not all(isinstance(t, DTensor) for t in
                torch.utils._pytree.tree_leaves(args)
                if isinstance(t, torch.Tensor) and t.dim() > 0):
@@ -3805,11 +3936,10 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
         (logits, _), _ = _sync_s(torch, lambda: SP.run_cell(cell, args))
         first = dict(logits=local(logits))
         del logits
-        walls = [_sync_s(torch, lambda: SP.run_cell(cell, args))[1]
-                 for _ in range(2)]
-        if not torch.isfinite(first["logits"]).all():
+        walls = [_sync_s(torch, lambda: SP.run_cell(cell, args))[1]]
+        if not torch.isfinite(first["logits"][..., :cfg.vocab_size]).all():
             raise AssertionError(f"{arch} {name}: logits not finite")
-        runs = 3
+        runs = 2
         del args
     else:
         params, cache, tok = args
@@ -3824,6 +3954,7 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
         walls, runs = walls[1:], DIST_DECODE_STEPS
         del params, cache, tok
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     per = (_per_step(cfg) if shape.kind == "train" else _per_forward(cfg)
            if shape.kind == "prefill" else dict.fromkeys(KERNEL_OF_BLOCK
                                                          .values(), 0))
@@ -3846,7 +3977,9 @@ def _cell_runs(torch, mesh, arch, name, dtensor):
                        of_layers=full.n_layers,
                        ms=sorted(walls)[len(walls) // 2] * 1e3,
                        walls_ms=[w * 1e3 for w in walls], b4_per_run=b4,
-                       b5_per_run=b5, b6_per_run=b6, runs=runs)
+                       b5_per_run=b5, b6_per_run=b6, runs=runs,
+                       materialize_peak_bytes=materialize_peak,
+                       peak_bytes=peak)
 
 
 def _same_outputs(torch, a, b):
@@ -3985,6 +4118,32 @@ MLA_CELL_TRAIN_LAYERS = 6
 # and decode_32k cells run every layer
 HALF_TRAIN_LAYERS = {"mamba2-1.3b": 24, "internvl2-1b": 12,
                      "recurrentgemma-2b": 13}
+# -- phase p's configurations: the dense family's three never run whole on
+# the card (minicpm-2b, qwen3-32b, granite-34b), each with its own KV cache
+DENSE = ("minicpm-2b", "qwen3-32b", "granite-34b")
+# their depths, from the dry run's (1, 1) peak estimate (python -m
+# repro_torch.launch.dryrun --arch A --shape S --mesh 1x1 --batch N
+# --layers L) and materialize's own peak, which the estimate leaves out: it
+# draws each stacked leaf in f32 before it casts it, so the last and
+# largest (the MLP's w2 of every layer) briefly holds 6 bytes an element on
+# top of the leaves drawn before it.
+#   qwen3-32b (64 layers, 32.76e9 parameters): train_4k 4 layers (peak
+#     estimate 37.8 GB); prefill_32k 24 (44.0 GB; 32 layers 52.3 GB, and
+#     each layer adds ~140 ms a prefill); decode_32k 44 with its int8 cache
+#     (58.2 GB of arguments, estimate 59.6 GB; materialize ~69 GB; at 48
+#     layers 63.2 GB of arguments but materialize ~75 GB)
+#   granite-34b (88 layers, 47.25e9 parameters): train_4k 4 (29.0 GB);
+#     prefill_32k 24 (40.3 GB); decode_32k 40 (46.3 GB of arguments,
+#     estimate 46.4 GB, materialize ~68 GB; at 56 layers 64.3 GB of
+#     arguments and materialize ~94 GB, more than the card)
+#   minicpm-2b (40 layers): train_4k 20, halved for the script's time as
+#     HALF_TRAIN_LAYERS are (24.2 GB; all 40 fit, 29.7 GB); prefill_32k and
+#     decode_32k all 40 (19.3 GB; 31.1 GB of arguments, 34.2 GB)
+DENSE_LAYERS = {"minicpm-2b": {"train_4k": 20},
+                "qwen3-32b": {"train_4k": 4, "prefill_32k": 24,
+                              "decode_32k": 44},
+                "granite-34b": {"train_4k": 4, "prefill_32k": 24,
+                                "decode_32k": 40}}
 # the depth of a cell whose published depth one card cannot hold:
 # mixtral-8x22b's, phase j's (its 8 layers of bf16 weights are 41 GB; the
 # 2-layer train step's f32 gradient sum beside them, ~54 GB at its peak),
@@ -3993,8 +4152,10 @@ CELL_LAYERS = {MOE: {"train_4k": MOE_TRAIN_LAYERS,
                      "prefill_32k": MOE_SERVE_LAYERS,
                      "decode_32k": MOE_SERVE_LAYERS},
                MLA: {"train_4k": MLA_CELL_TRAIN_LAYERS},
+               DIST: {"train_4k": DIST_TRAIN_LAYERS},
                **{arch: {"train_4k": n}
-                  for arch, n in HALF_TRAIN_LAYERS.items()}}
+                  for arch, n in HALF_TRAIN_LAYERS.items()},
+               **DENSE_LAYERS}
 # B5's local problem on recurrentgemma-2b's 16 x 16 prefill_32k shard: the
 # batch of 32 over 16 "batch" shards, 32768 positions, the 2560 channels
 # over 16 "tensor" shards; (B, S, C) f32
@@ -4320,6 +4481,127 @@ def phase_pods(torch):
     return dict(local_body=body, launches=launches, phase_s=took)
 
 
+# ------------- phase p: the dense configurations with their own KV caches
+
+def _dense_cell(torch, mesh, arch, name):
+    """p (i). One of ``arch``'s cells (``_cell_runs``) on
+    plain tensors with its configured KV cache; an int8 decode_32k cell
+    also on DTensor arguments from the same seed, bit-equal (the int8
+    scales' placements and ``_write_shards`` on the card).  Decode's tokens
+    are checked in the vocab for DIST_DECODE_STEPS steps."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    first, run = _cell_runs(torch, mesh, arch, name, dtensor=False)
+    if name == "decode_32k":
+        toks = first["tokens"]
+        if toks.shape != (DIST_CUTS[name], DIST_DECODE_STEPS) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch} decode: tokens {toks.shape}")
+    out = dict(batch=run["batch"], of=run["of"], seq=run["seq"],
+               layers=run["layers"], of_layers=run["of_layers"],
+               kv_cache_dtype=cfg.kv_cache_dtype, ms=run["ms"],
+               walls_ms=run["walls_ms"], b4_per_run=run["b4_per_run"],
+               b4_launches=run["b4_per_run"] * run["runs"],
+               peak_bytes=run["peak_bytes"],
+               materialize_peak_bytes=run["materialize_peak_bytes"])
+    dt = ""
+    if name == "decode_32k" and cfg.kv_cache_dtype == "int8":
+        got, drun = _cell_runs(torch, mesh, arch, name, dtensor=True)
+        if not _same_outputs(torch, got, first):
+            raise AssertionError(f"{arch} {name}: the DTensor run's tokens "
+                                 "differ from the plain tensors'")
+        out.update(dtensor_ms=drun["ms"], dtensor_walls_ms=drun["walls_ms"])
+        dt = (f"; on DTensor arguments {drun['ms']:.2f} ms (ratio "
+              f"{drun['ms'] / run['ms']:.4f}), the tokens equal bit for bit")
+    depth = ("" if run["layers"] == run["of_layers"] else
+             f", depth {run['layers']} of {run['of_layers']} layers")
+    log(f"[dense] {arch} {name} cut to batch {run['batch']} (of "
+        f"{run['of']}){depth}, seq {run['seq']}, {cfg.kv_cache_dtype} KV "
+        f"cache, on the (1, 1) mesh, plain tensors: "
+        f"{'step' if name != 'decode_32k' else 'decode step'} "
+        f"{run['ms']:.2f} ms (warm, median of {len(run['walls_ms'])}); peak "
+        f"{run['peak_bytes'] / 1e9:.2f} GB running, "
+        f"{run['materialize_peak_bytes'] / 1e9:.2f} GB drawing the "
+        f"arguments; B4 {run['b4_per_run']} a run (all tc){dt}")
+    return out
+
+
+def _dequant_ms(torch, arch):
+    """The int8 cache's read at ``arch``'s decode_32k cell (``layers.
+    _cache_read``: a layer's whole (4, 32768, KVH, Dh) k to f32 and v to
+    bf16, each decode step): its ms a layer against the bytes it moves,
+    each input read once and each output written once."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(arch)
+    B, S = DIST_CUTS["decode_32k"], SHAPES["decode_32k"].seq_len
+    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    cache = {n: torch.randint(-127, 128, shape, generator=gen,
+                              device="cuda", dtype=torch.int8)
+             for n in ("k", "v")}
+    cache.update({n: torch.rand(shape[:-1], generator=gen, device="cuda")
+                  for n in ("ks", "vs")})
+    ms = _time_ms(torch, lambda: L._cache_read(cfg, cache, torch.bfloat16),
+                  iters=10, warmup=2)
+    out = L._cache_read(cfg, cache, torch.bfloat16)
+    nbytes = sum(t.numel() * t.element_size() for t in (*cache.values(),
+                                                         *out))
+    bound, by = _bound_ms(nbytes, 2 * math.prod(shape))
+    del cache, out
+    torch.cuda.empty_cache()
+    return dict(ms=ms, bytes=nbytes, bound_ms=bound, bound_by=by, batch=B,
+                seq=S, layers=CELL_LAYERS[arch].get("decode_32k",
+                                                    cfg.n_layers))
+
+
+def phase_dense(torch):
+    """p. The dense family's three demanding configurations on the card:
+    (i) minicpm-2b's, qwen3-32b's and granite-34b's train_4k, prefill_32k
+    and decode_32k cells at their published widths and sequence lengths,
+    batch cut as phase l's (8, 1, 4), depth as DENSE_LAYERS says, on the
+    (1, 1) cuda mesh, on plain tensors with each configuration's own KV
+    cache (int8 for minicpm-2b and qwen3-32b), B4's launches as the block
+    kinds reckon, all on tc (``_dense_cell``); the two int8 decode cells
+    also on DTensor arguments, bit-equal; the int8 cache's per-layer
+    dequantisation timed at their decode shape (``_dequant_ms``); (ii)
+    serve() for minicpm-2b at full depth with its int8 cache, 4 x 4096
+    prompts, 32 generated, its prefill and a decode step profiled
+    (``_serve_full``)."""
+    from repro_torch.launch.mesh import local_process_group, make_mesh
+    t0 = time.perf_counter()
+    cells = {}
+    with local_process_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for arch in DENSE:
+            for name in DIST_CUTS:
+                cells[f"{arch}:{name}"] = _dense_cell(torch, mesh, arch,
+                                                      name)
+    dequant = {}
+    for arch in DENSE:
+        if cells[f"{arch}:decode_32k"]["kv_cache_dtype"] != "int8":
+            continue
+        d = dequant[arch] = _dequant_ms(torch, arch)
+        step = cells[f"{arch}:decode_32k"]["ms"]
+        log(f"[dense] {arch} int8 cache read (one layer's k to f32, v to "
+            f"bf16, batch {d['batch']} x {d['seq']}): "
+            f"{d['ms']:.4f} ms a layer, {d['bytes'] / 1e9:.3f} GB moved, "
+            f"bound {d['bound_ms']:.4f} ms ({d['bound_by']}); x "
+            f"{d['layers']} layers {d['ms'] * d['layers']:.2f} ms of the "
+            f"{step:.2f} ms decode step ({d['ms'] * d['layers'] / step:.4f})")
+    launched, serving = _serve_full(torch, "minicpm-2b")
+    log(f"[dense] minicpm-2b serve() at full depth, int8 KV cache: prefill "
+        f"{serving['prefill_ms']:.1f} ms, {serving['tok_per_s']:.1f} tok/s, "
+        f"peak {serving['peak_mib']:.1f} MiB, B4 "
+        f"{launched['flash_attention_tc']} a prefill (all tc)")
+    took = time.perf_counter() - t0
+    log(f"[dense] phase took {took:.1f} s")
+    return dict(cells=cells, dequant=dequant, serve=serving,
+                serve_launches=launched, phase_s=took, lm_launches={
+                    "flash_attention": sum(c["b4_launches"]
+                                           for c in cells.values())})
+
+
 def phase_lm_cost(torch):
     """--lm-cost: the full-width train step of phase b, and a prefill
     (median of 3, after one warm-up) and a decode step (median of 8, after
@@ -4373,9 +4655,10 @@ def _timed(times, name, fn, *args):
 
 def main() -> int:
     if sys.argv[1:] not in ([], ["--ssd-precision"], ["--probe"],
-                            ["--lm-cost"], ["--dist"], ["--shards"]):
+                            ["--lm-cost"], ["--dist"], ["--shards"],
+                            ["--dense"]):
         print("usage: chip_smoke.py [--ssd-precision | --probe | "
-              "--lm-cost | --dist | --shards]", file=sys.stderr)
+              "--lm-cost | --dist | --shards | --dense]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -4396,8 +4679,17 @@ def main() -> int:
     if sys.argv[1:] == ["--lm-cost"]:
         phase_lm_cost(torch)
         return 0
+    if sys.argv[1:] == ["--dense"]:
+        rows = {arch: _timed(times, f"b4_{arch}", _dense_b4, torch, arch)
+                for arch in DENSE_B4}
+        _timed(times, "card_vs_cpu", _dense_card_vs_cpu, torch)
+        dense = _timed(times, "dense", phase_dense, torch)
+        log(f"[dense] summary: {json.dumps(dict(dense, b4=rows))}")
+        log(f"[time] phases (s): {json.dumps(times)}")
+        return 0
     if sys.argv[1:] in (["--dist"], ["--shards"]):
-        firsts, dist = phase_dist(torch)
+        with _dryruns() as procs:
+            firsts, dist = phase_dist(torch, procs)
         log(f"[dist] summary: {json.dumps(dist)}")
         if sys.argv[1:] == ["--shards"]:
             shards = phase_shards(torch, firsts, dist)
@@ -4420,12 +4712,16 @@ def main() -> int:
                     [r["wall_s"] for r in cohort["rounds"]])
     vlm = _timed(times, "vlm", phase_vlm, torch)
     encdec = _timed(times, "encdec", phase_encdec, torch)
-    moe = _timed(times, "moe", phase_moe, torch)
-    mla = _timed(times, "mla", phase_mla, torch)
-    firsts, dist = _timed(times, "dist", phase_dist, torch)
+    # phase l's dry runs start here: their ~2 minutes on the host's cores
+    # overlap phases j and k on the card
+    with _dryruns() as procs:
+        moe = _timed(times, "moe", phase_moe, torch)
+        mla = _timed(times, "mla", phase_mla, torch)
+        firsts, dist = _timed(times, "dist", phase_dist, torch, procs)
     shards = _timed(times, "shards", phase_shards, torch, firsts, dist)
     families = _timed(times, "families", phase_families, torch)
     pods = _timed(times, "pods", phase_pods, torch)
+    dense = _timed(times, "dense", phase_dense, torch)
     up_seafl = uplink["cohort"]["seafl_launches"]
     down = downlink["cohort"]
     train_launches = {  # the training runs' launches, by kernel row
@@ -4472,7 +4768,9 @@ def main() -> int:
             "mla_step": mla["step"]["launches_tc"],
             "dist_cells": dist["lm_launches"]["flash_attention"],
             "shards_cells": shards["lm_launches"]["flash_attention"],
-            "families_cells": families["lm_launches"]["flash_attention"]},
+            "families_cells": families["lm_launches"]["flash_attention"],
+            "dense_cells": dense["lm_launches"]["flash_attention"],
+            "dense_serve": dense["serve_launches"]["flash_attention_tc"]},
         "flash_attention_f32_mma": {
             "smoke_card_vs_cpu": smoke_launches["flash_attention_mma"],
             "vlm_smoke": vlm["smoke_serve_mma"]
@@ -4566,6 +4864,9 @@ def main() -> int:
                     train_max_abs_err=errs["flash_attention_phi4_{}x{}"
                                            .format(*PHI4["train"])]),
                 "shard_shapes": dict(shards["b4"], **{MOE: families["b4"]}),
+                "dense_shapes": {
+                    arch: lm_timing[f"flash_attention_bf16_tc_{arch}"]
+                    for arch in DENSE_B4},
                 "family_shapes_max_abs_err": {
                     k[16:]: v for k, v in errs.items()
                     if k.startswith("flash_attention_")
@@ -4597,6 +4898,7 @@ def main() -> int:
     log(f"[shards] summary: {json.dumps(shards)}")
     log(f"[families] summary: {json.dumps(families)}")
     log(f"[pods] summary: {json.dumps(pods)}")
+    log(f"[dense] summary: {json.dumps(dense)}")
     log(f"[time] phases (s): {json.dumps(times)}; the script so far "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

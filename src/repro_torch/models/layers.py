@@ -734,9 +734,13 @@ def attn_cache_init(cfg, batch, max_len, dtype, device, lead=()):
 
 
 def _kv_quant(x):
-    """Per-(batch, pos, head) symmetric int8 quantisation of K/V."""
+    """Per-(batch, pos, head) symmetric int8 quantisation of K/V.  The scale
+    is the absolute max times the f32 reciprocal of 127: XLA compiles the
+    reference's division by the constant so, and torch divides by a
+    Python number so on the card but not on the CPU."""
     xf = x.to(torch.float32)
-    s = torch.clamp(torch.amax(torch.abs(xf), dim=-1) / 127.0, min=1e-8)
+    s = torch.clamp(torch.amax(torch.abs(xf), dim=-1) * (1.0 / 127.0),
+                    min=1e-8)
     q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
     return q.to(torch.int8), s
 
@@ -788,8 +792,13 @@ def _write_shards(buf, val, start):
 
 
 def _cache_read(cfg, cache, dtype):
+    """The cache's k and v as attention reads them.  An int8 cache is
+    dequantised as the reference's ``q.astype(dtype) * s.astype(dtype)``:
+    v rounded to ``dtype``, as its P V product reads it; k as the exact f32
+    product (:func:`product`), as XLA computes it where the scores convert
+    it to f32 at once."""
     if cfg.kv_cache_dtype == "int8":
-        k = cache["k"].to(dtype) * cache["ks"][..., None].to(dtype)
+        k = product(cache["k"], cache["ks"][..., None], dtype, unrounded=True)
         v = cache["v"].to(dtype) * cache["vs"][..., None].to(dtype)
         return k, v
     return cache["k"], cache["v"]

@@ -572,6 +572,54 @@ def test_flash_attention_at_a_shards_local_shape(cuda, S, KVH, G, window):
                                        want.float(), rtol=2 ** -7, atol=1e-5)
 
 
+@pytest.mark.parametrize("H,KVH,D", [(36, 36, 64), (64, 8, 128),
+                                     (48, 1, 128)],
+                         ids=["minicpm-2b", "qwen3-32b", "granite-34b"])
+def test_flash_attention_at_the_dense_configs_head_layouts(cuda, H, KVH, D):
+    """B4 at the three whole-model head layouts of minicpm-2b (36 heads of
+    64, MHA: D = 64 at G = 1), qwen3-32b (64 / 8 of 128) and granite-34b
+    (48 query heads on one KV head of 128: G = 48), causal over 1536
+    positions, bf16 on the tc instance: within one bf16 step of its plain
+    version."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    S = 1536
+    q = _randn(cuda, 1, S, H, D, seed=11, dtype=torch.bfloat16)
+    kv = _randn(cuda, 1, S, 2 * KVH, D, seed=12, dtype=torch.bfloat16)
+    k, v = kv[:, :, :KVH], kv[:, :, KVH:]
+    FK.reset_launch_counts()
+    o = FK.flash_attention_call(q, k, v, causal=True)
+    assert FK.flash_attention_call.launches_tc == 1
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    want = t(attention_ref(t(q), t(k), t(v), causal=True))
+    torch.testing.assert_close(o.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-32b"])
+def test_int8_cache_quantises_and_reads_as_on_the_cpu(cuda, arch):
+    """The int8 KV cache's write (``layers._kv_quant``: the amax, the
+    divide, the round) and read (``layers._cache_read``: back to bf16) on
+    the card equal the CPU's bit for bit on the same seeded bf16 k and v, at
+    the full config's heads (4 sequences of 256 positions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(arch)
+    gen = torch.Generator().manual_seed(13)
+    kv = (torch.randn(2, 4, 256, cfg.n_kv_heads, cfg.head_dim,
+                      generator=gen) * 3).to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x = kv.to(dev)
+        (kq, ks), (vq, vs) = L._kv_quant(x[0]), L._kv_quant(x[1])
+        cache = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        out[dev] = [kq, ks, vq, vs, *L._cache_read(cfg, cache,
+                                                   torch.bfloat16)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b.cpu())
+
+
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_rglru_route_has_the_recurrences_gradient(cuda, with_h0):
     """rg_lru_scan on the card: the backward is the reverse-time scan on the
@@ -1121,6 +1169,16 @@ def test_a_moe_smoke_cell_on_the_one_card_mesh_equals_the_eager_step(
     _one_card_cell_against_eager(arch, kind)
 
 
+def test_an_int8_cache_decode_on_dtensors_equals_plain_tensors(cuda):
+    """qwen3-32b's smoke decode cell with the int8 KV cache its full config
+    holds, on DTensor arguments of the (1, 1) cuda mesh (the int8 scales
+    placed by their own rule, each step written through
+    ``layers._write_shards``), against the eager serve step on the plain
+    local tensors: the same tokens bit for bit, 3 steps."""
+    _one_card_cell_against_eager("qwen3-32b", "decode",
+                                 kv_cache_dtype="int8")
+
+
 def test_a_top6_moe_gradient_is_the_same_every_run(cuda):
     """deepseek's top-6 routing (here 6 of 8 smoke experts, bf16, pairs
     dropped): x's gradient through the MoE block, run twice on the card,
@@ -1146,7 +1204,7 @@ def test_a_top6_moe_gradient_is_the_same_every_run(cuda):
     assert all(torch.equal(first, x_grad()) for _ in range(3))
 
 
-def _one_card_cell_against_eager(arch, kind):
+def _one_card_cell_against_eager(arch, kind, **replace):
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import ShapeConfig, smoke_config
     from repro_torch.launch import dryrun as D, specs as S
@@ -1155,7 +1213,7 @@ def _one_card_cell_against_eager(arch, kind):
     from repro_torch.tree import tree_leaves, tree_map
     plain = lambda tree: torch.utils._pytree.tree_map(  # noqa: E731
         lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
-    cfg = smoke_config(arch)
+    cfg = smoke_config(arch).replace(**replace)
     model = LM(cfg, "cuda")
     with local_process_group():
         mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")

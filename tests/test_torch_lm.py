@@ -38,10 +38,15 @@ ARCHS = ["recurrentgemma-2b", "mamba2-1.3b", "phi4-mini-3.8b",
 F32 = dict(param_dtype="float32", dtype="float32")
 
 
-def _pair_models(arch, seed=0, **replace):
+def _pair_models(arch, seed=0, params=None, **replace):
+    """(JAX config, JAX model, JAX params, port model, port params) of
+    ``arch``'s smoke config; ``params``, a (JAX, port) pair made before,
+    is reused (a cache dtype changes the models, not the params)."""
     jc = j_smoke_config(arch).replace(**replace)
     tc = smoke_config(arch).replace(**replace)
     jm = j_build_model(jc)
+    if params is not None:
+        return (jc, jm, params[0], build_model(tc, "cpu"), params[1])
     params = jm.init(jax.random.PRNGKey(seed))
     tp = from_jax_lm_params(jax.tree.map(np.asarray, params), tc, "cpu")
     return jc, jm, params, build_model(tc, "cpu"), tp
@@ -67,16 +72,22 @@ def _extras(cfg, B, seed=5):
 
 
 def _run_both(arch, *, prompt_len=20, gen=6, teacher_forced=False,
-              **replace):
+              params=None, jit=False, **replace):
     """Prefill + ``gen`` decode steps in both; returns the max |d logits|
-    per step and whether the greedy tokens agreed at every step."""
-    jc, jm, params, tm, tp = _pair_models(arch, **replace)
+    per step and whether the greedy tokens agreed at every step.
+    ``params``: as :func:`_pair_models`'.  ``jit`` compiles the JAX
+    prefill and decode step whole (one compile each, not one a step).  XLA
+    may fuse a whole program's bf16 ops otherwise than the eager steps'
+    scans: a bf16 caller holds that the two agree for its configs."""
+    jc, jm, params, tm, tp = _pair_models(arch, params=params, **replace)
+    j_prefill, j_decode = ((jax.jit(jm.prefill), jax.jit(jm.decode_step))
+                           if jit else (jm.prefill, jm.decode_step))
     B, V = 2, jc.vocab_size
     toks = np.random.default_rng(1).integers(0, V, (B, prompt_len))
     images, n_img = _extras(jc, B)
     jcache = jm.init_cache(B, prompt_len + gen + n_img)
     tcache = tm.init_cache(B, prompt_len + gen + n_img)
-    jl, jcache = jm.prefill(
+    jl, jcache = j_prefill(
         params, {"tokens": jnp.asarray(toks, jnp.int32),
                  **{k: jnp.asarray(v) for k, v in images.items()}}, jcache)
     tl, tcache = tm.prefill(
@@ -94,7 +105,7 @@ def _run_both(arch, *, prompt_len=20, gen=6, teacher_forced=False,
             break
         if teacher_forced:
             tn = torch.from_numpy(jn.copy())
-        jl, jcache = jm.decode_step(params, jnp.asarray(jn, jnp.int32), jcache)
+        jl, jcache = j_decode(params, jnp.asarray(jn, jnp.int32), jcache)
         tl, tcache = tm.decode_step(tp, tn, tcache)
     return diffs, same
 
