@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.runtime import telemetry
 
 Params = dict[str, torch.Tensor]
 
@@ -27,24 +28,40 @@ def make_epoch_fn(loss_fn: Callable, lr: float | None = None):
     modified.  Each step is the JAX ``w - lr * g.astype(w.dtype)``, whose
     Python-float ``lr`` takes the parameter's dtype (JAX's weak typing), so
     a bf16 leaf steps by bf16(lr) * g.
+
+    The epoch records into the current registry (``telemetry.current``:
+    the client's, which ``Client.local_train`` installs): a ``client.step``
+    span a step, around its ``client.forward``, ``client.backward`` and
+    ``client.update``, and the counts ``client.sgd_steps`` and
+    ``client.tokens`` (the ``tokens`` leaf's elements, or the rows of a
+    batch without one).
     """
 
     def epoch(params: Params, data: dict, lr_: float):
+        tel = telemetry.current()
         names = list(params)
         p = [params[n].detach() for n in names]
         lrs = {t.dtype: torch.tensor(lr_, dtype=t.dtype) for t in p}
         losses = []
-        for b in range(next(iter(data.values())).shape[0]):
-            batch = {k: v[b] for k, v in data.items()}
-            leaves = [t.requires_grad_(True) for t in p]
-            loss = loss_fn(dict(zip(names, leaves)), batch)
-            # a leaf the loss does not read (whisper's encoder) gets zeros,
-            # as jax.grad gives
-            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-            with torch.no_grad():
-                p = [w - lrs[w.dtype] * g.to(w.dtype)
-                     for w, g in zip(leaves, grads)]
-            losses.append(loss.detach())
+        lead = next(iter(data.values()))
+        tel.counter("client.sgd_steps", lead.shape[0])
+        tel.counter("client.tokens", data["tokens"].numel()
+                    if "tokens" in data else lead.shape[0] * lead.shape[1])
+        for b in range(lead.shape[0]):
+            with tel.span("client.step"):
+                batch = {k: v[b] for k, v in data.items()}
+                leaves = [t.requires_grad_(True) for t in p]
+                with tel.span("client.forward"):
+                    loss = loss_fn(dict(zip(names, leaves)), batch)
+                # a leaf the loss does not read (whisper's encoder) gets
+                # zeros, as jax.grad gives
+                with tel.span("client.backward"):
+                    grads = torch.autograd.grad(loss, leaves,
+                                                materialize_grads=True)
+                with tel.span("client.update"), torch.no_grad():
+                    p = [w - lrs[w.dtype] * g.to(w.dtype)
+                         for w, g in zip(leaves, grads)]
+                losses.append(loss.detach())
         return dict(zip(names, p)), torch.mean(torch.stack(losses))
 
     if lr is None:
@@ -58,7 +75,9 @@ class Client:
     Training is *lazy*: the simulator only materialises the local update when
     the upload event fires, at which point the number of completed epochs
     (E, or fewer after a SEAFL² notification) is known.  The shard stays in
-    host memory; each epoch's batches go to ``device``.
+    host memory; each epoch's batches go to ``device``.  Its spans and
+    counts go to ``tel`` (off unless the simulator driving the client hands
+    it the server's registry).
     """
 
     def __init__(self, cid: int, data: dict, epoch_fn, n_samples: int,
@@ -70,6 +89,7 @@ class Client:
         self.epoch_fn = epoch_fn
         self.device = resolve_device(device)
         self._rng = np.random.default_rng(seed * 100_003 + cid)
+        self.tel = telemetry.NULL
 
     def _epoch_batches(self) -> dict:
         n = self.n_samples
@@ -81,8 +101,12 @@ class Client:
 
     def local_train(self, params: Params, n_epochs: int, lr: float):
         """Run n_epochs of SGD; returns (new_params, mean_loss)."""
+        tel = self.tel
         loss = torch.zeros(())
-        for _ in range(max(1, n_epochs)):
-            batches = self._epoch_batches()
-            params, loss = self.epoch_fn(params, batches, lr)
-        return params, float(loss)
+        with tel.span("client.local_train", cid=self.cid):
+            for _ in range(max(1, n_epochs)):
+                with tel.span("client.batches"):
+                    batches = self._epoch_batches()
+                params, loss = self.epoch_fn(params, batches, lr)
+            with tel.span("client.loss_sync"):
+                return params, float(loss)

@@ -512,13 +512,14 @@ class SeaflServer:
         """The model ``cid`` holds (training-base boundary): the exact
         dispatch-version global under the broadcast or f32 dispatch, the
         delivered reconstruction under a lossy dispatch."""
-        if self.dispatch is None or cid not in self.dispatch.versions:
-            return self.params_at(self.active[cid])
-        v = self.dispatch.versions[cid]
-        held = self.dispatch.held_flat(cid, self._history)
-        if held is self._history.get(v):
-            return self.params_at(v)
-        return self.packer.unpack(held)
+        with self.tel.span("dispatch.model", cid=cid):
+            if self.dispatch is None or cid not in self.dispatch.versions:
+                return self.params_at(self.active[cid])
+            v = self.dispatch.versions[cid]
+            held = self.dispatch.held_flat(cid, self._history)
+            if held is self._history.get(v):
+                return self.params_at(v)
+            return self.packer.unpack(held)
 
     # ------------------------------------------------------- uplink transport
     @_timing_scope
@@ -530,29 +531,35 @@ class SeaflServer:
         dispatch version and the client's flat error-feedback residual is
         folded in and updated."""
         version = self.active[cid]
-        flat = self.packer.pack(client_params)
-        wire = self.wire
-        if wire.scheme == "topk":
-            if self.cfg.uplink_ratio_policy == "drift":
-                # the drift band chosen for the version this client trained
-                # from also sizes its upload
-                r = self._ratio_by_version.get(version)
-                if r is not None:
-                    wire = dc_replace(wire, topk_ratio=r)
-            if n_epochs < self.cfg.local_epochs:
-                # SEAFL² byte coupling: a notified partial-training client
-                # did n' < E epochs of work, so it ships proportionally
-                # fewer coefficients (decode is ratio-free: top-k chunks
-                # carry their own indices)
-                wire = dc_replace(
-                    wire, topk_ratio=wire.topk_ratio
-                    * max(1, n_epochs) / self.cfg.local_epochs)
-        base = ef = None
-        if wire.delta_coded:
-            base = self._uplink_base(cid, version)
-            ef = self._ef.setdefault(cid, FlatErrorFeedback())
-        return transport_encode_update(cid, version, n_epochs, flat,
-                                       wire, base, ef)
+        with self.tel.span("encode", cid=cid, version=version):
+            with self.tel.span("encode.pack", cid=cid, version=version):
+                flat = self.packer.pack(client_params)
+            wire = self.wire
+            if wire.scheme == "topk":
+                if self.cfg.uplink_ratio_policy == "drift":
+                    # the drift band chosen for the version this client
+                    # trained from also sizes its upload
+                    r = self._ratio_by_version.get(version)
+                    if r is not None:
+                        wire = dc_replace(wire, topk_ratio=r)
+                if n_epochs < self.cfg.local_epochs:
+                    # SEAFL² byte coupling: a notified partial-training
+                    # client did n' < E epochs of work, so it ships
+                    # proportionally fewer coefficients (decode is
+                    # ratio-free: top-k chunks carry their own indices)
+                    wire = dc_replace(
+                        wire, topk_ratio=wire.topk_ratio
+                        * max(1, n_epochs) / self.cfg.local_epochs)
+            base = ef = None
+            if wire.delta_coded:
+                base = self._uplink_base(cid, version)
+                ef = self._ef.setdefault(cid, FlatErrorFeedback())
+            with self.tel.span("encode.chunks", cid=cid, version=version):
+                payload = transport_encode_update(cid, version, n_epochs,
+                                                  flat, wire, base, ef)
+            self.tel.counter("encode.chunks", len(payload.chunks))
+            self.tel.counter("encode.bytes", payload.nbytes)
+            return payload
 
     def _uplink_base(self, cid: int, version: int) -> torch.Tensor:
         """The flat base a delta-coded upload is measured against.
@@ -662,10 +669,14 @@ class SeaflServer:
         """Atomic ingest of a whole wire payload (the simulator's deliver
         event): the chunks are adjacent windows of one slot, so they land
         with one write (``IngestSession.write_all``)."""
-        sess = self.begin_ingest(payload.cid, payload.version,
-                                 payload.n_epochs, recv_time=recv_time)
-        sess.write_all(payload.chunks)
-        return self.finish_ingest(payload.cid, recv_time)
+        tel, cid, version = self.tel, payload.cid, payload.version
+        with tel.span("ingest", cid=cid, version=version):
+            sess = self.begin_ingest(cid, version, payload.n_epochs,
+                                     recv_time=recv_time)
+            with tel.span("ingest.write", cid=cid, version=version):
+                sess.write_all(payload.chunks)
+            with tel.span("ingest.commit", cid=cid, version=version):
+                return self.finish_ingest(cid, recv_time)
 
     @_timing_scope
     def on_update(self, cid: int, client_params: Params, n_epochs: int,

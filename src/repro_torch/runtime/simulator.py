@@ -230,10 +230,12 @@ class FLSimulation:
         self.cfg = sim_cfg
         self.eval_fn = eval_fn
         self.eval_every = eval_every
-        # the server's registry is the simulation's too: client lifecycle
-        # events become spans on the *simulated* clock (one track per
-        # client), next to the server's wall-clock compute spans
+        # the server's registry is the simulation's and its clients' too:
+        # client lifecycle events become spans on the *simulated* clock
+        # (one track per client), next to the host's wall-clock spans
         self.tel = server.tel
+        for client in clients.values():
+            client.tel = server.tel
         self._rng = np.random.default_rng(sim_cfg.seed)
         self._heap: list[_Event] = []
         self._seq = itertools.count()
@@ -542,7 +544,9 @@ class FLSimulation:
             wait, _ = self.server.scheduler.max_wait(elig_idle)
             rec["sched_max_wait"] = round(wait, 1)
         if self.eval_fn is not None and (agg.round % self.eval_every == 0):
-            rec["acc"] = float(self.eval_fn(self.server.params))
+            self.tel.counter("sim.evals")
+            with self.tel.span("sim.eval", round=agg.round):
+                rec["acc"] = float(self.eval_fn(self.server.params))
         if self.tel.enabled:
             # rolling metrics snapshot rides with the round record (compact:
             # histogram summaries only) — history keys are unchanged when
@@ -659,77 +663,82 @@ class FLSimulation:
             if not ev.valid:
                 continue
             self.now = ev.time
-            if ev.kind == "upload":
-                self._handle_upload(ev.data["cid"])
-            elif ev.kind == "arrive":
-                fl = self._inflight.get(ev.data["cid"])
-                if fl is not None and fl.payload is not None:
-                    self.server.deliver_dispatch(fl.cid, fl.payload)
-                    self.tel.sim_span(
-                        "dispatch", fl.sched, self.now,
-                        track=f"client{fl.cid}", bytes=fl.payload.nbytes,
-                        version=fl.payload.target_version,
-                        scheme=fl.payload.scheme)
-            elif ev.kind == "deliver":
-                self._handle_deliver(ev.data["cid"], ev.data["payload"],
-                                     ev.data["loss"],
-                                     ev.data.get("up_t0"),
-                                     ev.data.get("sched_t0"))
-            elif ev.kind == "notify":
-                self._handle_notify(ev.data["cid"])
-            elif ev.kind == "fail":
-                cid = ev.data["cid"]
-                if self._kill_inflight(cid, instant="crash"):
-                    self._crashed.add(cid)
-                    self._push(self.now + self.cfg.recover_after,
-                               "recover", cid=cid)
-            elif ev.kind == "recover":
-                self._crashed.discard(ev.data["cid"])
-                self.server.recover(ev.data["cid"])
-            elif ev.kind == "avail_off":
-                cid = ev.data["cid"]
-                self._offline.add(cid)
-                self.tel.sim_instant("offline", self.now,
-                                     track=f"client{cid}")
-                # going offline mid-round kills the in-flight
-                # transfer/training exactly like a crash: tracking drops,
-                # the return dispatch ships a full snapshot
-                self._kill_inflight(cid)
-                self._push(self.now + self.avail.next_delay(cid, False),
-                           "avail_on", cid=cid)
-            elif ev.kind == "avail_on":
-                cid = ev.data["cid"]
-                self._offline.discard(cid)
-                self.tel.sim_instant("online", self.now,
-                                     track=f"client{cid}")
-                self._push(self.now + self.avail.next_delay(cid, True),
-                           "avail_off", cid=cid)
-                if cid in self._deferred:
-                    self._deferred.discard(cid)
-                    if (len(self.server.active)
-                            < self.server.cfg.concurrency):
-                        # the parked dispatch goes out now, re-marked
-                        # against the current global (tracking stayed
-                        # honest: the old decision's version was never
-                        # delivered)
-                        self.server.mark_dispatched(cid)
-                        self.server.scheduler.note_dispatched(cid)
-                        self._dispatch(cid)
-                    else:
-                        # its slot was refilled while it was away: the
-                        # promise lapses, the client rejoins the pool
-                        self.server.recover(cid)
-                elif cid not in self._crashed:
-                    # back in the pool (crash recovery, if pending, keeps
-                    # its own clock); spare concurrency refills from the
-                    # now-larger eligible pool
-                    self.server.recover(cid)
-                    self._top_up()
+            with self.tel.span(f"sim.{ev.kind}", cid=ev.data.get("cid")):
+                self._handle(ev)
             if target_acc is not None and self.history:
                 accs = [h.get("acc", 0.0) for h in self.history]
                 if accs and max(accs) >= target_acc:
                     break
         return self.history
+
+    def _handle(self, ev: _Event) -> None:
+        """One event of the heap, at ``self.now``."""
+        if ev.kind == "upload":
+            self._handle_upload(ev.data["cid"])
+        elif ev.kind == "arrive":
+            fl = self._inflight.get(ev.data["cid"])
+            if fl is not None and fl.payload is not None:
+                self.server.deliver_dispatch(fl.cid, fl.payload)
+                self.tel.sim_span(
+                    "dispatch", fl.sched, self.now,
+                    track=f"client{fl.cid}", bytes=fl.payload.nbytes,
+                    version=fl.payload.target_version,
+                    scheme=fl.payload.scheme)
+        elif ev.kind == "deliver":
+            self._handle_deliver(ev.data["cid"], ev.data["payload"],
+                                 ev.data["loss"],
+                                 ev.data.get("up_t0"),
+                                 ev.data.get("sched_t0"))
+        elif ev.kind == "notify":
+            self._handle_notify(ev.data["cid"])
+        elif ev.kind == "fail":
+            cid = ev.data["cid"]
+            if self._kill_inflight(cid, instant="crash"):
+                self._crashed.add(cid)
+                self._push(self.now + self.cfg.recover_after,
+                           "recover", cid=cid)
+        elif ev.kind == "recover":
+            self._crashed.discard(ev.data["cid"])
+            self.server.recover(ev.data["cid"])
+        elif ev.kind == "avail_off":
+            cid = ev.data["cid"]
+            self._offline.add(cid)
+            self.tel.sim_instant("offline", self.now,
+                                 track=f"client{cid}")
+            # going offline mid-round kills the in-flight
+            # transfer/training exactly like a crash: tracking drops,
+            # the return dispatch ships a full snapshot
+            self._kill_inflight(cid)
+            self._push(self.now + self.avail.next_delay(cid, False),
+                       "avail_on", cid=cid)
+        elif ev.kind == "avail_on":
+            cid = ev.data["cid"]
+            self._offline.discard(cid)
+            self.tel.sim_instant("online", self.now,
+                                 track=f"client{cid}")
+            self._push(self.now + self.avail.next_delay(cid, True),
+                       "avail_off", cid=cid)
+            if cid in self._deferred:
+                self._deferred.discard(cid)
+                if (len(self.server.active)
+                        < self.server.cfg.concurrency):
+                    # the parked dispatch goes out now, re-marked
+                    # against the current global (tracking stayed
+                    # honest: the old decision's version was never
+                    # delivered)
+                    self.server.mark_dispatched(cid)
+                    self.server.scheduler.note_dispatched(cid)
+                    self._dispatch(cid)
+                else:
+                    # its slot was refilled while it was away: the
+                    # promise lapses, the client rejoins the pool
+                    self.server.recover(cid)
+            elif cid not in self._crashed:
+                # back in the pool (crash recovery, if pending, keeps
+                # its own clock); spare concurrency refills from the
+                # now-larger eligible pool
+                self.server.recover(cid)
+                self._top_up()
 
     # ------------------------------------------------------------ metrics
     def time_to_accuracy(self, target: float) -> Optional[float]:

@@ -1,15 +1,25 @@
-"""Process-wide zero-dep telemetry: counters/gauges/histograms + span tracing.
+"""Process-wide telemetry: counters/gauges/histograms + span tracing.
 
 One `Telemetry` registry is threaded through every layer of the FL stack
-(server, dispatch, ingest, cohorts, policy, kernels, simulator).  It is
-**off by default** and, when disabled, every record call is a no-op that
-touches no RNG, allocates nothing observable, and changes no bytes — the
-same zero-behavioral-change discipline as ``cohorts='off'``.
+(server, clients, dispatch, ingest, cohorts, policy, kernels, simulator).
+It is **off by default** and, when disabled, every record call is a no-op
+that touches no RNG, allocates nothing observable, and changes no bytes —
+the same zero-behavioral-change discipline as ``cohorts='off'``.
 
-Two clocks coexist:
+Three clocks coexist:
 
 * **wall clock** — `span(...)` measures real `perf_counter` time around
-  server-side compute (aggregation, encode, kernel launches).
+  host work (client SGD steps, the upload's encode, ingest, aggregation,
+  evaluation, the simulator's events) and records each span with its
+  parent span's name.
+* **profiler clock** — while a ``torch.profiler`` records, every
+  `span(...)` also opens a ``record_function`` range named
+  ``seafl.<name>`` (its attributes as the range's args), whether or not
+  the registry is enabled: the profiler's trace then holds the program's
+  spans and the device work they launched on one timeline.  One
+  ``gc.callbacks`` hook, installed once per process, opens a
+  ``host.gc`` span for each collection of Python's garbage collector in
+  the registry of the span the host is in (`current`).
 * **simulated clock** — `sim_span(...)` / `sim_instant(...)` take explicit
   `t0`/`t1` from `FLSimulation`'s event heap, one track per client.
 
@@ -19,15 +29,18 @@ Exporters:
   records and checkpoint `state_dict`s; `load_snapshot` restores it).
 * `export_chrome_trace()` — Chrome-trace / Perfetto-loadable JSON with a
   simulated-time process (one thread per client + a server thread) and a
-  wall-time process for server compute.
+  wall-time process for host compute.
 * `iter_jsonl_events()` — per-span event stream for `launch/train.py`'s
   ``--log-jsonl`` run log.
 """
 from __future__ import annotations
 
+import gc
 import json
 import time
 from typing import Any, Dict, Iterator, List, Optional
+
+import torch
 
 # pid layout of the exported trace: Perfetto renders one "process" per
 # clock domain so simulated seconds never share an axis with wall seconds.
@@ -40,12 +53,16 @@ WALL_PID = 2
 MAX_SPANS = 200_000
 MAX_HIST_VALUES = 65_536
 
+# the profiler's name of a span: ``seafl.<name>``
+PROFILER_PREFIX = "seafl."
+
+
+def _labels(labels: Dict[str, Any]) -> str:
+    return ",".join(f"{k}={labels[k]}" for k in sorted(labels))
+
 
 def _key(name: str, labels: Dict[str, Any]) -> str:
-    if not labels:
-        return name
-    inner = ",".join(f"{k}={labels[k]}" for k in sorted(labels))
-    return f"{name}[{inner}]"
+    return f"{name}[{_labels(labels)}]" if labels else name
 
 
 class _NullSpan:
@@ -63,33 +80,58 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _WallSpan:
-    __slots__ = ("_tel", "name", "attrs", "_t0")
+class _Span:
+    """A span that records: with its registry enabled, a wall span (and
+    its ``<name>_ms`` histogram); with a profiler recording, a
+    ``record_function`` range ``seafl.<name>``.  For its length its
+    registry is the current one (`current`)."""
 
-    def __init__(self, tel: "Telemetry", name: str, attrs: Dict[str, Any]):
+    __slots__ = ("_tel", "name", "attrs", "_t0", "_on", "_range", "_prev",
+                 "_parent")
+
+    def __init__(self, tel: "Telemetry", name: str, attrs: Dict[str, Any],
+                 profiled: bool):
         self._tel = tel
         self.name = name
         self.attrs = attrs
+        self._range = (torch.autograd.profiler.record_function(
+            PROFILER_PREFIX + name, _labels(attrs) or None)
+            if profiled else None)
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
-        self._tel._wall_stack.append(self.name)
+        global _current
+        if self._range is not None:
+            self._range.__enter__()
+        tel = self._tel
+        self._prev, _current = _current, tel
+        self._on = tel.enabled
+        if self._on:
+            stack = tel._wall_stack
+            self._parent = stack[-1] if stack else None
+            stack.append(self.name)
+            self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        t1 = time.perf_counter()
+        global _current
         tel = self._tel
-        tel._wall_stack.pop()
-        tel._push_span({
-            "name": self.name,
-            "ph": "X",
-            "pid": WALL_PID,
-            "tid": 1,
-            "ts": (self._t0 - tel._wall_t0) * 1e6,
-            "dur": (t1 - self._t0) * 1e6,
-            "args": {**self.attrs, "depth": len(tel._wall_stack)},
-        })
-        tel.histogram(f"{self.name}_ms", (t1 - self._t0) * 1e3)
+        if self._on:
+            t1 = time.perf_counter()
+            tel._wall_stack.pop()
+            tel._push_span({
+                "name": self.name,
+                "ph": "X",
+                "pid": WALL_PID,
+                "tid": 1,
+                "ts": (self._t0 - tel._wall_t0) * 1e6,
+                "dur": (t1 - self._t0) * 1e6,
+                "args": {**self.attrs, "depth": len(tel._wall_stack),
+                         "parent": self._parent},
+            })
+            tel.histogram(f"{self.name}_ms", (t1 - self._t0) * 1e3)
+        _current = self._prev
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -144,10 +186,13 @@ class Telemetry:
 
     # --------------------------------------------------------------- spans
     def span(self, name: str, **attrs):
-        """Wall-clock span around server-side compute (context manager)."""
-        if not self.enabled:
+        """Span around host work (context manager): a wall span with the
+        registry enabled, a ``seafl.<name>`` range while a profiler
+        records; with neither, the shared no-op span."""
+        profiled = torch.autograd._profiler_enabled()
+        if not (self.enabled or profiled):
             return _NULL_SPAN
-        return _WallSpan(self, name, attrs)
+        return _Span(self, name, attrs, profiled)
 
     def _sim_tid(self, track: str) -> int:
         tid = self._sim_tids.get(track)
@@ -253,9 +298,9 @@ class Telemetry:
             {"ph": "M", "pid": SIM_PID, "name": "process_name",
              "args": {"name": "simulated time"}},
             {"ph": "M", "pid": WALL_PID, "name": "process_name",
-             "args": {"name": "server wall time"}},
+             "args": {"name": "wall time"}},
             {"ph": "M", "pid": WALL_PID, "tid": 1, "name": "thread_name",
-             "args": {"name": "server compute"}},
+             "args": {"name": "host compute"}},
         ]
         for track, tid in sorted(self._sim_tids.items(), key=lambda kv: kv[1]):
             events.append({"ph": "M", "pid": SIM_PID, "tid": tid,
@@ -285,3 +330,42 @@ NULL = Telemetry(enabled=False)
 
 def of(tel: Optional[Telemetry]) -> Telemetry:
     return tel if tel is not None else NULL
+
+
+# the registry of the innermost span the host is in that records (NULL
+# outside any): code that is handed no registry, such as a client's epoch
+# function, records into it
+_current: Telemetry = NULL
+
+
+def current() -> Telemetry:
+    """The registry of the innermost recording span the host is in."""
+    return _current
+
+
+_gc_span: Any = _NULL_SPAN
+
+
+def _on_collection(phase: str, info: Dict[str, Any]) -> None:
+    """``gc.callbacks`` hook: each collection is a ``host.gc`` span (and a
+    ``gc.collections`` count) of the current registry, with its
+    generation; nothing while no profiler records and no span of an
+    enabled registry is open."""
+    global _gc_span
+    try:
+        if phase == "start":
+            gen = info["generation"]
+            _current.counter("gc.collections", generation=gen)
+            _gc_span = _current.span("host.gc", generation=gen)
+            _gc_span.__enter__()
+        else:
+            span, _gc_span = _gc_span, _NULL_SPAN
+            span.__exit__(None, None, None)
+    except RuntimeError:
+        # the profiler was starting or stopping: a collection must not
+        # raise, and the next one starts clean
+        _gc_span = _NULL_SPAN
+
+
+# one hook a process, added on the module's import: registries add none
+gc.callbacks.append(_on_collection)
